@@ -1,23 +1,34 @@
 """Smoke test of the PyTorch / CUDA port on one GPU.
 
-Builds every kernel of the port from ``distkeras_tpu_torch/ops/csrc``,
-holds each against its plain PyTorch version on the card, drives the
-serving path (``generate``: prefill through the flash kernel, then the
-KV-cached decode) at the flagship serving width, checks that the path
-launched the kernel, and checks the outputs against the plain path.
+Builds every kernel of the port from ``distkeras_tpu_torch/ops/csrc``
+and holds each against its plain PyTorch version on the card, then
+drives the port's two main paths at the flagship width and checks that
+each went through its kernels:
+
+- serving: ``generate`` (prefill through the flash forward kernel, then
+  the KV-cached decode), checked against the plain path;
+- training: ``LMTrainer`` steps (the flash forward with lse, then the
+  FA2 dQ and dK/dV kernels in the backward), with the loss falling on a
+  repeated batch, kernel gradients held against the plain attention's
+  at full width, and packed (segment-masked) steps.
 
 Usage: python3 chip_smoke.py [--profile]     (needs one CUDA device)
 
 ``--profile`` adds the device time by kernel (torch.profiler) of one
-prefill and of a short generate at the same shapes.
+prefill, a short generate and one train step.
 
 Output: the card's name and power limit, one line per phase, then a
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
-line.  Any failed phase raises, so the exit code is nonzero.
+line.  Any failed phase raises, so the exit code is nonzero.  In the
+kernels line, ``flash_fwd``'s times are the serving prefill case (bf16,
+causal, no lse) and its launches those of both main-path runs; the
+backward kernels' times are the training case (f32, causal) and their
+launches those of the training run.
 """
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 import distkeras_tpu_torch as dkt
 from distkeras_tpu_torch.ops import _build
 from distkeras_tpu_torch.ops import attention as attn
+from distkeras_tpu_torch.models.transformer import named_leaves
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (NVIDIA data sheet)
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
@@ -41,6 +53,34 @@ FLAGSHIP = dkt.TransformerConfig(
     max_len=1025, dtype="bfloat16", rope=True)
 PREFILL_SHAPE = (8, 512, 8, 128)   # q/k/v [B, L, H, D] of that prefill
 NEW_TOKENS = 64
+
+# The transformer_d1024 row of scripts/bench_suite.py (the same trunk,
+# learned positions), trained as _measure_lm trains it: adamw 3e-4,
+# batch 8 x seq 1024, f32 weights (so the trunk, and attention, run f32).
+FLAGSHIP_TRAIN = dkt.TransformerConfig(
+    vocab_size=32768, d_model=1024, n_heads=8, n_layers=8, d_ff=4096,
+    max_len=1025, dtype="bfloat16")
+TRAIN_SHAPE = (8, 1024, 8, 128)    # q/k/v [B, L, H, D] of a train step
+TRAIN_STEPS = 10
+
+
+def ptxas_summary(build_log):
+    """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its
+    name and template arguments (as mangled), registers and spills."""
+    out, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = re.search(r"\d(flash_\w+?_kernel)I(\w*?)EEv", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} regs, "
+                       f"{spill}")
+            name = None
+    return out
 
 
 def log(phase, **fields):
@@ -81,16 +121,132 @@ def live_pairs(lq, lk, causal, window):
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def bound(q, causal, window):
-    """Least time the card needs: max(FLOPs / peak, bytes / HBM rate),
-    q, k, v read once and O written once."""
+def bound(q, causal, window, flops_per_pair=None, n_bytes=None, pairs=None):
+    """Least time the card needs: max(FLOPs / peak, bytes / HBM rate).
+    Defaults: the forward (4 D FLOPs per live pair; q, k, v read once and
+    O written once); ``pairs`` overrides the live-pair count (segment
+    masks)."""
     b, lq, h, d = q.shape
-    flops = 4 * b * h * d * live_pairs(lq, lq, causal, window)
+    if pairs is None:
+        pairs = b * h * live_pairs(lq, lq, causal, window)
+    flops = (flops_per_pair or 4 * d) * pairs
     peak = H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS
     t_ops = flops / peak
-    t_bytes = 4 * q.numel() * q.element_size() / H100_HBM_BYTES
+    t_bytes = (n_bytes or 4 * q.numel() * q.element_size()) / H100_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def keep_mask(seg, lq, causal, window):
+    """[B, L, L] bool: the pairs the kernels keep (causal / window band,
+    same segment), or None for full attention."""
+    mask = None
+    if causal:
+        mask = attn._causal_mask(lq, lq, 0, 0, window, "cuda")[None]
+    if seg is not None:
+        same = seg[:, :, None] == seg[:, None, :]
+        mask = same if mask is None else mask & same
+    return mask
+
+
+def packed_segments(batch, length, seed):
+    """Segment ids of packed rows (``pack_documents``-style: documents of
+    random length laid end to end, fresh ids per row, padding 0 in the
+    last row's tail), int32 on the card."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((batch, length), np.int32)
+    for row in range(batch):
+        pos, sid = 0, 1
+        while pos < length:
+            n = int(rng.integers(30, 400))
+            seg[row, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    seg[-1, -37:] = 0
+    return torch.from_numpy(seg).to("cuda")
+
+
+def train_kernel_case(dtype, causal, window, segmented, seed=0):
+    """The training kernels at the train-step shape: the forward with lse
+    against flash_fwd_plain, and the dQ / dK/dV kernels against the plain
+    FA2 versions on the same lse / delta.  Max errors, and kernel /
+    plain / library times (SDPA: forward, and its backward as forward +
+    backward minus forward)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(TRAIN_SHAPE, generator=gen, device="cuda",
+                               dtype=dtype) for _ in range(4))
+    seg = packed_segments(TRAIN_SHAPE[0], TRAIN_SHAPE[1], seed) \
+        if segmented else None
+    scale = 1.0 / TRAIN_SHAPE[-1] ** 0.5
+    # f32: summation order only; bf16: P rounds to bf16 in the forward,
+    # and the backward's f32 results round once to bf16.
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    with torch.no_grad():
+        out, lse = attn.flash_fwd_cuda(q, k, v, causal, scale, window, seg,
+                                       with_lse=True)
+        ref, ref_lse = attn.flash_fwd_plain(q, k, v, causal, scale, window,
+                                            seg)
+        delta = attn.attention_delta(do, ref)
+        dq = attn.flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, causal,
+                                    scale, window, seg)
+        dk, dv = attn.flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, causal,
+                                         scale, window, seg)
+        ref_dq = attn.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, causal,
+                                         scale, window, seg)
+        ref_dk, ref_dv = attn.flash_bwd_dkv_plain(q, k, v, do, ref_lse,
+                                                  delta, causal, scale,
+                                                  window, seg)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, want in (("fwd_o", out, ref), ("fwd_lse", lse, ref_lse),
+                                ("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                                ("dv", dv, ref_dv)):
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol, msg=lambda m: f"{name}: {m}")
+            errs[name] = float((got.float() - want.float()).abs().max())
+        del out, lse, ref, dq, dk, dv, ref_dq, ref_dk, ref_dv
+        times = dict(
+            fwd_ms=time_ms(lambda: attn.flash_fwd_cuda(
+                q, k, v, causal, scale, window, seg, with_lse=True)),
+            fwd_plain_ms=time_ms(lambda: attn.flash_fwd_plain(
+                q, k, v, causal, scale, window, seg), iters=5),
+            dq_ms=time_ms(lambda: attn.flash_bwd_dq_cuda(
+                q, k, v, do, ref_lse, delta, causal, scale, window, seg)),
+            dq_plain_ms=time_ms(lambda: attn.flash_bwd_dq_plain(
+                q, k, v, do, ref_lse, delta, causal, scale, window, seg),
+                iters=5),
+            dkv_ms=time_ms(lambda: attn.flash_bwd_dkv_cuda(
+                q, k, v, do, ref_lse, delta, causal, scale, window, seg)),
+            dkv_plain_ms=time_ms(lambda: attn.flash_bwd_dkv_plain(
+                q, k, v, do, ref_lse, delta, causal, scale, window, seg),
+                iters=5))
+    mask = keep_mask(seg, TRAIN_SHAPE[1], causal, window)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    gt = do.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=None if mask is None else mask[:, None],
+        is_causal=causal and mask is None and seg is None)
+    with torch.no_grad():
+        times["library_fwd_ms"] = time_ms(sdpa)
+    fwd_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt))
+    times["library_bwd_ms"] = fwd_bwd - times["library_fwd_ms"]
+    b, lq, h, d = TRAIN_SHAPE
+    pairs = (b * h * lq * lq if mask is None
+             else h * int(mask.expand(b, lq, lq).sum()))
+    elt = q.element_size()
+    rows = 2 * b * h * lq * 4 + (0 if seg is None else b * lq * 4)
+    bounds = dict(
+        fwd=bound(q, causal, window, pairs=pairs,
+                  n_bytes=4 * q.numel() * elt + b * h * lq * 4),
+        dq=bound(q, causal, window, 6 * d, 5 * q.numel() * elt + rows,
+                 pairs),
+        dkv=bound(q, causal, window, 8 * d, 6 * q.numel() * elt + rows,
+                  pairs))
+    return dict(dtype=str(dtype).split(".")[-1], causal=causal,
+                window=window, segmented=segmented, live_pairs=pairs,
+                max_abs_err=errs, tol=tol, **times,
+                **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+                **{f"{k}_bound_by": v[1] for k, v in bounds.items()})
 
 
 def kernel_case(dtype, causal, window, seed=0):
@@ -138,7 +294,7 @@ def numpy_params(cfg, seed):
         return rng.standard_normal(shape, dtype=np.float32) / np.float32(
             fan_in ** 0.5)
 
-    return {
+    params = {
         "tok_emb": dense((cfg.vocab_size, d), d),
         "ln_f_scale": np.ones(d, np.float32),
         "layers": {
@@ -151,40 +307,161 @@ def numpy_params(cfg, seed):
             "ffn": {"w1": dense((L, d, f), d), "w2": dense((L, f, d), f)},
         },
     }
+    if not cfg.rope:
+        params["pos_emb"] = dense((cfg.max_len, d), 1.0) * np.float32(0.02)
+    return params
+
+
+def profile_window(name, fn):
+    """Device time by kernel (torch.profiler) of one call of ``fn`` after
+    a warm call, with the device's busy and idle share of its wall
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = wall_s(fn)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    log("profile", window=name, wall_ms=1e3 * wall, device_busy_ms=busy,
+        idle_share=1 - busy / (1e3 * wall),
+        top=[{"kernel": e.key[:90], "calls": e.count,
+              "device_ms": e.self_device_time_total / 1e3}
+             for e in top])
 
 
 def profile_serve(params, prompt, cfg):
-    """Device time by kernel (torch.profiler) for one prefill and for
-    the decode steps of a short generate, with the device's busy share
-    of each window's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def window(name, fn):
-        fn()  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, wall = wall_s(fn)
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                     reverse=True)[:12]
-        log("profile", window=name, wall_ms=1e3 * wall, device_busy_ms=busy,
-            idle_share=1 - busy / (1e3 * wall),
-            top=[{"kernel": e.key[:90], "calls": e.count,
-                  "device_ms": e.self_device_time_total / 1e3}
-                 for e in top])
-
-    window("prefill", lambda: dkt.prefill(params, prompt, cfg,
-                                          last_logits=False))
-    window("generate_8_tokens", lambda: dkt.generate(params, prompt, cfg, 8))
+    """Profiled windows of one prefill and of a short generate."""
+    profile_window("prefill", lambda: dkt.prefill(params, prompt, cfg,
+                                                  last_logits=False))
+    profile_window("generate_8_tokens",
+                   lambda: dkt.generate(params, prompt, cfg, 8))
 
 
 def plain_flash(q, k, v):
     """The default attention_fn with the plain version in the kernel's
     place (for the path parity check)."""
     return attn.blockwise_attention(q, k, v, True)
+
+
+def expect_launches(counts, want, what):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if counts[name] != want:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} "
+                                 f"times, expected {want} ({counts})")
+
+
+def train_phase(np_params, profile):
+    """LMTrainer at full width: one warm step, then TRAIN_STEPS steps on
+    one repeated batch (the loss must fall), every step through the
+    training kernels."""
+    cfg = FLAGSHIP_TRAIN
+    params = dkt.params_from_numpy(np_params, "cuda")
+    batch = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (8, TRAIN_SHAPE[1] + 1)).astype(np.int32)
+    trainer = dkt.LMTrainer(cfg, optimizer="adamw", learning_rate=3e-4,
+                            batch_size=8)
+    trainer.train(batch, params=params)  # warm-up: first-call set-up
+    trainer.train(batch, params=params)  # one steady step
+    one_s = trainer.training_time
+    torch.cuda.reset_peak_memory_stats()
+    for name in attn.LAUNCHES:
+        attn.LAUNCHES[name] = 0
+    trainer.train(np.tile(batch, (TRAIN_STEPS, 1)), params=params)
+    launches = dict(attn.LAUNCHES)
+    expect_launches(launches, cfg.n_layers * TRAIN_STEPS, "train")
+    hist = trainer.history
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(hist)):
+        raise AssertionError(f"bad train losses {hist}")
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: {hist}")
+    # Both runs pay the same set-up (param copy, optimizer init), so the
+    # difference is TRAIN_STEPS - 1 steady steps.
+    step_ms = 1e3 * (trainer.training_time - one_s) / (TRAIN_STEPS - 1)
+    log("train", config=dataclasses.asdict(cfg), batch=8,
+        seq=TRAIN_SHAPE[1], steps=TRAIN_STEPS, optimizer="adamw",
+        learning_rate=3e-4, launches=launches, losses=hist,
+        train_s=trainer.training_time, one_step_train_s=one_s,
+        step_ms=step_ms,
+        tokens_per_s=8 * TRAIN_SHAPE[1] * 1e3 / step_ms,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    if profile:
+        opt = dkt.Optimizer("adamw", 3e-4)
+        step = dkt.make_train_step(cfg, opt)
+        carry = (params, opt.init(params))
+        tokens = torch.from_numpy(batch).to("cuda")
+        profile_window("train_step", lambda: step(carry, tokens))
+    return launches
+
+
+def train_parity_phase(np_params):
+    """One lm_loss gradient at full width in f32 through the kernels and
+    through the blockwise tier (autograd, no kernel): every leaf within
+    1e-3 * max|g| of the plain one.  (Under the bf16 config the embedding
+    gradients are bf16-rounded sums, a rounding of their own; the f32
+    config holds the attention backward alone.)  Then two packed
+    (segment-masked) steps through the kernels at the training config."""
+    cfg = dataclasses.replace(FLAGSHIP_TRAIN, dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, TRAIN_SHAPE[1] + 1)).astype(np.int32)).cuda()
+    grads = []
+    for fn in (None, plain_flash):  # the blockwise tier under autograd
+        params = dkt.params_from_numpy(np_params, "cuda")
+        named = named_leaves(params)
+        for _, leaf in named:
+            leaf.requires_grad_()
+        before = dict(attn.LAUNCHES)
+        loss = dkt.lm_loss(params, tokens, cfg, attention_fn=fn)
+        loss.backward()
+        went = attn.LAUNCHES["flash_bwd_dkv"] - before["flash_bwd_dkv"]
+        if went != (cfg.n_layers if fn is None else 0):
+            raise AssertionError(f"parity run launched dK/dV {went} times")
+        grads.append((loss.item(), {path: p.grad.cpu().numpy()
+                                    for path, p in named}))
+        del params, named, loss
+    (loss_k, gk), (loss_p, gp) = grads
+    worst = {}
+    for path, a in gk.items():
+        b = gp[path]
+        rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        worst[path] = rel
+        if not rel <= 1e-3:
+            raise AssertionError(f"grad {path}: max|dg| = {rel} * max|g|")
+    if not abs(loss_k - loss_p) <= 1e-4:
+        raise AssertionError(f"losses differ: {loss_k} vs {loss_p}")
+
+    # Packed rows: documents laid end to end, segments from pack_documents.
+    rng = np.random.default_rng(4)
+    docs = [rng.integers(1, cfg.vocab_size, size=int(n))
+            for n in rng.integers(20, 700, size=60)]
+    rows, seg = dkt.pack_documents(docs, TRAIN_SHAPE[1])
+    cfg = FLAGSHIP_TRAIN
+    params = dkt.params_from_numpy(np_params, "cuda")
+    opt = dkt.Optimizer("adamw", 3e-4)
+    step = dkt.make_train_step(cfg, opt)
+    carry = (params, opt.init(params))
+    for name in attn.LAUNCHES:
+        attn.LAUNCHES[name] = 0
+    seg_losses = []
+    for i in range(2):
+        carry, loss = step(carry, rows[8 * i:8 * i + 8],
+                           segment_ids=seg[8 * i:8 * i + 8])
+        seg_losses.append(float(loss))
+    seg_launches = dict(attn.LAUNCHES)
+    expect_launches(seg_launches, 2 * cfg.n_layers, "packed steps")
+    if not all(np.isfinite(seg_losses)):
+        raise AssertionError(f"packed losses {seg_losses}")
+    log("train_parity", loss_kernel=loss_k, loss_plain=loss_p,
+        grad_max_rel_err=max(worst.values()),
+        worst_leaf=max(worst, key=worst.get), tol=1e-3,
+        packed_rows=int(len(rows)), packed_losses=seg_losses,
+        packed_launches=seg_launches)
 
 
 def main(profile=False):
@@ -204,9 +481,8 @@ def main(profile=False):
     t0 = time.perf_counter()
     _build.build_all()
     log("build", seconds=time.perf_counter() - t0, sources=_build.sources(),
-        ptxas=[ln.strip() for log_ in _build.build_logs.values()
-               for ln in log_.splitlines()
-               if "registers" in ln or "spill" in ln])
+        ptxas=[line for log_ in _build.build_logs.values()
+               for line in ptxas_summary(log_)])
 
     # 2. Each kernel against its plain version, at the prefill shape.
     cases = []
@@ -217,17 +493,32 @@ def main(profile=False):
                 **cases[-1])
     main_case = cases[0]   # bf16 causal: what the prefill launches
 
+    # 2b. The training kernels at the train-step shape.
+    train_cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, window, segmented in ((True, None, False),
+                                          (True, 256, False),
+                                          (False, None, False),
+                                          (True, None, True)):
+            train_cases.append(train_kernel_case(dtype, causal, window,
+                                                 segmented))
+            log("kernel_vs_plain", kernel="flash_fwd(lse)+flash_bwd",
+                shape=TRAIN_SHAPE, **train_cases[-1])
+    tmain = train_cases[0]  # f32 causal: what a train step launches
+
     # 3. The serving path at full width: greedy generate, 8 x 512 prompt.
     cfg = FLAGSHIP
     np_params = numpy_params(cfg, seed=0)
     params = dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16)
     prompt = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (8, 512)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
     for name in attn.LAUNCHES:
         attn.LAUNCHES[name] = 0
     out, gen_s = wall_s(lambda: dkt.generate(params, prompt, cfg,
                                              NEW_TOKENS))
     launches = dict(attn.LAUNCHES)
+    serve_fwd_launches = launches["flash_fwd"]
     if launches["flash_fwd"] != cfg.n_layers:
         raise AssertionError(f"prefill launched flash_fwd "
                              f"{launches['flash_fwd']} times, expected "
@@ -289,16 +580,39 @@ def main(profile=False):
         bf16_logit_max_abs=bf16_scale, f32_logit_max_abs_err=f32_err,
         f32_prefill_vs_sequential_tokens_equal=True,
         seconds_total=time.perf_counter() - t_start)
+    del params, params32
 
+    # 5. The training path at full width, and its parity.
+    train_np = numpy_params(FLAGSHIP_TRAIN, seed=1)
+    train_launches = train_phase(train_np, profile)
+    train_parity_phase(train_np)
+    log("done", seconds_total=time.perf_counter() - t_start)
+
+    bwd_source = "distkeras_tpu_torch/ops/csrc/flash_bwd.cu"
+    err = tmain["max_abs_err"]
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "distkeras_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "distkeras_tpu/ops/attention.py:197",
-        "launches": launches["flash_fwd"],
+        "launches": serve_fwd_launches + train_launches["flash_fwd"],
         "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]}), flush=True)
+        "library_ms": main_case["library_ms"]}, {
+        "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
+        "replaces": "distkeras_tpu/ops/attention.py:438",
+        "launches": train_launches["flash_bwd_dq"],
+        "max_abs_err": err["dq"], "ms": tmain["dq_ms"],
+        "plain_ms": tmain["dq_plain_ms"], "bound_ms": tmain["dq_bound_ms"],
+        "bound_by": tmain["dq_bound_by"],
+        "library_ms": tmain["library_bwd_ms"]}, {
+        "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
+        "replaces": "distkeras_tpu/ops/attention.py:498",
+        "launches": train_launches["flash_bwd_dkv"],
+        "max_abs_err": max(err["dk"], err["dv"]), "ms": tmain["dkv_ms"],
+        "plain_ms": tmain["dkv_plain_ms"], "bound_ms": tmain["dkv_bound_ms"],
+        "bound_by": tmain["dkv_bound_by"],
+        "library_ms": tmain["library_bwd_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,7 +27,7 @@ from distkeras_tpu_torch.models.transformer import (
     _dot,
     _embed,
     _ffn,
-    _layer,
+    _layers,
     _rms_norm,
     _unembed,
     block_apply,
@@ -71,9 +71,8 @@ def prefill(params, prompt, cfg: TransformerConfig,
         q, k, v, True, window=cfg.attention_window)
     with torch.no_grad():
         x, rope_ang = _embed(params, prompt, cfg)
-        for i in range(cfg.n_layers):
-            x, _, (k, v) = block_apply(_layer(params["layers"], i), x, cfg,
-                                       attention_fn, rope_ang,
+        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+            x, _, (k, v) = block_apply(lp, x, cfg, attention_fn, rope_ang,
                                        return_kv=True)
             # In place into the preallocated cache (copy_ casts to the
             # cache dtype, as the reference's astype does).
@@ -116,8 +115,7 @@ def _decode_layers(params, cache, x, rope_ang, wr_pos: int, mask,
     dtype = cfg.torch_dtype
     b, t_len = x.shape[:2]
     groups = cfg.n_heads // cfg.kv_heads
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         h = _rms_norm(x, lp["ln1_scale"])
         q = _dot(h, deq(lp["attn"]["wq"]))
         k = _dot(h, deq(lp["attn"]["wk"]))

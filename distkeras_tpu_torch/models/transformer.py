@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM in PyTorch: the dense inference trunk.
+"""Decoder-only transformer LM in PyTorch: the dense trunk, its losses
+and the train step.
 
 Counterpart of ``distkeras_tpu/models/transformer.py``: plain functions
 over a params dict in the same L-stacked layout (``init_params``), so the
@@ -7,9 +8,14 @@ Dtypes follow JAX's promotion: with f32 weights under a ``bfloat16``
 config only the embeddings round to bf16 and the trunk runs in f32, as
 in the reference.
 
-Not in this slice: MoE FFNs (ROADMAP A9), training dropout, remat, the
-pipelined trunk and the losses (ROADMAP A2-A4).  Configs that need them
-raise ``NotImplementedError``.
+Training: ``lm_loss`` / ``lm_nll`` (full or chunked vocab head, z-loss,
+packed ``segment_ids``) are differentiated by autograd, through the
+flash kernels' backward on the card; ``make_train_step`` applies an
+``trainers.optim.Optimizer``.  Dropout draws its masks from an explicit
+``torch.Generator`` (JAX's key stream cannot be matched).
+
+Not ported yet: MoE FFNs (ROADMAP A9), remat and the pipelined trunk.
+Configs that need them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from distkeras_tpu_torch.ops.attention import flash_attention
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
@@ -111,15 +118,42 @@ def _check_supported(cfg: TransformerConfig) -> None:
             "MoE configs (num_experts > 0) are not ported yet (ROADMAP A9)")
     if cfg.remat:
         raise NotImplementedError(
-            "remat is a training feature; it comes with the training "
-            "slice (ROADMAP A2/A4)")
+            "remat (and remat_policy) is not ported yet: it comes with the "
+            "long-context slice (ROADMAP A2)")
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of the L-stacked per-layer params."""
+def _layers(tree, n: int):
+    """The ``n`` per-layer param dicts of the L-stacked params, by one
+    ``unbind`` per leaf: its backward stacks the per-layer gradients in
+    one op, where indexing each layer would scatter each into a
+    full-size zero tensor."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def named_leaves(tree, prefix=""):
+    """``[(path, tensor)]`` of a nested params dict, paths joined by
+    ``/`` (the reference's key paths)."""
+    out = []
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out += named_leaves(value, path + "/")
+        else:
+            out.append((path, value))
+    return out
+
+
+def _leaves(tree):
+    return [leaf for _, leaf in named_leaves(tree)]
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _dot(x, w, n: int = 1):
@@ -177,13 +211,31 @@ def init_params(rng, cfg: TransformerConfig, device=None):
     return place(params)
 
 
-def _resolve_attention_fn(cfg: TransformerConfig, attention_fn):
-    """The reference's window guard: a custom fn's ``handles_window``
-    must equal ``cfg.attention_window`` (a one-sided band would diverge
-    the forward from the KV-cached decode, which follows cfg)."""
+def _resolve_attention_fn(cfg: TransformerConfig, attention_fn,
+                          segment_ids=None):
+    """The reference's guards: no fn builds the default windowed flash
+    call (closing over ``segment_ids``); a custom fn with segments must
+    take them itself (``fn.handles_segments`` and a ``segment_ids``
+    kwarg), and its ``handles_window`` must equal ``cfg.attention_window``
+    (a one-sided band would diverge the forward from the KV-cached
+    decode, which follows cfg)."""
     if attention_fn is None:
-        return lambda q, k, v: flash_attention(q, k, v, True,
-                                               window=cfg.attention_window)
+        return lambda q, k, v: flash_attention(
+            q, k, v, True, window=cfg.attention_window,
+            segment_ids=segment_ids)
+    if segment_ids is not None:
+        if not getattr(attention_fn, "handles_segments", False):
+            raise ValueError(
+                "segment_ids with this custom attention_fn is not "
+                "supported: the packed-document mask must be applied "
+                "inside the attention implementation (set "
+                "fn.handles_segments = True and accept a segment_ids "
+                "kwarg) — or drop the custom fn / unpack the batch")
+        base_fn = attention_fn
+        attention_fn = lambda q, k, v: base_fn(q, k, v,
+                                               segment_ids=segment_ids)
+        attention_fn.handles_window = getattr(base_fn, "handles_window",
+                                              None)
     fn_window = getattr(attention_fn, "handles_window", None)
     if fn_window != cfg.attention_window:
         raise ValueError(
@@ -197,6 +249,23 @@ def _check_len(s: int, cfg: TransformerConfig) -> None:
     if not cfg.rope and s > cfg.max_len:
         raise ValueError(
             f"sequence length {s} exceeds max_len={cfg.max_len}")
+
+
+def _check_generator(gen) -> None:
+    if gen is not None and not isinstance(gen, torch.Generator):
+        raise TypeError(
+            f"dropout_rng must be a torch.Generator (on the activations' "
+            f"device), got {type(gen).__name__}")
+
+
+def _dropout(x, rate: float, gen):
+    """Inverted dropout with masks from ``gen`` (a ``torch.Generator``
+    on x's device): keep with probability ``1 - rate``, scale by its
+    inverse — the reference's formula; its bits come from JAX's key and
+    cannot be matched."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0).to(x.dtype)
 
 
 def _rms_norm(x, scale, eps=1e-6):
@@ -245,10 +314,13 @@ def _ffn(lp, h):
 
 
 def block_apply(layer_params, x, cfg: TransformerConfig,
-                attention_fn: Callable, rope_ang=None, return_kv=False):
+                attention_fn: Callable, rope_ang=None, drop_rng=None,
+                return_kv=False):
     """One pre-norm dense block.  Returns (x, aux_loss), or
     (x, aux_loss, (k, v)) with ``return_kv`` (post-rope, kv-heads-only —
-    the decode-cache layout that ``generate.prefill`` consumes)."""
+    the decode-cache layout that ``generate.prefill`` consumes).
+    ``drop_rng`` (a ``torch.Generator``) enables residual dropout on the
+    attention and FFN outputs."""
     h = _rms_norm(x, layer_params["ln1_scale"])
     a = _attention_block(layer_params["attn"], h, attention_fn, rope_ang,
                          kv_groups=cfg.n_heads // cfg.kv_heads,
@@ -256,8 +328,13 @@ def block_apply(layer_params, x, cfg: TransformerConfig,
     kv = None
     if return_kv:
         a, kv = a
+    if drop_rng is not None:
+        a = _dropout(a, cfg.dropout, drop_rng)
     x = x + a
-    out = x + _ffn(layer_params["ffn"], _rms_norm(x, layer_params["ln2_scale"]))
+    y = _ffn(layer_params["ffn"], _rms_norm(x, layer_params["ln2_scale"]))
+    if drop_rng is not None:
+        y = _dropout(y, cfg.dropout, drop_rng)
+    out = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return (out, aux, kv) if return_kv else (out, aux)
 
@@ -278,22 +355,28 @@ def _embed(params, tokens, cfg: TransformerConfig):
 
 
 def apply_hidden(params, tokens, cfg: TransformerConfig,
-                 attention_fn: Callable | None = None, dropout_rng=None):
+                 attention_fn: Callable | None = None, dropout_rng=None,
+                 segment_ids=None):
     """Trunk forward: tokens [B, S] -> final-norm hidden [B, S, D];
-    returns (hidden, aux).  Packed sequences (``segment_ids``) come with
-    the training slice."""
+    returns (hidden, aux).
+
+    ``dropout_rng`` (a ``torch.Generator`` on the tokens' device) with
+    ``cfg.dropout > 0`` enables training dropout: the embedding, then
+    each block's attention and FFN outputs, in that order, draw their
+    masks from it.  ``segment_ids [B, S]`` (packed sequences,
+    data/packing.py) masks attention to within-segment pairs.
+    """
     _check_supported(cfg)
-    if dropout_rng is not None:
-        raise NotImplementedError(
-            "training dropout comes with the training slice (ROADMAP A4); "
-            "inference is deterministic")
-    attention_fn = _resolve_attention_fn(cfg, attention_fn)
+    _check_generator(dropout_rng)
+    attention_fn = _resolve_attention_fn(cfg, attention_fn, segment_ids)
     _check_len(tokens.shape[1], cfg)
     x, rope_ang = _embed(params, tokens, cfg)
+    drop = dropout_rng if cfg.dropout > 0 else None
+    if drop is not None:
+        x = _dropout(x, cfg.dropout, drop)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, aux = block_apply(_layer(params["layers"], i), x, cfg,
-                             attention_fn, rope_ang)
+    for lp in _layers(params["layers"], cfg.n_layers):
+        x, aux = block_apply(lp, x, cfg, attention_fn, rope_ang, drop)
         aux_total = aux_total + aux
     return _rms_norm(x, params["ln_f_scale"]), aux_total
 
@@ -307,7 +390,8 @@ def _unembed(hidden, params, cfg: TransformerConfig):
 def apply(params, tokens, cfg: TransformerConfig,
           attention_fn: Callable | None = None, dropout_rng=None,
           device=None):
-    """Forward pass: tokens [B, S] int -> (f32 logits [B, S, V], aux).
+    """Forward pass: tokens [B, S] int -> (f32 logits [B, S, V], aux),
+    without gradients (training goes through :func:`lm_loss`).
 
     ``attention_fn(q, k, v) -> out`` defaults to causal flash attention
     (the Hopper kernel on the card).  Runs on ``device`` — the card
@@ -315,8 +399,240 @@ def apply(params, tokens, cfg: TransformerConfig,
     """
     device = resolve_device(device)
     check_on_device(params, device)
-    tokens = torch.as_tensor(tokens, device=device).long()
+    tokens = _as_ids(tokens, device, torch.long)
     with torch.no_grad():
         x, aux_total = apply_hidden(params, tokens, cfg, attention_fn,
                                     dropout_rng)
         return _unembed(x, params, cfg), aux_total
+
+
+def _as_ids(x, device, dtype):
+    return torch.as_tensor(x, device=device).to(dtype)
+
+
+# ------------------------------------------------------------------ losses
+
+
+def chunked_softmax_xent(hidden, emb, targets, n_chunks: int):
+    """Mean softmax cross-entropy without materializing full logits.
+    Returns ``(mean_nll, mean_lse_sq)`` (the second is the z-loss
+    statistic).
+
+    ``hidden`` [B, S, D], ``emb`` [V, D], ``targets`` [B, S] int — target
+    -1 marks an excluded position (packed-sequence boundaries / padding,
+    and the internal chunk-pad rows); the mean divides by the valid count
+    only.  Each chunk's [N/n_chunks, V] logits slice is reduced to its
+    per-row ``logsumexp - target_logit`` and discarded; a
+    ``torch.utils.checkpoint`` per chunk re-derives it in the backward,
+    as ``jax.checkpoint`` on the reference's scan body does.
+    """
+    n_tok = targets.numel()
+    d = hidden.shape[-1]
+    h = hidden.reshape(n_tok, d)
+    t = targets.reshape(n_tok).long()
+    pad = (-n_tok) % n_chunks
+    if pad:
+        h = torch.cat([h, h.new_zeros((pad, d))])
+        t = torch.cat([t, t.new_full((pad,), -1)])
+    h = h.reshape(n_chunks, -1, d)
+    t = t.reshape(n_chunks, -1)
+    emb_c = emb.to(hidden.dtype)
+
+    def body(hc, tc):
+        logits = _dot(hc, emb_c.t()).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, tc.clamp(min=0)[:, None])[:, 0]
+        valid = tc >= 0
+        return (torch.where(valid, lse - tgt, 0.0).sum(),
+                torch.where(valid, lse.square(), 0.0).sum())
+
+    total = z_total = torch.zeros((), dtype=torch.float32,
+                                  device=hidden.device)
+    for c in range(n_chunks):
+        if torch.is_grad_enabled():
+            nll, z = checkpoint(body, h[c], t[c], use_reentrant=False)
+        else:
+            nll, z = body(h[c], t[c])
+        total, z_total = total + nll, z_total + z
+    denom = (t >= 0).sum().clamp(min=1).float()
+    return total / denom, z_total / denom
+
+
+def _forward_nll(params, tokens, cfg: TransformerConfig,
+                 attention_fn: Callable | None, apply_fn: Callable | None,
+                 dropout_rng=None, hidden_fn: Callable | None = None,
+                 segment_ids=None):
+    """(mean next-token NLL, aux) — shared by train loss and eval.
+
+    Three forward routes, as in the reference:
+
+    - ``apply_fn(params, inputs) -> (logits, aux)``: caller-materialized
+      logits; full log_softmax head.
+    - ``hidden_fn(params, inputs) -> (hidden, aux)``: caller-supplied
+      final-norm hidden states; the head honors ``cfg.ce_chunks``.
+    - neither: the default :func:`apply_hidden` trunk; the head honors
+      ``cfg.ce_chunks``.
+
+    ``segment_ids [B, S+1]`` (aligned with ``tokens``): attention is
+    segment-masked on the default trunk, and targets that cross a
+    document boundary or sit in padding (segment 0) are excluded from
+    the mean.  A custom fn with ``handles_segments = True`` is called as
+    ``fn(params, inputs, seg)``.
+    """
+    if apply_fn is not None and hidden_fn is not None:
+        raise ValueError("pass apply_fn or hidden_fn, not both")
+    device = params["tok_emb"].device
+    tokens = _as_ids(tokens, device, torch.long)
+    targets = tokens[:, 1:]
+    valid = seg_in = None
+    if segment_ids is not None:
+        segment_ids = _as_ids(segment_ids, device, torch.int32)
+        if segment_ids.shape != tokens.shape:
+            raise ValueError(
+                f"segment_ids must align with tokens "
+                f"{tuple(tokens.shape)}, got {tuple(segment_ids.shape)}")
+        seg_in = segment_ids[:, :-1]
+        # A target is trainable iff it continues its input's document.
+        valid = (segment_ids[:, 1:] == seg_in) & (seg_in != 0)
+        targets = torch.where(valid, targets, -1)
+    zc = cfg.z_loss_coef
+
+    def masked_mean(x):
+        if valid is None:
+            return x.mean()
+        return torch.where(valid, x, 0.0).sum() / valid.sum().clamp(min=1)
+
+    def full_head(logits, aux):
+        # z-loss rides in aux (training-only; lm_nll drops aux).
+        logp = F.log_softmax(logits, dim=-1)
+        per_tok = -logp.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+        nll = masked_mean(per_tok)
+        if zc > 0:
+            aux = aux + zc * masked_mean(torch.logsumexp(logits,
+                                                         dim=-1).square())
+        return nll, aux
+
+    def call_custom(fn, *args):
+        if seg_in is not None and getattr(fn, "handles_segments", False):
+            return fn(*args, seg_in)
+        return fn(*args)
+
+    if apply_fn is not None:
+        return full_head(*call_custom(apply_fn, params, tokens[:, :-1]))
+    if hidden_fn is None:
+        hidden_fn = lambda p, t: apply_hidden(p, t, cfg, attention_fn,
+                                              dropout_rng, seg_in)
+    hidden, aux = call_custom(hidden_fn, params, tokens[:, :-1])
+    if cfg.ce_chunks > 1:
+        nll, z_mean = chunked_softmax_xent(hidden, params["tok_emb"],
+                                           targets, cfg.ce_chunks)
+        if zc > 0:
+            aux = aux + zc * z_mean
+        return nll, aux
+    return full_head(_unembed(hidden, params, cfg), aux)
+
+
+def lm_loss(params, tokens, cfg: TransformerConfig,
+            attention_fn: Callable | None = None,
+            apply_fn: Callable | None = None, dropout_rng=None,
+            hidden_fn: Callable | None = None, segment_ids=None):
+    """Next-token cross-entropy (+ z-loss), mean over the trainable
+    targets (all B*(S-1) positions, or the within-document subset when
+    ``segment_ids`` marks packed sequences — see :func:`_forward_nll`).
+    ``tokens [B, S+1]`` on the params' device (or host ints)."""
+    if dropout_rng is not None and (apply_fn is not None
+                                    or hidden_fn is not None):
+        raise ValueError(
+            "dropout_rng only threads through the default trunk; a "
+            "custom apply_fn/hidden_fn must draw its own masks")
+    nll, aux = _forward_nll(params, tokens, cfg, attention_fn, apply_fn,
+                            dropout_rng, hidden_fn, segment_ids)
+    return nll + aux
+
+
+def lm_nll(params, tokens, cfg: TransformerConfig,
+           attention_fn: Callable | None = None,
+           apply_fn: Callable | None = None,
+           hidden_fn: Callable | None = None, segment_ids=None):
+    """Mean next-token NLL without the z-loss regularizer — the
+    evaluation quantity (``exp`` of it is perplexity)."""
+    return _forward_nll(params, tokens, cfg, attention_fn, apply_fn,
+                        hidden_fn=hidden_fn, segment_ids=segment_ids)[0]
+
+
+# -------------------------------------------------------------- train step
+
+
+def global_norm(tensors):
+    """``sqrt(sum of squares)`` over all entries of ``tensors`` (f32)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+
+
+def make_train_step(cfg: TransformerConfig, optimizer,
+                    attention_fn: Callable | None = None,
+                    apply_fn: Callable | None = None,
+                    grad_accum: int = 1,
+                    hidden_fn: Callable | None = None,
+                    loss_fn: Callable | None = None,
+                    probe: bool = False):
+    """``step((params, opt_state), tokens, dropout_rng=None,
+    segment_ids=None) -> ((params, opt_state), loss)``.
+
+    ``optimizer`` is a ``trainers.optim.Optimizer`` and ``opt_state``
+    its ``init(params)``, which makes the params' leaves require grad.
+    The step updates the params in place (the same tensors come back):
+    the port keeps one copy of the weights where the reference's pure
+    step returns new arrays.  With ``grad_accum > 1``, ``tokens`` (and
+    ``segment_ids``) are ``[grad_accum, B, S+1]``: the gradients of the
+    microbatches are summed, then divided by ``grad_accum``, and one
+    update applies their mean; the loss is the mean of the microbatch
+    losses.  ``loss_fn`` (default :func:`lm_loss`) shares lm_loss's
+    signature.  ``probe=True`` returns ``(carry, (loss, {"grad_norm":
+    ...}))`` with the global norm of the (averaged) gradients.
+    """
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    fn = lm_loss if loss_fn is None else loss_fn
+
+    def step(carry, tokens, dropout_rng=None, segment_ids=None):
+        params, opt_state = carry
+        if cfg.dropout > 0 and dropout_rng is None:
+            raise ValueError(
+                f"cfg.dropout={cfg.dropout} but the train step got no "
+                "dropout_rng: pass step(carry, tokens, gen) with a "
+                "torch.Generator, or training silently runs "
+                "unregularized (LMTrainer threads one automatically)")
+        rng = dropout_rng if cfg.dropout > 0 else None
+        device = params["tok_emb"].device
+        tokens = _as_ids(tokens, device, torch.long)
+        if segment_ids is not None:
+            segment_ids = _as_ids(segment_ids, device, torch.int32)
+        leaves = _leaves(params)
+        for p in leaves:
+            p.grad = None
+        if grad_accum == 1:
+            loss = fn(params, tokens, cfg, attention_fn, apply_fn, rng,
+                      hidden_fn, segment_ids)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=device)
+            for i in range(grad_accum):
+                li = fn(params, tokens[i], cfg, attention_fn, apply_fn, rng,
+                        hidden_fn,
+                        None if segment_ids is None else segment_ids[i])
+                li.backward()
+                loss = loss + li.detach()
+            for p in leaves:
+                if p.grad is not None:
+                    p.grad.div_(grad_accum)
+            loss = loss / grad_accum
+        norm = (global_norm([p.grad for p in leaves if p.grad is not None])
+                if probe else None)
+        optimizer.update(params, opt_state)
+        if probe:
+            return (params, opt_state), (loss, {"grad_norm": norm})
+        return (params, opt_state), loss
+
+    return step

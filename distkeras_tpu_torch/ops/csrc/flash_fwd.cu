@@ -1,10 +1,16 @@
 // Flash-attention forward for Hopper (sm_90a).
 //
 // Replaces: distkeras_tpu/ops/attention.py::_flash_kernel (launcher
-// _flash_pallas, inference variant with_lse=False).  Same function:
-// logits = q . k^T * scale in f32, masked with the finite NEG_INF (-1e30)
-// for causal / sliding-window pairs, online softmax over KV tiles with
-// m / l / acc in f32, and O = acc / l with the `l == 0` guard.
+// _flash_pallas).  Same function: logits = q . k^T * scale in f32, masked
+// with the finite NEG_INF (-1e30) for causal / sliding-window pairs and
+// for pairs in different segments (packed documents, int32 segment ids
+// [B, L] indexed by batch row), online softmax over KV tiles with
+// m / l / acc in f32, and O = acc / l with the `l == 0` guard.  The
+// training variant also writes the per-row lse = m + log l (f32
+// [B, H, Lq], the `l == 0` guard again) that the backward kernels
+// (flash_bwd.cu) rebuild the probabilities from; the inference launch
+// passes no lse buffer and writes none.  The segment mask is a template
+// switch, so the unsegmented launch carries no extra work.
 //
 // Translation of the TPU kernel:
 // - The Pallas grid's sequential kv dimension (state carried in VMEM
@@ -68,11 +74,20 @@ __device__ __forceinline__ void tile_range(int row0, int Lq, int Lk, int causal,
 }
 
 // The reference's mask: -inf past the ragged edge (no key there, p = 0),
-// the finite NEG_INF for causal / window-dead pairs.
-__device__ __forceinline__ float masked(float x, int r, int c, int Lk, int causal, int window) {
+// the finite NEG_INF for causal / window-dead pairs and for pairs of two
+// segments (`seg_dead`).
+__device__ __forceinline__ float masked(float x, int r, int c, int Lk, int causal, int window,
+                                        bool seg_dead = false) {
   if (c >= Lk) return neg_infinity();
   if (causal && (r < c || (window > 0 && r - c >= window))) return NEG_INF;
+  if (seg_dead) return NEG_INF;
   return x;
+}
+
+// Segment ids of rows [row0, row0 + 64) into shared memory; rows past L
+// get `pad` (never compared: their logits are ragged-masked or unused).
+__device__ __forceinline__ void load_segs(int* dst, const int* seg, int row0, int L, int pad) {
+  for (int r = threadIdx.x; r < 64; r += blockDim.x) dst[r] = row0 + r < L ? seg[row0 + r] : pad;
 }
 
 // ------------------------------------------------------------------ f32
@@ -87,7 +102,7 @@ template <int D> struct F32Smem {
   static constexpr int KS = D + 1;
   static constexpr int VS = D;
   static constexpr int SS = BN + 1;
-  static constexpr int floats = BM * QS + BN * KS + BN * VS + BM * SS + 3 * BM;
+  static constexpr int floats = BM * QS + BN * KS + BN * VS + BM * SS + 3 * BM + BM + BN;
   static constexpr size_t bytes = sizeof(float) * floats;
 };
 
@@ -103,12 +118,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int H, int Lq, int Lk,
-                     Strides sq, Strides sk, Strides sv, Strides so, float scale, int causal,
-                     int window) {
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                     const int* __restrict__ seg, int H, int Lq, int Lk, Strides sq, Strides sk,
+                     Strides sv, Strides so, float scale, int causal, int window) {
   using S = F32Smem<D>;
   constexpr int DJ = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -119,6 +134,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* m_s = Ss + BM * S::SS;
   float* l_s = m_s + BM;
   float* c_s = l_s + BM;
+  int* segq_s = reinterpret_cast<int*>(c_s + BM);  // segment ids of the q rows
+  int* segk_s = segq_s + BM;                       // and of the current kv tile
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
@@ -139,6 +156,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
   }
+  const int* segb = SEG ? seg + static_cast<long long>(b) * Lq : nullptr;
+  if (SEG) load_segs(segq_s, segb, row0, Lq, -1);
   int lo, hi;
   tile_range(row0, Lq, Lk, causal, window, &lo, &hi);
 
@@ -157,6 +176,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       Ks[r * S::KS + c] = in ? kb[gc * sk.l + c] : 0.f;
       Vs[r * S::VS + c] = in ? vb[gc * sv.l + c] : 0.f;
     }
+    if (SEG) load_segs(segk_s, segb, col0, Lk, -2);
     __syncthreads();
 
     // Logits for rows ty*4+i, columns tx+16j.
@@ -182,7 +202,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         Ss[(ty * 4 + i) * S::SS + tx + 16 * j] =
-            masked(s[i][j], row0 + ty * 4 + i, col0 + tx + 16 * j, Lk, causal, window);
+            masked(s[i][j], row0 + ty * 4 + i, col0 + tx + 16 * j, Lk, causal, window,
+                   SEG && segq_s[ty * 4 + i] != segk_s[tx + 16 * j]);
     __syncthreads();
 
     // Online softmax: each warp owns 8 rows; lanes hold 2 of 64 columns.
@@ -237,6 +258,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) ob[gr * so.l + tx + 16 * j] = acc[i][j] / denom;
   }
+  // lse = m + log l, with the same guard (training launches only).
+  if (lse != nullptr && tid < BM && row0 + tid < Lq) {
+    const float l = l_s[tid];
+    lse[static_cast<long long>(blockIdx.y) * Lq + row0 + tid] = m_s[tid] + logf(l == 0.f ? 1.f : l);
+  }
 }
 
 // ----------------------------------------------------------------- bf16
@@ -246,7 +272,7 @@ constexpr int MMA_THREADS = 128;  // 4 warps x 16 q rows
 
 template <int D> struct MmaSmem {
   static constexpr int RS = D + 8;  // padded row stride (elements)
-  static constexpr size_t bytes = sizeof(bf16) * 3 * 64 * RS;
+  static constexpr size_t bytes = sizeof(bf16) * 3 * 64 * RS + sizeof(int) * 2 * 64;
 };
 
 // D += A . B for one m16n8k16 tile (A row-major 16x16, B col-major 16x8).
@@ -294,12 +320,13 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
   }
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Lq, int Lk,
-                      Strides sq, Strides sk, Strides sv, Strides so, float scale, int causal,
-                      int window, int vec) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                      const int* __restrict__ seg, int H, int Lq, int Lk, Strides sq,
+                      Strides sk, Strides sv, Strides so, float scale, int causal, int window,
+                      int vec) {
   constexpr int RS = MmaSmem<D>::RS;
   constexpr int KT = D / 16;  // k-steps of Q.K^T over head_dim
   constexpr int NT = D / 8;   // n-tiles of P.V over head_dim
@@ -307,6 +334,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + 64 * RS;
   bf16* Vs = Ks + 64 * RS;
+  int* segq_s = reinterpret_cast<int*>(Vs + 64 * RS);
+  int* segk_s = segq_s + 64;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
@@ -316,6 +345,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * sv.b + h * sv.h;
 
   load_tile<D>(Qs, q + b * sq.b + h * sq.h, sq.l, row0, Lq, vec);
+  const int* segb = SEG ? seg + static_cast<long long>(b) * Lq : nullptr;
+  if (SEG) load_segs(segq_s, segb, row0, Lq, -1);
   __syncthreads();
   // This warp's 16 q rows as A fragments, for the whole KV sweep.
   const int qr = warp * 16 + g;
@@ -344,6 +375,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // the previous tile's K / V are consumed
     load_tile<D>(Ks, kb, sk.l, col0, Lk, vec);
     load_tile<D>(Vs, vb, sv.l, col0, Lk, vec);
+    if (SEG) load_segs(segk_s, segb, col0, Lk, -2);
     __syncthreads();
 
     // S = Q . K^T: 8 n-tiles of 8 kv columns.
@@ -365,7 +397,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = r_lo + (e >> 1) * 8, c = col0 + j * 8 + t * 2 + (e & 1);
-        s[j][e] = masked(s[j][e] * scale_log2, r, c, Lk, causal, window);
+        s[j][e] = masked(s[j][e] * scale_log2, r, c, Lk, causal, window,
+                         SEG && segq_s[r - row0] != segk_s[c - col0]);
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
 #pragma unroll
@@ -415,6 +448,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = r_lo + i * 8;
     if (r >= Lq) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];
+    // lse in the natural domain: m is a log2-domain max, except the
+    // masked value NEG_INF, which stays NEG_INF as in the reference.
+    if (lse != nullptr && t == 0)
+      lse[static_cast<long long>(blockIdx.y) * Lq + r] =
+          (m[i] == NEG_INF ? NEG_INF : m[i] / LOG2E) + logf(denom);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       bf16* p = ob + r * so.l + n * 8 + t * 2;
@@ -429,11 +467,12 @@ bool aligned16(const void* p, const Strides& s) {
          s.h % 8 == 0;
 }
 
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
-                       int Lk, Strides sq, Strides sk, Strides sv, Strides so, float scale,
-                       int causal, int window, cudaStream_t stream) {
-  auto kern = flash_fwd_f32_kernel<D>;
+template <int D, bool SEG>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                       const int* seg, int B, int H, int Lq, int Lk, Strides sq, Strides sk,
+                       Strides sv, Strides so, float scale, int causal, int window,
+                       cudaStream_t stream) {
+  auto kern = flash_fwd_f32_kernel<D, SEG>;
   const int smem = static_cast<int>(F32Smem<D>::bytes);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -441,15 +480,16 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid((Lq + BM - 1) / BM, B * H);
   kern<<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Lq, Lk, sq, sk, sv, so, scale, causal, window);
+      static_cast<float*>(o), lse, seg, H, Lq, Lk, sq, sk, sv, so, scale, causal, window);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int Lq, int Lk, Strides sq, Strides sk, Strides sv, Strides so,
-                        float scale, int causal, int window, cudaStream_t stream) {
-  auto kern = flash_fwd_bf16_kernel<D>;
+template <int D, bool SEG>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        const int* seg, int B, int H, int Lq, int Lk, Strides sq, Strides sk,
+                        Strides sv, Strides so, float scale, int causal, int window,
+                        cudaStream_t stream) {
+  auto kern = flash_fwd_bf16_kernel<D, SEG>;
   const int smem = static_cast<int>(MmaSmem<D>::bytes);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -458,7 +498,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   const dim3 grid((Lq + BM - 1) / BM, B * H);
   kern<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, Lq, Lk, sq, sk, sv, so, scale, causal, window, vec);
+      static_cast<bf16*>(o), lse, seg, H, Lq, Lk, sq, sk, sv, so, scale, causal, window, vec);
   return cudaGetLastError();
 }
 
@@ -466,17 +506,25 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
 // b / l / h axes of a [B, L, H, D] tensor whose D axis has unit stride.
-// window <= 0 means no window.  Returns a cudaError_t (0 on success).
-extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
-                             int B, int H, int Lq, int Lk, int D, long long sqb, long long sql,
-                             long long sqh, long long skb, long long skl, long long skh,
-                             long long svb, long long svl, long long svh, long long sob,
-                             long long sol, long long soh, float scale, int causal, int window,
-                             void* stream) {
+// lse: f32 [B, H, Lq] or null (no lse written).  seg: contiguous int32
+// [B, L] segment ids (Lq == Lk) or null (no segment mask).  window <= 0
+// means no window.  Returns a cudaError_t (0 on success).
+extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                             const int* seg, int dtype, int B, int H, int Lq, int Lk, int D,
+                             long long sqb, long long sql, long long sqh, long long skb,
+                             long long skl, long long skh, long long svb, long long svl,
+                             long long svh, long long sob, long long sol, long long soh,
+                             float scale, int causal, int window, void* stream) {
   const Strides sq{sqb, sql, sqh}, sk{skb, skl, skh}, sv{svb, svl, svh}, so{sob, sol, soh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DKT_LAUNCH(FN, DIM) \
-  return static_cast<int>(FN<DIM>(q, k, v, o, B, H, Lq, Lk, sq, sk, sv, so, scale, causal, window, st))
+  if (seg != nullptr && Lq != Lk) return static_cast<int>(cudaErrorInvalidValue);
+#define DKT_LAUNCH(FN, DIM)                                                                 \
+  return static_cast<int>(                                                                  \
+      seg != nullptr                                                                        \
+          ? FN<DIM, true>(q, k, v, o, lse, seg, B, H, Lq, Lk, sq, sk, sv, so, scale, causal, \
+                          window, st)                                                       \
+          : FN<DIM, false>(q, k, v, o, lse, seg, B, H, Lq, Lk, sq, sk, sv, so, scale,       \
+                           causal, window, st))
   if (dtype == 0 && D == 64) DKT_LAUNCH(launch_f32, 64);
   if (dtype == 0 && D == 128) DKT_LAUNCH(launch_f32, 128);
   if (dtype == 1 && D == 64) DKT_LAUNCH(launch_bf16, 64);

@@ -1,9 +1,11 @@
-"""Load the JAX package's LM artifacts into the port.
+"""Carry LM weights between the JAX package and the port.
 
 ``load_lm`` reads the ``.npz`` that ``distkeras_tpu.utils.serialization.
 save_lm`` writes (a ``__config__`` JSON entry plus one array per
 ``/``-joined key path) with plain ``np.load``; ``params_from_numpy``
-carries a nested dict of arrays across as tensors.
+carries a nested dict of arrays across as tensors, and
+``params_to_numpy`` back (the trained weights then go into the JAX
+package, or its ``save_lm`` layout, unchanged).
 """
 
 from __future__ import annotations
@@ -32,6 +34,19 @@ def params_from_numpy(tree, device, dtype=None):
         return t.to(device)
 
     return conv(tree)
+
+
+def params_to_numpy(tree):
+    """The inverse of :func:`params_from_numpy`: a nested dict of
+    tensors (any device, with or without grad) -> the same dict of numpy
+    arrays on the host, dtypes kept (bf16 leaves become f32, which numpy
+    lacks)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
 
 
 def load_lm(path: str, device=None, dtype=None):

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+the flash forward (inference and training launches), the FA2 dQ and
+dK/dV kernels, and ``flash_attention`` under autograd.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports no JAX, so on a machine with
@@ -73,6 +75,123 @@ def test_flash_kernel_strided_inputs_and_rejections(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         x = torch.randn(1, 8, 2, 64, device="cuda", dtype=torch.float16)
         tattn.flash_attention(x, x, x)
-    with pytest.raises(NotImplementedError, match="forward-only"):
+    with pytest.raises(ValueError, match="segment_ids"):
         x = torch.randn(1, 8, 2, 64, device="cuda", requires_grad=True)
-        tattn.flash_attention(x, x, x)
+        tattn.flash_attention(x, x, x, segment_ids=torch.zeros(
+            1, 9, dtype=torch.int32, device="cuda"))
+
+
+def _inputs(b, lq, lk, h, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.normal(size=(b, lq, h, d))
+                              .astype(np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(b, lk, h, d))
+                             .astype(np.float32)) for _ in range(2))
+    return [x.to("cuda", dtype) for x in (q, k, v, do)]
+
+
+def _segments(b, l, seed=0):
+    """Packed rows: random segment lengths, with a boundary inside the
+    first 64-row tile (the first-tile wipe case) and padding (0) at the
+    end of the last row."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((b, l), np.int32)
+    for row in range(b):
+        pos, sid = 0, 1
+        lens = [17] + list(rng.integers(5, 90, size=l))
+        for n in lens:
+            seg[row, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+            if pos >= l:
+                break
+    seg[-1, -7:] = 0
+    return torch.from_numpy(seg).to("cuda")
+
+
+# (causal, window, lq, lk, d, segmented): ragged lengths, both head dims,
+# window below / above / not a multiple of the 64-row tile.
+BWD_CASES = [
+    (True, None, 200, 200, 128, False),
+    (True, 37, 130, 130, 128, False),
+    (True, 100, 257, 257, 64, False),
+    (True, 90, 200, 200, 128, True),
+    (False, None, 70, 190, 64, False),
+    (False, None, 150, 150, 128, True),
+    (True, None, 200, 200, 64, True),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal,window,lq,lk,d,segmented", BWD_CASES)
+def test_flash_fwd_lse_and_segments_match_plain(cuda, dtype, tol, causal,
+                                                window, lq, lk, d,
+                                                segmented):
+    """The training forward (lse, segment mask) against flash_fwd_plain:
+    O at the forward's tolerance, lse at 1e-4 (f32) / 2e-2 (bf16 P)."""
+    q, k, v, _ = _inputs(2, lq, lk, 3, d, dtype)
+    seg = _segments(2, lq) if segmented else None
+    scale = d ** -0.5
+    out, lse = tattn.flash_fwd_cuda(q, k, v, causal, scale, window, seg,
+                                    with_lse=True)
+    ref, ref_lse = tattn.flash_fwd_plain(q, k, v, causal, scale, window, seg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal,window,lq,lk,d,segmented", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(cuda, dtype, tol, causal, window, lq,
+                                       lk, d, segmented):
+    """dQ and dK/dV kernels against the plain FA2 versions on the same
+    lse / delta.  f32: summation order only; bf16: the same f32
+    arithmetic, rounded once to bf16 on output."""
+    q, k, v, do = _inputs(2, lq, lk, 3, d, dtype, seed=1)
+    seg = _segments(2, lq, seed=1) if segmented else None
+    scale = d ** -0.5
+    out, lse = tattn.flash_fwd_plain(q, k, v, causal, scale, window, seg)
+    delta = tattn.attention_delta(do, out)
+    n = dict(tattn.LAUNCHES)
+    dq = tattn.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale,
+                                 window, seg)
+    dk, dv = tattn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
+                                      window, seg)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES["flash_bwd_dq"] == n["flash_bwd_dq"] + 1
+    assert tattn.LAUNCHES["flash_bwd_dkv"] == n["flash_bwd_dkv"] + 1
+    ref_dq = tattn.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
+                                      window, seg)
+    ref_dk, ref_dv = tattn.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                               causal, scale, window, seg)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("causal,window,segmented", [
+    (True, None, False), (True, 70, True), (False, None, False)])
+def test_flash_attention_autograd_matches_blockwise(cuda, causal, window,
+                                                    segmented):
+    """flash_attention on the card under autograd (forward with lse, dQ
+    and dK/dV kernels) against autograd through the blockwise tier, f32,
+    with a non-contiguous incoming gradient; 1e-4 (summation order)."""
+    q, k, v, do = _inputs(2, 190, 190, 2, 128, torch.float32, seed=2)
+    seg = _segments(2, 190, seed=2) if segmented else None
+    grads = []
+    for fn in (tattn.flash_attention, tattn.blockwise_attention):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, causal, window=window, segment_ids=seg)
+        g = do.transpose(2, 3).contiguous().transpose(2, 3)  # D not unit
+        torch.autograd.backward(out, g)
+        grads.append([x.grad for x in leaves] + [out.detach()])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        before = dict(tattn.LAUNCHES)
+        tattn.flash_attention(q, k, v, causal, window=window,
+                              segment_ids=seg)
+    assert tattn.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert tattn.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"]

@@ -102,6 +102,6 @@ def test_init_params_layout_matches_jax_and_unported_configs_raise():
     with pytest.raises(ValueError, match="even head_dim"):
         ttfm.init_params(0, ttfm.TransformerConfig(
             **{**BASE, "n_heads": 32}, rope=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(TypeError, match="dropout_rng"):
         ttfm.apply(tp, np.zeros((1, 4), np.int32), tcfg, dropout_rng=1,
                    device="cpu")
