@@ -1,12 +1,13 @@
-// Flash-attention backward (FA2) for Hopper (sm_90a): dQ and dK/dV.
+// Flash-attention backward (FA2) for Hopper (sm_90a): dQ and dK/dV on the
+// tensor cores.
 //
 // Replaces: distkeras_tpu/ops/attention.py::_flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel (launcher _flash_pallas_bwd).  Same function:
 // the probabilities are rebuilt per tile from the forward's saved
 // log-sum-exp, p = exp(s * scale - lse) with s masked as the forward
 // masks it (finite NEG_INF for causal / window / segment-dead pairs, so
-// they rebuild p = 0; -inf past the ragged edge), and with
-// delta = rowsum(dO * O) (computed by the launcher):
+// they rebuild p = 0; -inf past the ragged edge; p = 0 for rows past Lq),
+// and with delta = rowsum(dO * O) (computed by the launcher):
 //   dS = p * (dO . V^T - delta) * scale
 //   dQ = sum over kv tiles of dS . K
 //   dV = sum over q tiles of p^T . dO,   dK = sum over q tiles of dS^T . Q
@@ -31,32 +32,90 @@
 //   are int32 [B, L] indexed by batch row.  Rows and columns past Lq / Lk
 //   are zero-filled on load and never written.
 //
-// What bounds it on this card: at the training shape ([8, 1024, 8, 128],
-// causal, f32) dQ does 6 * D FLOPs and dK/dV 8 * D FLOPs per live
-// (query, key) pair, ~26 and ~34 GFLOP, against ~100 MB of inputs: both
-// are bound by arithmetic.  This version does all products as f32 FMAs
-// on the CUDA cores for both dtypes (bf16 inputs are widened on load),
-// which is exactly what the Pallas bodies compute (they convert every
-// tile to f32), so its floor is the 67 TFLOP/s f32 rate; each thread
-// holds a 4 x 4 block of the S / dP tiles and a 4 x D/16 block of its
-// accumulators, reading operands out of padded (bank-conflict-free)
-// shared memory.  Tensor cores (mma / wgmma), TMA and a pipelined tile
-// stream are the next steps.
+// What bounds it on this card: per live (query, key) pair dQ does 6 * D
+// FLOPs (S, dP, dS . K) and dK/dV 8 * D (S, dP, P^T . dO, dS^T . Q); at
+// the training shape ([8, 1024, 8, 128], causal: 33.6M live pairs) that
+// is ~26 and ~34 GFLOP against 134 MB of f32 inputs, so both kernels
+// are bound by the tensor cores: 989 TFLOP/s in bf16, and for f32 the
+// 3xTF32 rate, 495 / 3 = 165 TFLOP/s (the least time for f32-accurate
+// products on this card: PyTorch's own f32 attention backward runs its
+// GEMMs the same way, OpMultiplyAddFastF32 in
+// ATen/native/transformers/cuda/mem_eff_attention/gemm_kernel_utils.h).
+//
+// Design:
+// - All five products run as mma.sync with f32 accumulators in
+//   registers.  bf16 inputs: m16n8k16 bf16, operands through ldmatrix
+//   (.trans for the operands contracted over their rows).  f32 inputs:
+//   m16n8k8 tf32 with error compensation (3xTF32): every operand x is
+//   split into hi = tf32(x) (rounded to nearest) and lo = x - hi, and
+//   a . b is summed as lo.hi + hi.lo, then hi.hi, into one f32
+//   accumulator (the order of CUTLASS's mma_tensor_op_fast_f32.h).  The
+//   tensor cores truncate lo to tf32; that and the dropped lo.lo term
+//   leave ~2^-20 of each product, against ~2^-11 for one TF32 pass.
+// - The dK/dV kernel computes S^T = K . Q^T and dP^T = V . dO^T, so that
+//   both kernels hold P / dS (resp. P^T / dS^T) as mma accumulators whose
+//   rows are the block's own rows, and reuse them from registers as the A
+//   operand of the second product (dS . K, P^T . dO, dS^T . Q): no tile
+//   of P or dS goes through shared memory.  bf16 rounds P and dS to bf16
+//   there, as the forward rounds P; f32 splits them like any operand.  In
+//   the f32 path the accumulator holds columns 2t, 2t+1 where the tf32
+//   A fragment wants k = t, t + 4, so k = t is taken as column 2t and
+//   k = t + 4 as 2t + 1, and B's rows are read in the same order.
+// - 8 warps per block: 4 x 16 rows of the block's own 64-row tile, times
+//   2 x 32 columns of the streamed 64-row tile.  Each warp pair sums its
+//   two partial accumulators through shared memory at the end, in a fixed
+//   order.
+// - The streamed tiles (dQ: K, V and the kv segment ids; dK/dV: Q, dO,
+//   lse, delta and the q segment ids) go through a ring of STAGES buffers
+//   filled by cp.async: the copies of tile t + 1 are issued before the
+//   products of tile t, with one barrier per tile.  16-byte copies (the
+//   ragged edge zero-filled through cp.async's src-size operand) when
+//   every q / k / v / dO base is 16-byte aligned and its b / l / h strides
+//   are multiples of 16 bytes; otherwise the tiles are loaded element by
+//   element (synchronously, into the same ring).  The 4-byte rows (lse,
+//   delta, segment ids) always go by 4-byte cp.async.
+// - Shared memory rows are padded by 16 bytes (bf16 D + 8, f32 D + 4), so
+//   ldmatrix rows and the tf32 fragment reads are free of bank conflicts.
+//   Per block at D = 128: 2 resident and 2 * STAGES streamed 64-row
+//   tiles, 102.5-103.5 KiB in bf16 and 198.5-199.5 KiB in f32; ptxas
+//   gives 164-248 registers (f32) and 140-240 (bf16), no spills.  One
+//   block of 8 warps per SM: f32 tiles fit no second block, and for bf16
+//   a second block per SM caps registers at 128, where ptxas spills (dQ
+//   up to 152 bytes, ~20% faster all the same; dK/dV up to 728 bytes,
+//   ~45% slower); a third stage gains nothing (PERF.md, PR 3).
+// - p = 2^((s * scale - lse) * log2 e) runs on the special function unit
+//   (ex2.approx, ~2^-22 relative).  Every tile takes the masked path: an
+//   unmasked copy for tiles that cross no edge was within 2% in f32.
+// - Grid x is batch * head and y the tile, ordered so that the causal
+//   blocks with the most live tiles start first and the last wave holds
+//   short ones (11% off f32 causal).
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py, PERF.md): at
+// the training shape, causal, f32 dQ 0.58 ms and dK/dV 0.73 ms (bounds
+// 0.156 / 0.208; the f32 FMA version took 1.66 / 1.84; SDPA's whole f32
+// backward 2.61), bf16 0.21 / 0.26 ms (bounds 0.026 / 0.035; FMA 1.56 /
+// 1.77; SDPA 0.37).  Both are issue- and latency-bound at one block per
+// SM: f32 spends ~8 instructions per tf32 mma (the operand splits, the
+// fragment loads), bf16 stalls with 8 warps per SM.  wgmma / TMA with
+// warp specialisation is the next step for bf16: a tf32 wgmma needs both
+// operands K-major, which P^T . dO and dS^T . Q are not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BM = 64;  // q rows per tile
-constexpr int BN = 64;  // kv rows per tile
-// 16 x 16 threads over a 64 x 64 tile.  The tiles take 150-168 KB of
-// shared memory at D = 128, so one block fits an SM; the launch bounds
-// say so (at least 1 block per SM), which leaves ptxas the whole register
-// file of a thread (255) for the accumulators.
-constexpr int THREADS = 256;
+constexpr int BM = 64;        // q rows per tile
+constexpr int BN = 64;        // kv rows per tile
+constexpr int THREADS = 256;  // 8 warps: 4 (own rows) x 2 (streamed columns)
+constexpr int WCOLS = 32;     // streamed columns per warp
+constexpr int NJ = WCOLS / 8; // mma n-tiles of S / dP per warp
+constexpr int STAGES = 2;     // ring depth of the streamed tiles
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
 
@@ -81,75 +140,275 @@ __device__ __forceinline__ float masked(float x, int r, int c, int Lk, int causa
   return x;
 }
 
-// Shared-memory row strides (floats).  Tiles read down a column by the
-// two 16-thread halves of a warp (Q, dO) sit 16 banks apart (D + 4);
-// tiles read along a row across tx (K, V) differ by one bank (D + 1).
-template <int D> struct Pad {
-  static constexpr int QS = D + 4;
-  static constexpr int KS = D + 1;
-  static constexpr int SS = BN + 1;
+// 2^x on the special function unit (-inf gives 0; results under 2^-126
+// flush to 0).
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 64-row tile of D elements per row in shared memory, rows padded by 16
+// bytes.
+template <typename T, int D> struct Tile {
+  static constexpr int RS = D + 16 / static_cast<int>(sizeof(T));  // row stride (elements)
+  static constexpr int ELEMS = 64 * RS;
 };
 
-// 64 rows of a [L, D] slice (row stride ld) into f32 shared memory (row
-// stride RS); rows at or past L are zero.
-template <typename T, int D, int RS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long ld, int row0,
-                                          int L) {
-  for (int e = threadIdx.x; e < 64 * D; e += THREADS) {
-    const int r = e / D, c = e % D, gr = row0 + r;
-    dst[r * RS + c] = gr < L ? to_f32(src[gr * ld + c]) : 0.f;
+// ------------------------------------------------------------ async copies
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (resp. 4) bytes global -> shared; bytes past `src_bytes` are zero.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + 64) of a [L, D] slice (row stride ld) into a Tile;
+// rows at or past L are zero.  vec: 16-byte cp.async; else element loads.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld, int row0, int L,
+                                          bool vec) {
+  constexpr int RS = Tile<T, D>::RS, EPC = 16 / static_cast<int>(sizeof(T)), CH = D / EPC;
+  for (int e = threadIdx.x; e < 64 * CH; e += THREADS) {
+    const int r = e / CH, c = (e % CH) * EPC, gr = row0 + r;
+    T* d = dst + r * RS + c;
+    if (vec) {
+      cp_async16(d, gr < L ? src + gr * ld + c : src, gr < L ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int i = 0; i < EPC; ++i) store(d + i, gr < L ? to_f32(src[gr * ld + c + i]) : 0.f);
+    }
   }
 }
 
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int L) {
-  for (int r = threadIdx.x; r < 64; r += THREADS) dst[r] = row0 + r < L ? src[row0 + r] : 0.f;
+// Entries [row0, row0 + 64) of a length-L vector of 4-byte values; entries
+// at or past L are zero.
+template <typename U>
+__device__ __forceinline__ void load_vec(U* dst, const U* src, int row0, int L) {
+  for (int r = threadIdx.x; r < 64; r += THREADS)
+    cp_async4(dst + r, src + min(row0 + r, L - 1), row0 + r < L ? 4 : 0);
 }
 
-__device__ __forceinline__ void load_segs(int* dst, const int* seg, int row0, int L, int pad) {
-  for (int r = threadIdx.x; r < 64; r += THREADS) dst[r] = row0 + r < L ? seg[row0 + r] : pad;
+// ------------------------------------------------------------ tensor cores
+
+// D += A . B for one m16n8k16 bf16 tile (A row-major 16x16, B col-major
+// 16x8).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// S = Q . K^T and dP = dO . V^T for q rows ty*4+i and kv columns tx+16j
-// of the current tiles.
-template <int D>
-__device__ __forceinline__ void logits_and_dp(const float* Qs, const float* dOs, const float* Ks,
-                                              const float* Vs, int ty, int tx, float (&s)[4][4],
-                                              float (&dp)[4][4]) {
-  using P = Pad<D>;
+// D += A . B for one m16n8k8 tf32 tile.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds finite x, in two integer operations.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo with hi = tf32(x) and lo = x - hi, exact in f32; the
+// tensor cores read lo's top 19 bits only (truncating it to tf32).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D += A . B at f32 accuracy (3xTF32): the small cross terms first, then
+// the large one.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], uint32_t bhi0,
+                                           uint32_t bhi1, uint32_t blo0, uint32_t blo1) {
+  mma_tf32(d, alo, bhi0, bhi1);
+  mma_tf32(d, ahi, blo0, blo1);
+  mma_tf32(d, ahi, bhi0, bhi1);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// acc[j] += A[m0 : m0 + 16, :] . B[n0 + 8j : n0 + 8j + 8, :]^T for j < NJ:
+// two row-major Tiles contracted over D (S = Q . K^T and the like).
+template <typename T, int D>
+__device__ __forceinline__ void mma_rows(float (&acc)[NJ][4], const T* A, int m0, const T* B,
+                                         int n0) {
+  constexpr int RS = Tile<T, D>::RS;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (std::is_same<T, bf16>::value) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, A + (m0 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[4], gv[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty * 4 + i) * P::QS + d];
-      gv[i] = dOs[(ty * 4 + i) * P::QS + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = Ks[(tx + 16 * j) * P::KS + d];
-      vv[j] = Vs[(tx + 16 * j) * P::KS + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+      for (int jj = 0; jj < NJ / 2; ++jj) {
+        uint32_t b[4];
+        ldsm_x4(b, B + (n0 + jj * 16 + (lane & 7) + (lane >> 4) * 8) * RS + kk * 16 +
+                       ((lane >> 3) & 1) * 8);
+        mma_bf16(acc[2 * jj], a, b[0], b[1]);
+        mma_bf16(acc[2 * jj + 1], a, b[2], b[3]);
       }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float* pa = A + (m0 + g) * RS + kk * 8 + t;
+      uint32_t ah[4], al[4];
+      split_tf32(pa[0], ah[0], al[0]);
+      split_tf32(pa[8 * RS], ah[1], al[1]);
+      split_tf32(pa[4], ah[2], al[2]);
+      split_tf32(pa[8 * RS + 4], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* pb = B + (n0 + j * 8 + g) * RS + kk * 8 + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(pb[0], bh0, bl0);
+        split_tf32(pb[4], bh1, bl1);
+        mma_3xtf32(acc[j], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+// acc[n] += P . B[k0 : k0 + WCOLS, 8n : 8n + 8] for n < D / 8: P is the
+// warp's 16 x WCOLS tile held as mma accumulators (p[j]: columns 8j ..
+// 8j + 7), used as the A operand from registers; B a row-major Tile
+// contracted over its rows (dS . K, P^T . dO, dS^T . Q).
+template <typename T, int D>
+__device__ __forceinline__ void mma_acc_rows(float (&acc)[D / 8][4], const float (&p)[NJ][4],
+                                             const T* B, int k0) {
+  constexpr int RS = Tile<T, D>::RS, NT = D / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk) {
+      const uint32_t a[4] = {pack_f32(p[2 * kk][0], p[2 * kk][1]),
+                             pack_f32(p[2 * kk][2], p[2 * kk][3]),
+                             pack_f32(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                             pack_f32(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int nn = 0; nn < NT / 2; ++nn) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, B + (k0 + kk * 16 + (lane & 15)) * RS + nn * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * nn], a, b[0], b[1]);
+        mma_bf16(acc[2 * nn + 1], a, b[2], b[3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk) {
+      // k = t is column 2t of the accumulator, k = t + 4 column 2t + 1.
+      uint32_t ah[4], al[4];
+      split_tf32(p[kk][0], ah[0], al[0]);
+      split_tf32(p[kk][2], ah[1], al[1]);
+      split_tf32(p[kk][1], ah[2], al[2]);
+      split_tf32(p[kk][3], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float* pb = B + (k0 + kk * 8 + 2 * t) * RS + n * 8 + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(pb[0], bh0, bl0);
+        split_tf32(pb[RS], bh1, bl1);
+        mma_3xtf32(acc[n], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+// The warp pair (wm, 0), (wm, 1) holds two partial sums of one 16 x D
+// accumulator.  Warp wn keeps n-tiles [wn * NT/2, (wn + 1) * NT/2) and
+// adds the other's partials of them, handed over in `red` (64 * D
+// floats).
+template <int D>
+__device__ __forceinline__ void pair_sum(float (&acc)[D / 8][4], float4* red, int wm, int wn) {
+  constexpr int NT = D / 8, HALF = NT / 2;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    if ((n >= HALF) == (wn == 0))
+      red[(wm * NT + n) * 32 + lane] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    if ((n < HALF) == (wn == 0)) {
+      const float4 o = red[(wm * NT + n) * 32 + lane];
+      acc[n][0] += o.x;
+      acc[n][1] += o.y;
+      acc[n][2] += o.z;
+      acc[n][3] += o.w;
+    }
+}
+
+// n-tiles [n_lo, n_hi) of rows r_lo, r_lo + 8 of the accumulator into out
+// (row stride ld); rows at or past L are skipped.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* out, long long ld, const float (&acc)[D / 8][4],
+                                           int r_lo, int L, int n_lo, int n_hi) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (n < n_lo || n >= n_hi) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_lo + 8 * i;
+      if (r >= L) continue;
+      T* p = out + r * ld + n * 8 + 2 * t;
+      store(p, acc[n][2 * i]);
+      store(p + 1, acc[n][2 * i + 1]);
+    }
   }
 }
 
 // ------------------------------------------------------------------- dQ
 
-template <int D> struct DqSmem {
-  using P = Pad<D>;
-  // Q, dO [BM][QS]; K, V [BN][KS]; dS [BM][SS]; lse, delta [BM]; segs.
-  static constexpr int floats = 2 * BM * P::QS + 2 * BN * P::KS + BM * P::SS + 2 * BM + BM + BN;
-  static constexpr size_t bytes = sizeof(float) * floats;
+template <typename T, int D> struct DqSmem {
+  // Q, dO; STAGES x (K, V); STAGES x kv segment ids.
+  static constexpr size_t bytes =
+      sizeof(T) * (2 + 2 * STAGES) * Tile<T, D>::ELEMS + sizeof(int) * STAGES * BN;
+  static_assert(bytes >= sizeof(float) * 64 * D, "pair_sum buffer");
 };
 
 template <typename T, int D, bool SEG>
@@ -158,32 +417,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, const int* __restrict__ seg,
                     T* __restrict__ dq, int H, int Lq, int Lk, Strides sq, Strides sk,
-                    Strides sv, Strides sdo, Strides sdq, float scale, int causal, int window) {
-  using P = Pad<D>;
-  constexpr int DJ = D / 16;  // dQ columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BM * P::QS;
-  float* Ks = dOs + BM * P::QS;
-  float* Vs = Ks + BN * P::KS;
-  float* dSs = Vs + BN * P::KS;
-  float* lse_s = dSs + BM * P::SS;
-  float* dl_s = lse_s + BM;
-  int* segq_s = reinterpret_cast<int*>(dl_s + BM);
-  int* segk_s = segq_s + BM;
+                    Strides sv, Strides sdo, Strides sdq, float scale, int causal, int window,
+                    int vec) {
+  constexpr int NT = D / 8, EL = Tile<T, D>::ELEMS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + EL;
+  T* KVs = dOs + EL;  // stage s: K at KVs + 2s EL, V at KVs + (2s + 1) EL
+  int* segk_s = reinterpret_cast<int*>(KVs + 2 * STAGES * EL);  // [STAGES][BN]
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int row0 = blockIdx.x * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  // Heaviest tiles first: blocks start in index order, x fastest, and a
+  // causal q tile's work grows with its row.
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * BM;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
   const int* segb = SEG ? seg + static_cast<long long>(b) * Lq : nullptr;
-
-  load_tile<T, D, P::QS>(Qs, q + b * sq.b + h * sq.h, sq.l, row0, Lq);
-  load_tile<T, D, P::QS>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, row0, Lq);
-  load_rows(lse_s, lse + static_cast<long long>(bh) * Lq, row0, Lq);
-  load_rows(dl_s, delta + static_cast<long long>(bh) * Lq, row0, Lq);
-  if (SEG) load_segs(segq_s, segb, row0, Lq, -1);
 
   // Live kv tiles: the forward's range.
   const int n_kt = (Lk + BN - 1) / BN;
@@ -193,69 +444,85 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     hi = min(n_kt, last_row / BN + 1);
     if (window > 0) lo = max(0, row0 - window + 1) / BN;
   }
+  auto load_stage = [&](int tile) {
+    const int s = (tile - lo) % STAGES, c0 = tile * BN;
+    load_tile<T, D>(KVs + 2 * s * EL, kb, sk.l, c0, Lk, vec);
+    load_tile<T, D>(KVs + (2 * s + 1) * EL, vb, sv.l, c0, Lk, vec);
+    if (SEG) load_vec(segk_s + s * BN, segb, c0, Lk);
+  };
 
-  float acc[4][DJ];
+  // Q and dO join the first group of copies.
+  load_tile<T, D>(Qs, q + b * sq.b + h * sq.h, sq.l, row0, Lq, vec);
+  load_tile<T, D>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, row0, Lq, vec);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (lo + i < hi) load_stage(lo + i);
+    cp_async_commit();
+  }
 
-  for (int t = lo; t < hi; ++t) {
-    const int col0 = t * BN;
-    __syncthreads();  // the previous tile's K / dS are consumed
-    load_tile<T, D, P::KS>(Ks, kb, sk.l, col0, Lk);
-    load_tile<T, D, P::KS>(Vs, vb, sv.l, col0, Lk);
-    if (SEG) load_segs(segk_s, segb, col0, Lk, -2);
+  // This thread's q rows ra, ra + 8.
+  const int ra = row0 + wm * 16 + g;
+  float lse_r[2], dl_r[2];
+  int segq_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ra + 8 * i;
+    const bool in = r < Lq;
+    lse_r[i] = in ? lse[static_cast<long long>(bh) * Lq + r] : 0.f;
+    dl_r[i] = in ? delta[static_cast<long long>(bh) * Lq + r] : 0.f;
+    segq_r[i] = SEG && in ? segb[r] : -1;
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int tile = lo; tile < hi; ++tile) {
+    // Tile `tile` has landed for every thread, and every thread is done
+    // with the stage refilled next (it held tile - 1).
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
+    if (tile + STAGES - 1 < hi) load_stage(tile + STAGES - 1);
+    cp_async_commit();
 
-    float s[4][4], dp[4][4];
-    logits_and_dp<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    const int s = (tile - lo) % STAGES, col0 = tile * BN;
+    const T* Ks = KVs + 2 * s * EL;
+    const T* Vs = Ks + EL;
+    const int* segk = segk_s + s * BN;
+    float sc[NJ][4], dp[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ri = ty * 4 + i;
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cj = tx + 16 * j;
-        const float x = masked(s[i][j] * scale, row0 + ri, col0 + cj, Lk, causal, window,
-                               SEG && segq_s[ri] != segk_s[cj]);
-        const float p = expf(x - lse_s[ri]);
-        dSs[ri * P::SS + cj] = p * (dp[i][j] - dl_s[ri]) * scale;
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+    mma_rows<T, D>(sc, Qs, wm * 16, Ks, wn * WCOLS);
+    mma_rows<T, D>(dp, dOs, wm * 16, Vs, wn * WCOLS);
+
+    // dS in place of S.  Rows past Lq are never stored.
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, cl = wn * WCOLS + j * 8 + 2 * t + (e & 1);
+        const float x = masked(sc[j][e] * scale, ra + 8 * i, col0 + cl, Lk, causal, window,
+                               SEG && segq_r[i] != segk[cl]);
+        sc[j][e] = exp2_fast((x - lse_r[i]) * LOG2E) * (dp[j][e] - dl_r[i]) * scale;
       }
-    }
-    __syncthreads();
-
-    // dQ += dS . K for rows ty*4+i, columns tx+16j.
-#pragma unroll 4
-    for (int kk = 0; kk < BN; ++kk) {
-      float dsv[4], kr[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * P::SS + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kr[j] = Ks[kk * P::KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kr[j], acc[i][j]);
-    }
+    mma_acc_rows<T, D>(acc, sc, Ks, wn * WCOLS);
   }
 
-  T* dqb = dq + b * sdq.b + h * sdq.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = row0 + ty * 4 + i;
-    if (gr >= Lq) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) store(dqb + gr * sdq.l + tx + 16 * j, acc[i][j]);
-  }
+  cp_async_wait<0>();
+  __syncthreads();  // the tiles are consumed: their memory takes the pair sums
+  pair_sum<D>(acc, reinterpret_cast<float4*>(smem_raw), wm, wn);
+  store_rows<T, D>(dq + b * sdq.b + h * sdq.h, sdq.l, acc, ra, Lq, wn * NT / 2, (wn + 1) * NT / 2);
 }
 
 // ---------------------------------------------------------------- dK/dV
 
-template <int D> struct DkvSmem {
-  using P = Pad<D>;
-  // K, V [BN][KS]; Q, dO [BM][QS]; P, dS [BM][SS]; lse, delta [BM]; segs.
-  static constexpr int floats = 2 * BN * P::KS + 2 * BM * P::QS + 2 * BM * P::SS + 2 * BM + BM + BN;
-  static constexpr size_t bytes = sizeof(float) * floats;
+template <typename T, int D> struct DkvSmem {
+  // K, V; STAGES x (Q, dO); STAGES x (lse, delta, q segment ids).
+  static constexpr size_t bytes =
+      sizeof(T) * (2 + 2 * STAGES) * Tile<T, D>::ELEMS + sizeof(float) * 3 * STAGES * BM;
+  static_assert(bytes >= sizeof(float) * 2 * 64 * D, "pair_sum buffers");
 };
 
 template <typename T, int D, bool SEG>
@@ -265,33 +532,24 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ delta, const int* __restrict__ seg,
                      T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk, Strides sq,
                      Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv, float scale,
-                     int causal, int window) {
-  using P = Pad<D>;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BN * P::KS;
-  float* Qs = Vs + BN * P::KS;
-  float* dOs = Qs + BM * P::QS;
-  float* Ps = dOs + BM * P::QS;
-  float* dSs = Ps + BM * P::SS;
-  float* lse_s = dSs + BM * P::SS;
-  float* dl_s = lse_s + BM;
-  int* segq_s = reinterpret_cast<int*>(dl_s + BM);
-  int* segk_s = segq_s + BM;
+                     int causal, int window, int vec) {
+  constexpr int NT = D / 8, EL = Tile<T, D>::ELEMS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + EL;
+  T* QDs = Vs + EL;  // stage s: Q at QDs + 2s EL, dO at QDs + (2s + 1) EL
+  float* rows_s = reinterpret_cast<float*>(QDs + 2 * STAGES * EL);  // stage s: 3 x BM at 3s BM
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int col0 = blockIdx.x * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  // Heaviest tiles first (a causal kv tile's work falls with its row).
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int col0 = blockIdx.y * BN;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* dob = dout + b * sdo.b + h * sdo.h;
   const float* lseb = lse + static_cast<long long>(bh) * Lq;
   const float* deltab = delta + static_cast<long long>(bh) * Lq;
   const int* segb = SEG ? seg + static_cast<long long>(b) * Lq : nullptr;
-
-  load_tile<T, D, P::KS>(Ks, k + b * sk.b + h * sk.h, sk.l, col0, Lk);
-  load_tile<T, D, P::KS>(Vs, v + b * sv.b + h * sv.h, sv.l, col0, Lk);
-  if (SEG) load_segs(segk_s, segb, col0, Lk, -2);
 
   // Live q tiles: causal starts at the tile holding row col0; a window
   // ends at the tile holding the last row r with r - c < window for some
@@ -305,81 +563,121 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       hi = min(n_qt, (c_max + window - 1) / BM + 1);
     }
   }
+  auto load_stage = [&](int tile) {
+    const int s = (tile - lo) % STAGES, r0 = tile * BM;
+    load_tile<T, D>(QDs + 2 * s * EL, qb, sq.l, r0, Lq, vec);
+    load_tile<T, D>(QDs + (2 * s + 1) * EL, dob, sdo.l, r0, Lq, vec);
+    float* rows = rows_s + 3 * s * BM;
+    load_vec(rows, lseb, r0, Lq);
+    load_vec(rows + BM, deltab, r0, Lq);
+    if (SEG) load_vec(reinterpret_cast<int*>(rows + 2 * BM), segb, r0, Lq);
+  };
 
-  float dk_acc[4][DJ], dv_acc[4][DJ];
+  // K and V join the first group of copies.
+  load_tile<T, D>(Ks, k + b * sk.b + h * sk.h, sk.l, col0, Lk, vec);
+  load_tile<T, D>(Vs, v + b * sv.b + h * sv.h, sv.l, col0, Lk, vec);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  for (int t = lo; t < hi; ++t) {
-    const int row0 = t * BM;
-    __syncthreads();  // the previous tile's Q / dO / P / dS are consumed
-    load_tile<T, D, P::QS>(Qs, qb, sq.l, row0, Lq);
-    load_tile<T, D, P::QS>(dOs, dob, sdo.l, row0, Lq);
-    load_rows(lse_s, lseb, row0, Lq);
-    load_rows(dl_s, deltab, row0, Lq);
-    if (SEG) load_segs(segq_s, segb, row0, Lq, -1);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    logits_and_dp<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ri = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cj = tx + 16 * j;
-        const float x = masked(s[i][j] * scale, row0 + ri, col0 + cj, Lk, causal, window,
-                               SEG && segq_s[ri] != segk_s[cj]);
-        // Rows past Lq carry no query: p = 0.
-        const float p = row0 + ri < Lq ? expf(x - lse_s[ri]) : 0.f;
-        Ps[ri * P::SS + cj] = p;
-        dSs[ri * P::SS + cj] = p * (dp[i][j] - dl_s[ri]) * scale;
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T . dO and dK += dS^T . Q for kv rows ty*4+i, columns
-    // tx+16j.
-#pragma unroll 4
-    for (int r = 0; r < BM; ++r) {
-      float pv[4], sv_[4], gv[DJ], qv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[r * P::SS + ty * 4 + i];
-        sv_[i] = dSs[r * P::SS + ty * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        gv[j] = dOs[r * P::QS + tx + 16 * j];
-        qv[j] = Qs[r * P::QS + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dv_acc[i][j] = fmaf(pv[i], gv[j], dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(sv_[i], qv[j], dk_acc[i][j]);
-        }
-    }
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (lo + i < hi) load_stage(lo + i);
+    cp_async_commit();
   }
 
-  T* dkb = dk + b * sdk.b + h * sdk.h;
-  T* dvb = dv + b * sdv.b + h * sdv.h;
+  // This thread's kv rows ca, ca + 8.
+  const int ca = col0 + wm * 16 + g;
+  int segk_r[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gc = col0 + ty * 4 + i;
-    if (gc >= Lk) continue;
+  for (int i = 0; i < 2; ++i) segk_r[i] = SEG && ca + 8 * i < Lk ? segb[ca + 8 * i] : -2;
+
+  float dk_acc[NT][4], dv_acc[NT][4];
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      store(dkb + gc * sdk.l + tx + 16 * j, dk_acc[i][j]);
-      store(dvb + gc * sdv.l + tx + 16 * j, dv_acc[i][j]);
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int tile = lo; tile < hi; ++tile) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (tile + STAGES - 1 < hi) load_stage(tile + STAGES - 1);
+    cp_async_commit();
+
+    const int s = (tile - lo) % STAGES, row0 = tile * BM;
+    const T* Qs = QDs + 2 * s * EL;
+    const T* dOs = Qs + EL;
+    const float* lse_s = rows_s + 3 * s * BM;
+    const float* dl_s = lse_s + BM;
+    const int* segq = reinterpret_cast<const int*>(lse_s + 2 * BM);
+
+    // S^T = K . Q^T and dP^T = V . dO^T: rows are this block's kv rows.
+    float sc[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+    mma_rows<T, D>(sc, Ks, wm * 16, Qs, wn * WCOLS);
+    mma_rows<T, D>(dp, Vs, wm * 16, dOs, wn * WCOLS);
+
+    // P^T in place of S^T, dS^T in place of dP^T.
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, rl = wn * WCOLS + j * 8 + 2 * t + (e & 1), r = row0 + rl;
+        const float x = masked(sc[j][e] * scale, r, ca + 8 * i, Lk, causal, window,
+                               SEG && segq[rl] != segk_r[i]);
+        // Rows past Lq carry no query: p = 0.
+        const float p = r < Lq ? exp2_fast((x - lse_s[rl]) * LOG2E) : 0.f;
+        sc[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dl_s[rl]) * scale;
+      }
+    mma_acc_rows<T, D>(dv_acc, sc, dOs, wn * WCOLS);
+    mma_acc_rows<T, D>(dk_acc, dp, Qs, wn * WCOLS);
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // the tiles are consumed: their memory takes the pair sums
+  // Warps wn = 0 keep dK and hand their dV partials over (red[4 + wm]),
+  // warps wn = 1 keep dV and hand over dK (red[wm]).
+  const bool keep_dk = wn == 0;
+  float4* red = reinterpret_cast<float4*>(smem_raw) + lane;
+  float4* give = red + ((keep_dk ? 4 : 0) + wm) * NT * 32;
+  const float4* take = red + ((keep_dk ? 0 : 4) + wm) * NT * 32;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    give[n * 32] = keep_dk ? make_float4(dv_acc[n][0], dv_acc[n][1], dv_acc[n][2], dv_acc[n][3])
+                           : make_float4(dk_acc[n][0], dk_acc[n][1], dk_acc[n][2], dk_acc[n][3]);
+  __syncthreads();
+  if (keep_dk) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float4 o = take[n * 32];
+      dk_acc[n][0] += o.x;
+      dk_acc[n][1] += o.y;
+      dk_acc[n][2] += o.z;
+      dk_acc[n][3] += o.w;
     }
+    store_rows<T, D>(dk + b * sdk.b + h * sdk.h, sdk.l, dk_acc, ca, Lk, 0, NT);
+  } else {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float4 o = take[n * 32];
+      dv_acc[n][0] += o.x;
+      dv_acc[n][1] += o.y;
+      dv_acc[n][2] += o.z;
+      dv_acc[n][3] += o.w;
+    }
+    store_rows<T, D>(dv + b * sdv.b + h * sdv.h, sdv.l, dv_acc, ca, Lk, 0, NT);
   }
 }
 
 // ------------------------------------------------------------- launchers
+
+// 16-byte copies need a 16-byte aligned base and b / l / h strides that
+// are whole 16-byte chunks.
+template <typename T> bool aligned16(const void* p, const Strides& s) {
+  constexpr long long E = 16 / sizeof(T);
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % E == 0 && s.l % E == 0 &&
+         s.h % E == 0;
+}
 
 template <typename T, int D, bool SEG>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -387,15 +685,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       int H, int Lq, int Lk, Strides sq, Strides sk, Strides sv, Strides sdo,
                       Strides sdq, float scale, int causal, int window, cudaStream_t stream) {
   auto kern = flash_bwd_dq_kernel<T, D, SEG>;
-  const int smem = static_cast<int>(DqSmem<D>::bytes);
+  const int smem = static_cast<int>(DqSmem<T, D>::bytes);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + BM - 1) / BM, B * H);
+  const int vec = aligned16<T>(q, sq) && aligned16<T>(k, sk) && aligned16<T>(v, sv) &&
+                  aligned16<T>(dout, sdo);
+  const dim3 grid(B * H, (Lq + BM - 1) / BM);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, seg, static_cast<T*>(dq), H, Lq, Lk, sq, sk, sv,
-      sdo, sdq, scale, causal, window);
+      sdo, sdq, scale, causal, window, vec);
   return cudaGetLastError();
 }
 
@@ -406,15 +706,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        Strides sdo, Strides sdk, Strides sdv, float scale, int causal,
                        int window, cudaStream_t stream) {
   auto kern = flash_bwd_dkv_kernel<T, D, SEG>;
-  const int smem = static_cast<int>(DkvSmem<D>::bytes);
+  const int smem = static_cast<int>(DkvSmem<T, D>::bytes);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lk + BN - 1) / BN, B * H);
+  const int vec = aligned16<T>(q, sq) && aligned16<T>(k, sk) && aligned16<T>(v, sv) &&
+                  aligned16<T>(dout, sdo);
+  const dim3 grid(B * H, (Lk + BN - 1) / BN);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, seg, static_cast<T*>(dk), static_cast<T*>(dv), H,
-      Lq, Lk, sq, sk, sv, sdo, sdk, sdv, scale, causal, window);
+      Lq, Lk, sq, sk, sv, sdo, sdk, sdv, scale, causal, window, vec);
   return cudaGetLastError();
 }
 

@@ -109,7 +109,10 @@ def _segments(b, l, seed=0):
 
 
 # (causal, window, lq, lk, d, segmented): ragged lengths, both head dims,
-# window below / above / not a multiple of the 64-row tile.
+# window below / above / not a multiple of the 64-row tile; a single
+# partial tile (40) and exactly one full tile (64); many tiles under a
+# window smaller than one tile, so the tile stream passes every stage of
+# its ring many times.
 BWD_CASES = [
     (True, None, 200, 200, 128, False),
     (True, 37, 130, 130, 128, False),
@@ -118,6 +121,9 @@ BWD_CASES = [
     (False, None, 70, 190, 64, False),
     (False, None, 150, 150, 128, True),
     (True, None, 200, 200, 64, True),
+    (True, None, 40, 40, 128, False),
+    (False, None, 64, 64, 64, False),
+    (True, 20, 520, 520, 128, False),
 ]
 
 
@@ -146,8 +152,9 @@ def test_flash_fwd_lse_and_segments_match_plain(cuda, dtype, tol, causal,
 def test_flash_bwd_kernels_match_plain(cuda, dtype, tol, causal, window, lq,
                                        lk, d, segmented):
     """dQ and dK/dV kernels against the plain FA2 versions on the same
-    lse / delta.  f32: summation order only; bf16: the same f32
-    arithmetic, rounded once to bf16 on output."""
+    lse / delta.  f32: 3xTF32 products (~2^-21 of each product) and the
+    summation order; bf16: P and dS rounded to bf16 as tensor-core
+    operands, and the outputs rounded once to bf16."""
     q, k, v, do = _inputs(2, lq, lk, 3, d, dtype, seed=1)
     seg = _segments(2, lq, seed=1) if segmented else None
     scale = d ** -0.5
@@ -169,6 +176,107 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, tol, causal, window, lq,
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+
+def _bwd_pair(q, k, v, do, lse, delta, causal=True, window=None, seg=None):
+    scale = q.shape[-1] ** -0.5
+    dq = tattn.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale,
+                                 window, seg)
+    dk, dv = tattn.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
+                                      window, seg)
+    return dq, dk, dv
+
+
+def _bwd_plain(q, k, v, do, lse, delta, causal=True, window=None, seg=None):
+    scale = q.shape[-1] ** -0.5
+    dq = tattn.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
+                                  window, seg)
+    return (dq, *tattn.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                           scale, window, seg))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("row_pad", [0, 2])
+def test_flash_bwd_fused_qkv_strides(cuda, dtype, tol, row_pad):
+    """q, k, v as views of one fused [B, L, 3, H, D] projection: rows
+    3 * H * D elements apart take the 16-byte cp.async copies; with
+    ``row_pad`` 2 the rows are 2 elements further apart, no longer whole
+    16-byte chunks, and the tiles are loaded element by element."""
+    b, l, h, d = 2, 150, 2, 128
+    rng = np.random.default_rng(3)
+    row = 3 * h * d + row_pad
+    flat = torch.from_numpy(rng.normal(size=b * l * row).astype(np.float32))
+    flat = flat.to("cuda", dtype)
+    q, k, v = (torch.as_strided(flat, (b, l, h, d), (l * row, row, d, 1),
+                                i * h * d) for i in range(3))
+    do = torch.from_numpy(rng.normal(size=(b, l, h, d)).astype(np.float32))
+    do = do.to("cuda", dtype)
+    out, lse = tattn.flash_fwd_plain(q, k, v, True, d ** -0.5)
+    delta = tattn.attention_delta(do, out)
+    got = _bwd_pair(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    # The same values, contiguous: the result must not depend on the path.
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    ref = _bwd_plain(qc, kc, vc, do, lse, delta)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_deterministic(cuda, dtype):
+    """No atomics: two launches on the same inputs give dQ, dK and dV
+    equal bit for bit (packed segments, causal, several tiles)."""
+    q, k, v, do = _inputs(2, 300, 300, 3, 128, dtype, seed=4)
+    seg = _segments(2, 300, seed=4)
+    out, lse = tattn.flash_fwd_plain(q, k, v, True, 128 ** -0.5,
+                                     segment_ids=seg)
+    delta = tattn.attention_delta(do, out)
+    first = _bwd_pair(q, k, v, do, lse, delta, seg=seg)
+    second = _bwd_pair(q, k, v, do, lse, delta, seg=seg)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_f32_is_compensated(cuda):
+    """f32 products run as 3xTF32 (hi.lo + lo.hi + hi.hi), not one TF32
+    pass.  Rows of q and k with norm 30 (logits of std ~7) make the
+    rounding of a single TF32 pass show: the plain FA2 with cuBLAS in TF32
+    misses the 1e-4 bound that the kernels keep against the plain FA2 in
+    full f32."""
+    b, l, h, d = 2, 256, 2, 128
+    rng = np.random.default_rng(5)
+
+    def rows(norm):
+        x = rng.normal(size=(b, l, h, d)).astype(np.float32)
+        x *= norm / np.linalg.norm(x, axis=-1, keepdims=True)
+        return torch.from_numpy(x).to("cuda")
+
+    q, k = rows(30.0), rows(30.0)
+    v, do = (torch.from_numpy(rng.normal(size=(b, l, h, d))
+                              .astype(np.float32)).to("cuda")
+             for _ in range(2))
+    out, lse = tattn.flash_fwd_plain(q, k, v, True, d ** -0.5)
+    delta = tattn.attention_delta(do, out)
+    got = _bwd_pair(q, k, v, do, lse, delta)
+    ref = _bwd_plain(q, k, v, do, lse, delta)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        one_pass = _bwd_plain(q, k, v, do, lse, delta)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+
+    def excess(x, r):  # max |x - r| / (atol + rtol |r|) at 1e-4
+        return float(((x - r).abs() / (1e-4 + 1e-4 * r.abs())).max())
+
+    kernel = [excess(x, r) for x, r in zip(got, ref)]
+    tf32 = [excess(x, r) for x, r in zip(one_pass, ref)]
+    print(f"3xTF32 kernels / one TF32 pass, error over the 1e-4 bound "
+          f"(dq, dk, dv): {kernel} / {tf32}")
+    assert max(kernel) <= 1.0
+    assert min(tf32) > 1.0
 
 
 @pytest.mark.parametrize("causal,window,segmented", [
