@@ -21,10 +21,11 @@ Output: the card's name and power limit, one line per phase, then a
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
 line.  Any failed phase raises, so the exit code is nonzero.  In the
 kernels line, ``flash_fwd``'s times are the serving prefill case (bf16,
-causal, no lse) and its launches those of both main-path runs; the
-backward kernels' times are the training case (f32, causal) and their
-launches those of the training run, with the bf16 causal case beside it
-under ``"bf16_causal"``.
+causal, no lse), with the training case (f32, causal, with lse) beside
+it under ``"f32_lse_causal"``, and its launches those of both main-path
+runs; the backward kernels' times are the training case (f32, causal)
+and their launches those of the training run, with the bf16 causal case
+beside it under ``"bf16_causal"``.
 """
 
 import dataclasses
@@ -72,9 +73,13 @@ TRAIN_STEPS = 10
 
 def ptxas_summary(build_log):
     """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its
-    name and template arguments (as mangled), registers and spills."""
+    name and template arguments (as mangled), registers and spills; and
+    every warning of the log (wgmma serialization among them)."""
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
+        if "warning" in line.lower():
+            out.append(line.strip())
+            continue
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             k = re.search(r"\d(flash_\w+?_kernel)I(\w*?)EEv", m.group(1))
@@ -94,12 +99,21 @@ def log(phase, **fields):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` by CUDA events over ``iters`` calls."""
+    """Mean device time of ``fn`` by CUDA events over ``iters`` calls.
+    The calls queue behind a device-side sleep that outlasts their host
+    cost (Python, ctypes), so a kernel shorter than its launch is timed
+    on the device, not on the host."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    # Cycles at 2 GHz, above the card's SM clock: at least the host time.
+    torch.cuda._sleep(int(min(2e9 * 1.5 * host_s * iters, 2e9)))
     start.record()
     for _ in range(iters):
         fn()
@@ -612,7 +626,14 @@ def main(profile=False):
         "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}, {
+        "library_ms": main_case["library_ms"],
+        "f32_lse_causal": {
+            "max_abs_err": max(tmain["max_abs_err"]["fwd_o"],
+                               tmain["max_abs_err"]["fwd_lse"]),
+            "ms": tmain["fwd_ms"], "plain_ms": tmain["fwd_plain_ms"],
+            "bound_ms": tmain["fwd_bound_ms"],
+            "bound_by": tmain["fwd_bound_by"],
+            "library_ms": tmain["library_fwd_ms"]}}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "distkeras_tpu/ops/attention.py:438",
         "launches": train_launches["flash_bwd_dq"],

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles, at first use, into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds).
 Libraries land in ``distkeras_tpu_torch/_build/`` under a name keyed by
-the source's content and the flags, so an edited source rebuilds and an
-unchanged one is reused within a checkout.  Nothing here runs at import:
+the content of the source, of every shared header (``csrc/*.cuh``) and
+of the flags, so an edited source or header rebuilds and an unchanged
+one is reused within a checkout.  Nothing here runs at import:
 the CPU tests import every module of the package without ``nvcc``.
 """
 
@@ -36,14 +37,22 @@ def _nvcc() -> str:
     return found
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives: keyed by the source,
+    every shared header (``csrc/*.cuh``) and the flags."""
+    key = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
     the compiler's output (``-Xptxas -v``: registers, shared memory,
     spills) is kept in :data:`build_logs`."""
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -353,6 +353,9 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float,
     ``with_lse`` the f32 ``[B, H, Lq]`` log-sum-exp (else None — the
     inference launch writes none)."""
     _check_kernel_inputs(q, k, v)
+    if not scale > 0:
+        raise ValueError(f"flash kernel: scale must be positive (the "
+                         f"softmax keeps its max over raw logits), got {scale}")
     seg = _kernel_segments(segment_ids, q, k)
     b, lq, h, d = q.shape
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)

@@ -75,6 +75,9 @@ def test_flash_kernel_strided_inputs_and_rejections(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         x = torch.randn(1, 8, 2, 64, device="cuda", dtype=torch.float16)
         tattn.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="scale must be positive"):
+        x = torch.randn(1, 8, 2, 64, device="cuda")
+        tattn.flash_attention(x, x, x, scale=-0.1)
     with pytest.raises(ValueError, match="segment_ids"):
         x = torch.randn(1, 8, 2, 64, device="cuda", requires_grad=True)
         tattn.flash_attention(x, x, x, segment_ids=torch.zeros(
@@ -112,7 +115,9 @@ def _segments(b, l, seed=0):
 # window below / above / not a multiple of the 64-row tile; a single
 # partial tile (40) and exactly one full tile (64); many tiles under a
 # window smaller than one tile, so the tile stream passes every stage of
-# its ring many times.
+# its ring many times; a window of several tiles over a long sequence,
+# and a long non-causal kv sweep at head_dim 64, so the forward's K/V
+# ring wraps many times within one block.
 BWD_CASES = [
     (True, None, 200, 200, 128, False),
     (True, 37, 130, 130, 128, False),
@@ -124,6 +129,8 @@ BWD_CASES = [
     (True, None, 40, 40, 128, False),
     (False, None, 64, 64, 64, False),
     (True, 20, 520, 520, 128, False),
+    (True, 300, 1000, 1000, 128, False),
+    (False, None, 130, 900, 64, False),
 ]
 
 
@@ -239,6 +246,59 @@ def test_flash_bwd_kernels_deterministic(cuda, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_kernel_deterministic(cuda, dtype):
+    """Two launches of the training forward on the same inputs give O and
+    lse equal bit for bit (packed segments, causal, several tiles)."""
+    q, k, v, _ = _inputs(2, 300, 300, 3, 128, dtype, seed=6)
+    seg = _segments(2, 300, seed=6)
+    first, second = (tattn.flash_fwd_cuda(q, k, v, True, 128 ** -0.5,
+                                          segment_ids=seg, with_lse=True)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _large_rows(rng, shape, norm):
+    """Rows of norm ``norm`` (logits of std ~norm^2 / sqrt(D) * scale)."""
+    x = rng.normal(size=shape).astype(np.float32)
+    x *= norm / np.linalg.norm(x, axis=-1, keepdims=True)
+    return torch.from_numpy(x).to("cuda")
+
+
+def _excess(x, r):
+    """max |x - r| / (atol + rtol |r|) at 1e-4: at most 1 within bound."""
+    return float(((x.float() - r.float()).abs()
+                  / (1e-4 + 1e-4 * r.float().abs())).max())
+
+
+def test_flash_fwd_f32_is_compensated(cuda):
+    """The f32 forward runs both products as 3xTF32, not one TF32 pass.
+    With rows of q and k of norm 30 (logits of std ~7), O and lse stay
+    within 1e-4 of the plain forward in full f32, which the plain forward
+    with cuBLAS in TF32 (one pass) misses."""
+    b, l, h, d = 2, 256, 2, 128
+    rng = np.random.default_rng(7)
+    q, k = (_large_rows(rng, (b, l, h, d), 30.0) for _ in range(2))
+    v = torch.from_numpy(rng.normal(size=(b, l, h, d))
+                         .astype(np.float32)).to("cuda")
+    got = tattn.flash_fwd_cuda(q, k, v, True, d ** -0.5, with_lse=True)
+    ref = tattn.flash_fwd_plain(q, k, v, True, d ** -0.5)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        one_pass = tattn.flash_fwd_plain(q, k, v, True, d ** -0.5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    kernel = [_excess(x, r) for x, r in zip(got, ref)]
+    tf32 = [_excess(x, r) for x, r in zip(one_pass, ref)]
+    print(f"3xTF32 kernel / one TF32 pass, error over the 1e-4 bound "
+          f"(O, lse): {kernel} / {tf32}")
+    assert max(kernel) <= 1.0
+    assert tf32[0] > 1.0
+
+
 def test_flash_bwd_f32_is_compensated(cuda):
     """f32 products run as 3xTF32 (hi.lo + lo.hi + hi.hi), not one TF32
     pass.  Rows of q and k with norm 30 (logits of std ~7) make the
@@ -247,13 +307,7 @@ def test_flash_bwd_f32_is_compensated(cuda):
     full f32."""
     b, l, h, d = 2, 256, 2, 128
     rng = np.random.default_rng(5)
-
-    def rows(norm):
-        x = rng.normal(size=(b, l, h, d)).astype(np.float32)
-        x *= norm / np.linalg.norm(x, axis=-1, keepdims=True)
-        return torch.from_numpy(x).to("cuda")
-
-    q, k = rows(30.0), rows(30.0)
+    q, k = (_large_rows(rng, (b, l, h, d), 30.0) for _ in range(2))
     v, do = (torch.from_numpy(rng.normal(size=(b, l, h, d))
                               .astype(np.float32)).to("cuda")
              for _ in range(2))
@@ -267,12 +321,8 @@ def test_flash_bwd_f32_is_compensated(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.synchronize()
-
-    def excess(x, r):  # max |x - r| / (atol + rtol |r|) at 1e-4
-        return float(((x - r).abs() / (1e-4 + 1e-4 * r.abs())).max())
-
-    kernel = [excess(x, r) for x, r in zip(got, ref)]
-    tf32 = [excess(x, r) for x, r in zip(one_pass, ref)]
+    kernel = [_excess(x, r) for x, r in zip(got, ref)]
+    tf32 = [_excess(x, r) for x, r in zip(one_pass, ref)]
     print(f"3xTF32 kernels / one TF32 pass, error over the 1e-4 bound "
           f"(dq, dk, dv): {kernel} / {tf32}")
     assert max(kernel) <= 1.0
