@@ -1,7 +1,18 @@
 """distkeras_tpu_torch: the PyTorch / CUDA (Hopper) port of distkeras_tpu.
 
-A second package beside the JAX one, which stays the reference.  It
-serves and trains the decoder-only transformer LM on one GPU:
+A second package beside the JAX one, which stays the reference.
+
+The paper's path, on one GPU: a :class:`Dataset` and its transformers,
+a model of ``zoo`` (``nn.Module``s with Keras' layouts; weights carry
+across with ``module_from_keras_numpy``), the Keras trainer family
+(``SingleTrainer``, ``ADAG``, ``DynSGD``, ``AEASGD``, ``EAMSGD``,
+``DOWNPOUR``, ``AveragingTrainer``, ``EnsembleTrainer``) over a
+:class:`ModelAdapter`, then :class:`ModelPredictor` and
+:class:`AccuracyEvaluator`.  Its convolutions and dense products are
+cuDNN / cuBLAS; the reference computes them in XLA, outside any Pallas
+kernel.
+
+The flagship LM on one GPU:
 ``generate`` runs a batched prefill through the hand-written
 flash-attention forward kernel (``ops/csrc/flash_fwd.cu``), then a
 KV-cached decode loop; ``LMTrainer`` / ``make_train_step`` train through
@@ -13,7 +24,21 @@ raise unless called with ``device="cpu"`` (as the tests do).  The port
 imports ``torch`` and numpy, never ``jax`` or ``distkeras_tpu``.
 """
 
+from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.data.packing import pack_documents, packing_efficiency
+from distkeras_tpu_torch.data.transformers import (
+    DenseTransformer,
+    LabelIndexTransformer,
+    MinMaxTransformer,
+    OneHotTransformer,
+    ReshapeTransformer,
+    StandardScaleTransformer,
+    Transformer,
+)
+from distkeras_tpu_torch.evaluators import (AccuracyEvaluator, Evaluator,
+                                            PerplexityEvaluator)
+from distkeras_tpu_torch.models import zoo
+from distkeras_tpu_torch.models.adapter import ModelAdapter, TrainState
 from distkeras_tpu_torch.models.generate import (
     generate,
     init_cache,
@@ -38,18 +63,50 @@ from distkeras_tpu_torch.ops.attention import (
     flash_attention,
     naive_attention,
 )
+from distkeras_tpu_torch.predictors import ModelPredictor, Predictor
+from distkeras_tpu_torch.trainers.base import SingleTrainer, Trainer
+from distkeras_tpu_torch.trainers.distributed import ADAG, DynSGD
+from distkeras_tpu_torch.trainers.elastic import (AEASGD, DOWNPOUR, EAMSGD,
+                                                  AveragingTrainer,
+                                                  EnsembleTrainer)
 from distkeras_tpu_torch.trainers.lm import LMTrainer
 from distkeras_tpu_torch.trainers.optim import Optimizer
 from distkeras_tpu_torch.utils.serialization import (
+    keras_numpy_from_module,
     load_lm,
+    module_from_keras_numpy,
     params_from_numpy,
     params_to_numpy,
 )
 
 __all__ = [
+    "ADAG",
+    "AEASGD",
+    "AccuracyEvaluator",
+    "AveragingTrainer",
+    "DOWNPOUR",
+    "Dataset",
+    "DenseTransformer",
+    "DynSGD",
+    "EAMSGD",
+    "EnsembleTrainer",
+    "Evaluator",
     "LAUNCHES",
     "LMTrainer",
+    "LabelIndexTransformer",
+    "MinMaxTransformer",
+    "ModelAdapter",
+    "ModelPredictor",
+    "OneHotTransformer",
     "Optimizer",
+    "PerplexityEvaluator",
+    "Predictor",
+    "ReshapeTransformer",
+    "SingleTrainer",
+    "StandardScaleTransformer",
+    "TrainState",
+    "Trainer",
+    "Transformer",
     "TransformerConfig",
     "apply",
     "apply_hidden",
@@ -59,11 +116,13 @@ __all__ = [
     "generate",
     "init_cache",
     "init_params",
+    "keras_numpy_from_module",
     "lm_loss",
     "lm_nll",
     "load_lm",
     "make_train_step",
     "min_p_mask",
+    "module_from_keras_numpy",
     "naive_attention",
     "pack_documents",
     "packing_efficiency",
@@ -72,4 +131,5 @@ __all__ = [
     "prefill",
     "top_k_mask",
     "top_p_mask",
+    "zoo",
 ]

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.models import transformer as tfm
-from distkeras_tpu_torch.trainers.optim import Optimizer
+from distkeras_tpu_torch.trainers.optim import LM_NAMES, Optimizer
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
 
 # Reference knobs not ported yet: name -> (default, ROADMAP item).
@@ -87,6 +87,9 @@ class LMTrainer:
             raise ValueError(f"eval_every must be >= 0, got {eval_every}")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if optimizer not in LM_NAMES:
+            raise ValueError(f"unknown optimizer {optimizer!r}; known: "
+                             f"{sorted(LM_NAMES)}")
         self.cfg = cfg
         self.optimizer = Optimizer(optimizer, learning_rate, weight_decay,
                                    grad_clip_norm, ema_decay)

@@ -1,11 +1,16 @@
-"""Carry LM weights between the JAX package and the port.
+"""Carry weights between the JAX package and the port.
 
-``load_lm`` reads the ``.npz`` that ``distkeras_tpu.utils.serialization.
-save_lm`` writes (a ``__config__`` JSON entry plus one array per
-``/``-joined key path) with plain ``np.load``; ``params_from_numpy``
-carries a nested dict of arrays across as tensors, and
-``params_to_numpy`` back (the trained weights then go into the JAX
-package, or its ``save_lm`` layout, unchanged).
+Keras models: ``module_from_keras_numpy`` loads Keras' own variable
+lists (``trainable_variables`` / ``non_trainable_variables`` as numpy,
+which is the JAX adapter's ``tv`` / ``ntv``) into a zoo module, and
+``keras_numpy_from_module`` gives them back, exactly.
+
+The LM: ``load_lm`` reads the ``.npz`` that
+``distkeras_tpu.utils.serialization.save_lm`` writes (a ``__config__``
+JSON entry plus one array per ``/``-joined key path) with plain
+``np.load``; ``params_from_numpy`` carries a nested dict of arrays
+across as tensors, and ``params_to_numpy`` back (the trained weights
+then go into the JAX package, or its ``save_lm`` layout, unchanged).
 """
 
 from __future__ import annotations
@@ -47,6 +52,56 @@ def params_to_numpy(tree):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def _keras_layout(p: torch.Tensor) -> np.ndarray:
+    """A module parameter as a new array in Keras' layout: Conv2D kernels
+    HWIO (torch OIHW), Dense kernels ``[in, out]`` (``Linear.weight`` is
+    ``[out, in]``), anything else as it is."""
+    a = p.detach().cpu().numpy()
+    if a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)
+    elif a.ndim == 2:
+        a = a.T
+    return np.array(a, order="C")
+
+
+def _torch_layout(a) -> np.ndarray:
+    a = np.asarray(a)
+    if a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)
+    return a.T if a.ndim == 2 else a
+
+
+def keras_numpy_from_module(module) -> tuple[list, list]:
+    """``(tv, ntv)``: the module's parameters and buffers, in order, as
+    numpy arrays in Keras' layout (the inverse of
+    :func:`module_from_keras_numpy`)."""
+    return ([_keras_layout(p) for p in module.parameters()],
+            [_keras_layout(b) for b in module.buffers()])
+
+
+def module_from_keras_numpy(module, tv, ntv=()):
+    """Load Keras' variable lists (numpy, in ``trainable_variables`` /
+    ``non_trainable_variables`` order) into ``module`` in place: Conv2D
+    kernels HWIO -> OIHW, Dense kernels ``[in, out]`` -> ``[out, in]``.
+    The counts and every converted shape must match.  Returns the
+    module."""
+    for what, named, src in (
+            ("trainable", list(module.named_parameters()), list(tv)),
+            ("non-trainable", list(module.named_buffers()), list(ntv))):
+        if len(named) != len(src):
+            raise ValueError(f"{what} variables: the module holds "
+                             f"{len(named)}, got {len(src)}")
+        for (name, t), a in zip(named, src):
+            a = _torch_layout(a)
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"{name}: Keras variable of shape {a.shape} (torch "
+                    f"layout) does not fit {tuple(t.shape)}")
+            with torch.no_grad():
+                t.copy_(torch.tensor(a))
+    return module
 
 
 def load_lm(path: str, device=None, dtype=None):

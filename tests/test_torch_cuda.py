@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
 the flash forward (inference and training launches), the FA2 dQ and
-dK/dV kernels, and ``flash_attention`` under autograd.
+dK/dV kernels, and ``flash_attention`` under autograd; and the Keras
+family's CIFAR CNN path on the card against the same path on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports no JAX, so on a machine with
@@ -353,3 +354,61 @@ def test_flash_attention_autograd_matches_blockwise(cuda, causal, window,
                               segment_ids=seg)
     assert tattn.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
     assert tattn.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"]
+
+
+def _cifar_run(cls, device, policy, n_rows, batch, **kw):
+    """``cls`` over a numpy-seeded ``cifar_cnn`` on seeded uint8 images:
+    (history, Keras-layout weights)."""
+    import distkeras_tpu_torch as dkt
+
+    rng = np.random.default_rng(5)
+    ds = dkt.Dataset.from_arrays(
+        rng.integers(0, 256, (n_rows, 32, 32, 3), dtype=np.uint8),
+        rng.integers(0, 10, n_rows))
+    t = cls(dkt.zoo.cifar_cnn(seed=2, policy=policy),
+            loss="sparse_categorical_crossentropy", batch_size=batch,
+            preprocess=lambda x: x.float() / 255, device=device, **kw)
+    with pytest.warns(UserWarning, match="preprocess"):
+        model = t.train(ds)
+    return np.array(t.history), dkt.keras_numpy_from_module(model)[0]
+
+
+@pytest.mark.parametrize("cls_name,kw", [
+    ("SingleTrainer", {}), ("SingleTrainer", {"device_data": True}),
+    ("ADAG", {"communication_window": 2})])
+def test_cifar_cnn_path_on_card_matches_cpu(cuda, cls_name, kw):
+    """float32 (TF32 off): the card's run against the CPU's on the same
+    weights and batches.  Losses at rtol 1e-4 / atol 1e-5; weights at
+    atol 1e-4: each first-layer kernel gradient sums 64 x 32 x 32
+    products of noise pixels, which cuDNN and the CPU add in different
+    orders (the first card run read 2.8e-5 after four steps at 0.05)."""
+    import distkeras_tpu_torch as dkt
+
+    cls = getattr(dkt, cls_name)
+    card = _cifar_run(cls, "cuda", "float32", 256, 64,
+                      worker_optimizer="sgd", learning_rate=0.05, **kw)
+    host = _cifar_run(cls, "cpu", "float32", 256, 64,
+                      worker_optimizer="sgd", learning_rate=0.05, **kw)
+    np.testing.assert_allclose(card[0], host[0], rtol=1e-4, atol=1e-5)
+    for a, b in zip(card[1], host[1]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_adag_window_one_equals_single_trainer_on_card(cuda):
+    """mixed_bfloat16 on the card, deterministic cuDNN: ADAG with a
+    window of one is SingleTrainer (the same operations; within 1e-6)."""
+    import distkeras_tpu_torch as dkt
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        single = _cifar_run(dkt.SingleTrainer, "cuda", "mixed_bfloat16",
+                            512, 128, worker_optimizer="adam")
+        adag = _cifar_run(dkt.ADAG, "cuda", "mixed_bfloat16", 512, 128,
+                          worker_optimizer="adam", communication_window=1)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert len(single[0]) == len(adag[0]) == 4
+    np.testing.assert_allclose(adag[0], single[0], rtol=0, atol=1e-6)
+    for a, b in zip(adag[1], single[1]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)

@@ -171,12 +171,19 @@ def test_entry_points_without_device_raise_on_cpu_only_machine(
 
 
 def test_port_imports_neither_jax_nor_reference_package():
+    """Every module of the port imports, and none of them pulls in JAX,
+    the reference package, or Keras / optax / flax (the card's machine
+    has none of them)."""
     code = (
         "import sys, pkgutil, importlib, distkeras_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in\n"
+        "         pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'distkeras_tpu_torch.trainers.elastic' in names, names\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'distkeras_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'distkeras_tpu',\n"
+        "                                    'keras', 'optax', 'flax'))\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
