@@ -20,7 +20,16 @@ each went through its kernels:
   same run on the CPU, and ``ADAG(communication_window=1)`` against
   ``SingleTrainer``.  This path reaches no hand-written kernel (its
   convolutions and dense products are cuDNN / cuBLAS, as the reference's
-  are XLA's).
+  are XLA's);
+- long-context training from raw text (phase ``long_train``): a seeded
+  text through the native BPE tokenizer into rows of 4096 + 1 tokens, a
+  ``Dataset`` of them through ``LMTrainer(_long_cfg)`` (remat, shuffled,
+  device-resident, profiled), the loss falling; the trained artefact
+  through ``save_lm`` -> ``load_lm`` -> ``generate`` (phase
+  ``long_serve``); the rope + GQA, window-1024, ``remat_policy="dots"``
+  and remat-off variants timed (peak memory with remat below without);
+  and the training kernels against their plain versions at
+  [8, 4096, 8, 128].
 
 Usage: python3 chip_smoke.py [--profile]     (needs one CUDA device)
 
@@ -32,17 +41,21 @@ Output: the card's name and power limit, one line per phase, then a
 line.  Any failed phase raises, so the exit code is nonzero.  In the
 kernels line, ``flash_fwd``'s times are the serving prefill case (bf16,
 causal, no lse), with the training case (f32, causal, with lse) beside
-it under ``"f32_lse_causal"``, and its launches those of both main-path
-runs; the backward kernels' times are the training case (f32, causal)
-and their launches those of the training run, with the bf16 causal case
-beside it under ``"bf16_causal"``.
+it under ``"f32_lse_causal"``, and its launches those of all three
+main-path runs (``launches_by_path``); the backward kernels' times are
+the training case (f32, causal) and their launches those of the two
+training runs, with the bf16 causal case beside it under
+``"bf16_causal"``; each kernel also carries its seq-4096 f32 readings
+(causal, and window 1024).
 """
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 import distkeras_tpu_torch as dkt
+from distkeras_tpu_torch import native as dkt_native
 from distkeras_tpu_torch.ops import _build
 from distkeras_tpu_torch.ops import attention as attn
 from distkeras_tpu_torch.models.transformer import named_leaves
@@ -79,6 +93,24 @@ FLAGSHIP_TRAIN = dkt.TransformerConfig(
     max_len=1025, dtype="bfloat16")
 TRAIN_SHAPE = (8, 1024, 8, 128)    # q/k/v [B, L, H, D] of a train step
 TRAIN_STEPS = 10
+
+# The long-context family of scripts/bench_suite.py, trained as
+# _measure_lm trains it (adamw 3e-4, batch 8 x seq 4096, f32 weights, so
+# an f32 trunk and the f32 kernels): _long_cfg (:375-384, remat on) and
+# its rope + GQA (:391-399), window-1024 (:402-410), remat_policy="dots"
+# (:413-421) and remat-off (:424-430) variants.
+LONG_CFG = dkt.TransformerConfig(
+    vocab_size=32768, d_model=1024, n_heads=8, n_layers=8, d_ff=4096,
+    max_len=4097, dtype="bfloat16", remat=True)
+LONG_VARIANTS = {
+    "long": LONG_CFG,
+    "long_rope_gqa": dataclasses.replace(LONG_CFG, rope=True, n_kv_heads=2),
+    "long_window1024": dataclasses.replace(LONG_CFG, attention_window=1024),
+    "long_rematdots": dataclasses.replace(LONG_CFG, remat_policy="dots"),
+    "long_noremat": dataclasses.replace(LONG_CFG, remat=False),
+}
+LONG_SHAPE = (8, 4096, 8, 128)     # q/k/v [B, L, H, D] of a long step
+LONG_TEXT_STEPS = 6
 
 
 def ptxas_summary(build_log):
@@ -195,18 +227,18 @@ def packed_segments(batch, length, seed):
     return torch.from_numpy(seg).to("cuda")
 
 
-def train_kernel_case(dtype, causal, window, segmented, seed=0):
-    """The training kernels at the train-step shape: the forward with lse
-    against flash_fwd_plain, and the dQ / dK/dV kernels against the plain
-    FA2 versions on the same lse / delta.  Max errors, and kernel /
-    plain / library times (SDPA: forward, and its backward as forward +
-    backward minus forward)."""
+def train_kernel_case(dtype, causal, window, segmented, seed=0,
+                      shape=TRAIN_SHAPE):
+    """The training kernels at a train-step shape (``shape``: q/k/v [B, L,
+    H, D]): the forward with lse against flash_fwd_plain, and the dQ /
+    dK/dV kernels against the plain FA2 versions on the same lse /
+    delta.  Max errors, and kernel / plain / library times (SDPA:
+    forward, and its backward as forward + backward minus forward)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn(TRAIN_SHAPE, generator=gen, device="cuda",
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
                                dtype=dtype) for _ in range(4))
-    seg = packed_segments(TRAIN_SHAPE[0], TRAIN_SHAPE[1], seed) \
-        if segmented else None
-    scale = 1.0 / TRAIN_SHAPE[-1] ** 0.5
+    seg = packed_segments(shape[0], shape[1], seed) if segmented else None
+    scale = 1.0 / shape[-1] ** 0.5
     # f32: summation order (and 3xTF32 products in the backward); bf16: P
     # (and dS in the backward) round to bf16 as tensor-core operands.
     tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -249,7 +281,7 @@ def train_kernel_case(dtype, causal, window, segmented, seed=0):
             dkv_plain_ms=time_ms(lambda: attn.flash_bwd_dkv_plain(
                 q, k, v, do, ref_lse, delta, causal, scale, window, seg),
                 iters=5))
-    mask = keep_mask(seg, TRAIN_SHAPE[1], causal, window)
+    mask = keep_mask(seg, shape[1], causal, window)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     gt = do.transpose(1, 2)
@@ -260,7 +292,7 @@ def train_kernel_case(dtype, causal, window, segmented, seed=0):
         times["library_fwd_ms"] = time_ms(sdpa)
     fwd_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt))
     times["library_bwd_ms"] = fwd_bwd - times["library_fwd_ms"]
-    b, lq, h, d = TRAIN_SHAPE
+    b, lq, h, d = shape
     pairs = (b * h * lq * lq if mask is None
              else h * int(mask.expand(b, lq, lq).sum()))
     elt = q.element_size()
@@ -272,7 +304,7 @@ def train_kernel_case(dtype, causal, window, segmented, seed=0):
                  pairs),
         dkv=bound(q, causal, window, 8 * d, 6 * q.numel() * elt + rows,
                   pairs))
-    return dict(dtype=str(dtype).split(".")[-1], causal=causal,
+    return dict(dtype=str(dtype).split(".")[-1], shape=shape, causal=causal,
                 window=window, segmented=segmented, live_pairs=pairs,
                 max_abs_err=errs, tol=tol, **times,
                 **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
@@ -680,6 +712,255 @@ def keras_parity(x, y, device, batch, steps=4):
         adag_w1_vs_single_weight_max_abs_diff=adag_w, adag_tol=1e-6)
 
 
+def text_corpus(n_bytes, seed=0):
+    """Seeded English-like text from numpy: sentences of 5-15 words drawn
+    with Zipf frequencies from 3,000 random lowercase words, so a model
+    can learn its statistics."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, int(n)))
+             for n in rng.integers(2, 9, 3000)]
+    freq = 1.0 / np.arange(1, len(words) + 1) ** 1.1
+    freq /= freq.sum()
+    out, size = [], 0
+    while size < n_bytes:
+        ids = rng.choice(len(words), size=int(rng.integers(5, 16)), p=freq)
+        sentence = " ".join(words[i] for i in ids).capitalize() + ". "
+        out.append(sentence)
+        size += len(sentence)
+    return "".join(out)[:n_bytes]
+
+
+def variant_params(np_params, cfg):
+    """``np_params`` (the long config's) cut to ``cfg``: its K/V heads
+    (GQA keeps the first ``kv_heads``), no position table under rope."""
+    attn_p = dict(np_params["layers"]["attn"])
+    for name in ("wk", "wv"):
+        attn_p[name] = np.ascontiguousarray(attn_p[name][:, :, :cfg.kv_heads])
+    out = {**np_params, "layers": {**np_params["layers"], "attn": attn_p}}
+    if cfg.rope:
+        out.pop("pos_emb")
+    return out
+
+
+def zero_launches():
+    for name in attn.LAUNCHES:
+        attn.LAUNCHES[name] = 0
+
+
+def expect_long_launches(counts, cfg, steps, what):
+    """Per step: the forward kernel once a layer, twice under remat (the
+    recompute), each backward kernel once a layer."""
+    layers = cfg.n_layers * steps
+    want = {"flash_fwd": layers * (2 if cfg.remat else 1),
+            "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def trace_device_time(path):
+    """Device time in a torch.profiler chrome trace: the kernels', copies'
+    and memsets' busy ms against the span of all timed events (host and
+    device) and against the device's own span (first to last device
+    event), the device event count, the five longest gaps (ms) between
+    consecutive device events, and the device time by kernel name (the
+    ten largest)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                 key=lambda e: e["ts"])
+    busy = sum(e["dur"] for e in dev)
+    wall = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events))
+    dev_wall = dev[-1]["ts"] + dev[-1]["dur"] - dev[0]["ts"]
+    gaps = [b["ts"] - (a["ts"] + a["dur"]) for a, b in zip(dev, dev[1:])]
+    by_name = {}
+    for e in dev:
+        ms, calls = by_name.get(e["name"][:90], (0.0, 0))
+        by_name[e["name"][:90]] = (ms + e["dur"] / 1e3, calls + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return dict(device_busy_ms=busy / 1e3, wall_ms=wall / 1e3,
+                device_span_ms=dev_wall / 1e3, device_events=len(dev),
+                idle_share=1 - busy / wall,
+                idle_share_device_span=1 - busy / dev_wall,
+                longest_gaps_ms=[g / 1e3 for g in sorted(gaps)[-5:]],
+                top=[{"kernel": k, "calls": c, "device_ms": ms}
+                     for k, (ms, c) in top])
+
+
+def long_text_phase(np_params, tmp):
+    """Text -> tokens -> rows -> trainer: a seeded 1 MiB corpus, the
+    native BPE trainer on its first 256 KiB at vocab 2048, the corpus
+    encoded into rows of 4096 + 1, and LMTrainer(_long_cfg) over a
+    Dataset of 48 of them (shuffled, device-resident, profiled rounds
+    2-4): the loss must fall and every step go through the kernels."""
+    cfg = LONG_CFG
+    t0 = time.perf_counter()
+    text = text_corpus(1 << 20)
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok = dkt.BPETokenizer.train(text[:256 << 10], vocab_size=2048)
+    bpe_train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = tok.encode_corpus(text, seq_len=LONG_SHAPE[1])
+    encode_s = time.perf_counter() - t0
+    if tok.last_path != "native":
+        raise AssertionError(f"the native BPE library did not run: "
+                             f"{dkt_native.build_errors}")
+    n = 8 * LONG_TEXT_STEPS
+    if len(rows) < n or int(rows.max()) >= cfg.vocab_size:
+        raise AssertionError(f"rows {rows.shape}, max id {rows.max()}")
+    trainer = dkt.LMTrainer(cfg, optimizer="adamw", learning_rate=3e-4,
+                            batch_size=8, shuffle=True, device_data=True,
+                            profile_dir=os.path.join(tmp, "profile"))
+    params = dkt.params_from_numpy(np_params, "cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    trained = trainer.train(dkt.Dataset({"tokens": rows[:n]}), params=params)
+    launches = dict(attn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    expect_long_launches(launches, cfg, LONG_TEXT_STEPS, "long_train")
+    hist = trainer.history
+    if len(hist) != LONG_TEXT_STEPS or not all(np.isfinite(hist)):
+        raise AssertionError(f"bad losses {hist}")
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"the loss did not fall on the text: {hist}")
+    path = trainer.profile_path
+    if not (path and os.path.getsize(path) > 0):
+        raise AssertionError(f"no profiler trace written: {path}")
+    prof = trace_device_time(path)
+    prof_steps = trainer.profile_steps
+    log("long_train", config=dataclasses.asdict(cfg), batch=8,
+        seq=LONG_SHAPE[1], steps=LONG_TEXT_STEPS, corpus_bytes=len(text),
+        corpus_s=corpus_s, bpe_train_bytes=256 << 10,
+        bpe_train_s=bpe_train_s, bpe_vocab=tok.vocab_size,
+        encode_s=encode_s, rows=int(len(rows)), tokenizer_path=tok.last_path,
+        launches=launches, losses=hist, train_s=trainer.training_time,
+        trace=os.path.basename(path), trace_mb=os.path.getsize(path) / 2**20,
+        profiled_steps=prof_steps, profile=prof,
+        idle_share=prof["idle_share"],
+        step_ms=prof["wall_ms"] / prof_steps,
+        tokens_per_s=8 * LONG_SHAPE[1] * prof_steps * 1e3 / prof["wall_ms"],
+        peak_mem_gb=peak)
+    return trained, tok, rows, text, launches
+
+
+def long_variant(name, cfg, np_params, steps=3):
+    """One warm-up and ``steps`` timed train steps of ``cfg`` on seeded
+    random tokens, as _measure_lm feeds them."""
+    params = dkt.params_from_numpy(variant_params(np_params, cfg), "cuda")
+    opt = dkt.Optimizer("adamw", 3e-4)
+    step = dkt.make_train_step(cfg, opt)
+    carry = [(params, opt.init(params))]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, LONG_SHAPE[1] + 1)).astype(np.int32)).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    carry[0], _ = step(carry[0], tokens)  # warm-up
+    zero_launches()
+
+    def run():
+        losses = []
+        for _ in range(steps):
+            carry[0], loss = step(carry[0], tokens)
+            losses.append(loss)
+        return torch.stack(losses).tolist()
+
+    losses, seconds = wall_s(run)
+    launches = dict(attn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del carry, params, opt, step
+    expect_long_launches(launches, cfg, steps, name)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: bad losses {losses}")
+    step_ms = 1e3 * seconds / steps
+    out = dict(variant=name, remat=cfg.remat, remat_policy=cfg.remat_policy,
+               rope=cfg.rope, n_kv_heads=cfg.n_kv_heads,
+               attention_window=cfg.attention_window, steps=steps,
+               losses=losses, launches=launches, step_ms=step_ms,
+               tokens_per_s=8 * LONG_SHAPE[1] * 1e3 / step_ms,
+               peak_mem_gb=peak)
+    log("long_variant", **out)
+    return out
+
+
+def long_serve_phase(params, tok, rows, text, tmp):
+    """The trained _long_cfg artefact (a remat config) through save_lm ->
+    load_lm -> greedy generate: a [2, 512] prompt of the text and 16
+    tokens, the prompt decoded back to the corpus, the new tokens to
+    text; the prefill (kernel) path against the sequential decode on a
+    64-token prompt."""
+    path = os.path.join(tmp, "long_lm.npz")
+    t0 = time.perf_counter()
+    dkt.save_lm(path, params, LONG_CFG)
+    save_s = time.perf_counter() - t0
+    loaded, cfg = dkt.load_lm(path)
+    if cfg != LONG_CFG or not torch.equal(loaded["tok_emb"],
+                                          params["tok_emb"]):
+        raise AssertionError("the artefact did not round-trip")
+    prompt = rows[:2, :512]
+    zero_launches()
+    out, gen_s = wall_s(lambda: dkt.generate(loaded, prompt, cfg, 16))
+    launches = dict(attn.LAUNCHES)
+    if launches != {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}:
+        raise AssertionError(f"generate launched {launches}")
+    out = out.cpu().numpy()
+    if (out.shape != (2, 528) or out.dtype != np.int32
+            or not np.array_equal(out[:, :512], prompt)
+            or out.min() < 0 or out.max() >= cfg.vocab_size):
+        raise AssertionError(f"bad generate output {out.shape} {out.dtype}")
+    prompt_text = tok.decode(prompt[0])
+    if not text.startswith(prompt_text):
+        raise AssertionError("the prompt does not decode to the corpus")
+    new = out[:, 512:]
+    texts = [tok.decode(r[r < tok.vocab_size]) for r in new]
+    short = prompt[:, :64]
+    via_kernel = dkt.generate(loaded, short, cfg, 16, use_prefill=True)
+    sequential = dkt.generate(loaded, short, cfg, 16, use_prefill=False)
+    if not torch.equal(via_kernel, sequential):
+        raise AssertionError("greedy tokens differ between the prefill "
+                             "(kernel) and sequential paths")
+    log("long_serve", artefact_mb=os.path.getsize(path) / 2**20,
+        save_s=save_s, prompt=list(prompt.shape), new_tokens=16,
+        launches=launches, generate_s=gen_s,
+        new_ids=new.tolist(), new_ids_in_tokenizer_vocab=int(
+            (new < tok.vocab_size).sum()),
+        new_text=texts, prompt_tail=prompt_text[-60:],
+        f32_prefill_vs_sequential_tokens_equal=True)
+
+
+def long_phase():
+    """Phase long_train: the long-context family at full width on one
+    card (text pipeline, served artefact, variants, seq-4096 kernel
+    cases).  Returns the launches of its main-path run (the text-fed
+    LMTrainer) and the kernel cases."""
+    np_params = numpy_params(LONG_CFG, seed=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        trained, tok, rows, text, launches = long_text_phase(np_params, tmp)
+        long_serve_phase(trained, tok, rows, text, tmp)
+    del trained
+    variants = [long_variant(name, cfg, np_params)
+                for name, cfg in LONG_VARIANTS.items()]
+    by = {v["variant"]: v for v in variants}
+    if not by["long"]["peak_mem_gb"] < by["long_noremat"]["peak_mem_gb"]:
+        raise AssertionError("remat did not lower peak memory: "
+                             f"{by['long']['peak_mem_gb']} GB against "
+                             f"{by['long_noremat']['peak_mem_gb']} GB")
+    torch.cuda.empty_cache()
+    cases = []
+    for window in (None, 1024):
+        cases.append(train_kernel_case(torch.float32, True, window, False,
+                                       shape=LONG_SHAPE))
+        log("kernel_vs_plain", kernel="flash_fwd(lse)+flash_bwd",
+            **cases[-1])
+    return launches, cases
+
+
 def main(profile=False):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -719,7 +1000,7 @@ def main(profile=False):
             train_cases.append(train_kernel_case(dtype, causal, window,
                                                  segmented))
             log("kernel_vs_plain", kernel="flash_fwd(lse)+flash_bwd",
-                shape=TRAIN_SHAPE, **train_cases[-1])
+                **train_cases[-1])
     tmain = train_cases[0]  # f32 causal: what a train step launches
     tbf16 = train_cases[4]  # bf16 causal
 
@@ -806,6 +1087,10 @@ def main(profile=False):
 
     # 6. The paper's path: the Keras trainer family on the CIFAR CNN.
     keras_phase()
+
+    # 7. Long-context LM training from raw text, at seq 4096.
+    torch.cuda.empty_cache()
+    long_launches, long_cases = long_phase()
     log("done", seconds_total=time.perf_counter() - t_start)
 
     bwd_source = "distkeras_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -817,32 +1102,51 @@ def main(profile=False):
                 "bound_by": case[f"{name}_bound_by"],
                 "library_ms": case["library_bwd_ms"]}
 
+    def fwd_times(case):
+        return {"max_abs_err": max(case["max_abs_err"]["fwd_o"],
+                                   case["max_abs_err"]["fwd_lse"]),
+                "ms": case["fwd_ms"], "plain_ms": case["fwd_plain_ms"],
+                "bound_ms": case["fwd_bound_ms"],
+                "bound_by": case["fwd_bound_by"],
+                "library_ms": case["library_fwd_ms"]}
+
+    lcausal, lwindow = long_cases  # f32 [8, 4096, 8, 128]: causal, 1024
+
+    def launch_counts(name, *paths):
+        return {"launches": sum(p[name] for p in paths),
+                "launches_by_path": {k: p[name] for k, p in zip(
+                    ("serve", "train", "long_train"), paths)}}
+
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "distkeras_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "distkeras_tpu/ops/attention.py:197",
-        "launches": serve_fwd_launches + train_launches["flash_fwd"],
+        **launch_counts("flash_fwd", {"flash_fwd": serve_fwd_launches},
+                   train_launches, long_launches),
         "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-        "f32_lse_causal": {
-            "max_abs_err": max(tmain["max_abs_err"]["fwd_o"],
-                               tmain["max_abs_err"]["fwd_lse"]),
-            "ms": tmain["fwd_ms"], "plain_ms": tmain["fwd_plain_ms"],
-            "bound_ms": tmain["fwd_bound_ms"],
-            "bound_by": tmain["fwd_bound_by"],
-            "library_ms": tmain["library_fwd_ms"]}}, {
+        "f32_lse_causal": fwd_times(tmain),
+        "f32_lse_causal_seq4096": fwd_times(lcausal),
+        "f32_lse_window1024_seq4096": fwd_times(lwindow)}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "distkeras_tpu/ops/attention.py:438",
-        "launches": train_launches["flash_bwd_dq"],
+        **launch_counts("flash_bwd_dq", {"flash_bwd_dq": 0}, train_launches,
+                        long_launches),
         **bwd_times(tmain, "dq", ("dq",)),
-        "bf16_causal": bwd_times(tbf16, "dq", ("dq",))}, {
+        "bf16_causal": bwd_times(tbf16, "dq", ("dq",)),
+        "f32_causal_seq4096": bwd_times(lcausal, "dq", ("dq",)),
+        "f32_window1024_seq4096": bwd_times(lwindow, "dq", ("dq",))}, {
         "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
         "replaces": "distkeras_tpu/ops/attention.py:498",
-        "launches": train_launches["flash_bwd_dkv"],
+        **launch_counts("flash_bwd_dkv", {"flash_bwd_dkv": 0},
+                        train_launches, long_launches),
         **bwd_times(tmain, "dkv", ("dk", "dv")),
-        "bf16_causal": bwd_times(tbf16, "dkv", ("dk", "dv"))}]}),
+        "bf16_causal": bwd_times(tbf16, "dkv", ("dk", "dv")),
+        "f32_causal_seq4096": bwd_times(lcausal, "dkv", ("dk", "dv")),
+        "f32_window1024_seq4096": bwd_times(lwindow, "dkv",
+                                            ("dk", "dv"))}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

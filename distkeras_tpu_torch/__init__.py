@@ -17,7 +17,12 @@ The flagship LM on one GPU:
 flash-attention forward kernel (``ops/csrc/flash_fwd.cu``), then a
 KV-cached decode loop; ``LMTrainer`` / ``make_train_step`` train through
 ``lm_loss``, whose attention runs the forward kernel with lse and the
-hand-written FA2 backward kernels (``ops/csrc/flash_bwd.cu``).
+hand-written FA2 backward kernels (``ops/csrc/flash_bwd.cu``).  From
+raw text: ``BPETokenizer.train`` / ``encode_corpus`` (``native/tokenizer.cc``
+through the port's loader) give token rows, a ``Dataset`` of them feeds
+``LMTrainer`` (``shuffle``, ``device_data``, ``profile_dir``; ``remat``
+configs for long contexts), and ``save_lm`` writes the artefact that
+``load_lm`` (here or in the JAX package) serves.
 
 Device rule: entry points run on CUDA by default; with no card they
 raise unless called with ``device="cpu"`` (as the tests do).  The port
@@ -26,6 +31,8 @@ imports ``torch`` and numpy, never ``jax`` or ``distkeras_tpu``.
 
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.data.packing import pack_documents, packing_efficiency
+from distkeras_tpu_torch.data.prefetch import DeviceFeed, Prefetcher
+from distkeras_tpu_torch.data.tokenizer import BPETokenizer
 from distkeras_tpu_torch.data.transformers import (
     DenseTransformer,
     LabelIndexTransformer,
@@ -77,6 +84,7 @@ from distkeras_tpu_torch.utils.serialization import (
     module_from_keras_numpy,
     params_from_numpy,
     params_to_numpy,
+    save_lm,
 )
 
 __all__ = [
@@ -84,9 +92,11 @@ __all__ = [
     "AEASGD",
     "AccuracyEvaluator",
     "AveragingTrainer",
+    "BPETokenizer",
     "DOWNPOUR",
     "Dataset",
     "DenseTransformer",
+    "DeviceFeed",
     "DynSGD",
     "EAMSGD",
     "EnsembleTrainer",
@@ -101,6 +111,7 @@ __all__ = [
     "Optimizer",
     "PerplexityEvaluator",
     "Predictor",
+    "Prefetcher",
     "ReshapeTransformer",
     "SingleTrainer",
     "StandardScaleTransformer",
@@ -129,6 +140,7 @@ __all__ = [
     "params_from_numpy",
     "params_to_numpy",
     "prefill",
+    "save_lm",
     "top_k_mask",
     "top_p_mask",
     "zoo",

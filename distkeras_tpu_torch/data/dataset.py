@@ -6,8 +6,8 @@ constructors, ``shuffle`` / ``split`` permutations
 (``np.random.default_rng(seed).permutation``), strided ``shard`` and
 ``batches`` iteration, so rows come out in the reference's order bit for
 bit.  Row gathers are numpy fancy indexing (the reference's native
-threaded gather returns the same rows); ``batches(prefetch=...)`` is not
-ported (ROADMAP A4).
+threaded gather returns the same rows); ``batches(prefetch=N)`` prepares
+batches N ahead on a background thread (``data.prefetch.Prefetcher``).
 """
 
 from __future__ import annotations
@@ -164,12 +164,9 @@ class Dataset:
         yielded element carries ``window`` microbatches so a single
         accumulation step consumes them.
         ``drop_remainder=True`` keeps the step shapes fixed.
-        ``prefetch`` is not ported (ROADMAP A4): pass 0.
+        ``prefetch=N`` stages batch preparation N elements ahead on a
+        background thread (data.prefetch.Prefetcher).
         """
-        if prefetch:
-            raise NotImplementedError(
-                "Dataset.batches(prefetch=...) is not ported yet (ROADMAP "
-                "A4); iterate without it")
         if window and not drop_remainder:
             raise ValueError(
                 "window requires drop_remainder=True: a partial tail "
@@ -190,6 +187,10 @@ class Dataset:
                         yb = yb.reshape((window, batch_size) + yb.shape[1:])
                 yield (xb, yb) if y is not None else xb
 
+        if prefetch:
+            from distkeras_tpu_torch.data.prefetch import Prefetcher
+
+            return Prefetcher(gen(), depth=prefetch)
         return gen()
 
     def num_batches(self, batch_size: int, window: int | None = None) -> int:

@@ -12,21 +12,25 @@ Training: ``lm_loss`` / ``lm_nll`` (full or chunked vocab head, z-loss,
 packed ``segment_ids``) are differentiated by autograd, through the
 flash kernels' backward on the card; ``make_train_step`` applies an
 ``trainers.optim.Optimizer``.  Dropout draws its masks from an explicit
-``torch.Generator`` (JAX's key stream cannot be matched).
+``torch.Generator`` (JAX's key stream cannot be matched).  ``remat``
+recomputes each block in the backward (``torch.utils.checkpoint``), with
+the reference's two selective policies.
 
-Not ported yet: MoE FFNs (ROADMAP A9), remat and the pipelined trunk.
-Configs that need them raise ``NotImplementedError``.
+Not ported yet: MoE FFNs (ROADMAP A9) and the pipelined trunk.  MoE
+configs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from distkeras_tpu_torch.ops.attention import flash_attention
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
@@ -75,7 +79,37 @@ class TransformerConfig:
         return getattr(torch, self.dtype)
 
 
-_REMAT_POLICIES = (None, "dots", "dots_no_batch")
+_MM, _ADDMM, _BMM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                    torch.ops.aten.bmm.default)
+# remat_policy -> the ops whose outputs a rematerialized block saves (the
+# reference's jax.checkpoint_policies): "dots" keeps every matmul output
+# (checkpoint_dots), "dots_no_batch" only the products without batch dims
+# (dots_with_no_batch_dims_saveable).  Everything else, the flash
+# kernels' autograd.Function among it, is recomputed in the backward.
+_REMAT_POLICIES = {
+    None: None,
+    "dots": [_MM, _ADDMM, _BMM],
+    "dots_no_batch": [_MM, _ADDMM],
+}
+
+
+def _validate_remat_policy(cfg: TransformerConfig,
+                           require_remat: bool = True) -> None:
+    """An unknown name always raises; ``require_remat`` (init_params)
+    also rejects a policy with ``remat=False``.  At apply time a leftover
+    policy on a ``remat=False`` config (an inference copy of a training
+    config) is inert, as in the reference."""
+    if cfg.remat_policy is None:
+        return
+    if cfg.remat_policy not in _REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {cfg.remat_policy!r}; "
+            f"known: {sorted(p for p in _REMAT_POLICIES if p)} or None")
+    if require_remat and not cfg.remat:
+        raise ValueError(
+            "remat_policy is set but remat=False — the policy only "
+            "selects what a rematerialized backward may save; enable "
+            "remat=True (or drop the policy)")
 
 
 def _validate(cfg: TransformerConfig) -> None:
@@ -96,15 +130,7 @@ def _validate(cfg: TransformerConfig) -> None:
         raise ValueError(
             f"moe_top_k={cfg.moe_top_k} must be in [1, num_experts="
             f"{cfg.num_experts}]")
-    if cfg.remat_policy not in _REMAT_POLICIES:
-        raise ValueError(
-            f"unknown remat_policy {cfg.remat_policy!r}; "
-            f"known: {sorted(p for p in _REMAT_POLICIES if p)} or None")
-    if cfg.remat_policy is not None and not cfg.remat:
-        raise ValueError(
-            "remat_policy is set but remat=False — the policy only "
-            "selects what a rematerialized backward may save; enable "
-            "remat=True (or drop the policy)")
+    _validate_remat_policy(cfg)
     if cfg.rope and cfg.head_dim % 2:
         raise ValueError(
             f"rope needs an even head_dim, got {cfg.head_dim} "
@@ -116,10 +142,6 @@ def _check_supported(cfg: TransformerConfig) -> None:
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE configs (num_experts > 0) are not ported yet (ROADMAP A9)")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat (and remat_policy) is not ported yet: it comes with the "
-            "long-context slice (ROADMAP A2)")
 
 
 def _layers(tree, n: int):
@@ -339,6 +361,45 @@ def block_apply(layer_params, x, cfg: TransformerConfig,
     return (out, aux, kv) if return_kv else (out, aux)
 
 
+def _remat_block(cfg: TransformerConfig):
+    """``block_apply`` wrapped per ``cfg.remat`` / ``cfg.remat_policy``:
+    under autograd each block runs inside a non-reentrant
+    ``torch.utils.checkpoint``, which keeps only the block's inputs (and,
+    with a policy, the outputs of the policy's matmuls) and recomputes
+    the rest in the backward.  Without grad it is ``block_apply``.
+
+    Dropout: the checkpoint restores the default generators only, not
+    the explicit one the masks come from.  So the forward draws from
+    (and advances) the caller's generator, and the recompute redraws the
+    same masks from a copy of the state it had before the block, which
+    leaves the caller's stream where the forward left it.
+    """
+    _validate_remat_policy(cfg, require_remat=False)
+    if not cfg.remat:
+        return block_apply
+    ops = _REMAT_POLICIES[cfg.remat_policy]
+    kw = {} if ops is None else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, ops)}
+
+    def block(lp, x, cfg, attention_fn, rope_ang=None, drop_rng=None):
+        if not torch.is_grad_enabled():
+            return block_apply(lp, x, cfg, attention_fn, rope_ang, drop_rng)
+        state = None if drop_rng is None else drop_rng.get_state()
+        calls = []
+
+        def run(lp, x, rope_ang):
+            gen = drop_rng
+            if calls and gen is not None:  # the recompute
+                gen = torch.Generator(drop_rng.device)
+                gen.set_state(state)
+            calls.append(True)
+            return block_apply(lp, x, cfg, attention_fn, rope_ang, gen)
+
+        return checkpoint(run, lp, x, rope_ang, use_reentrant=False, **kw)
+
+    return block
+
+
 def _embed(params, tokens, cfg: TransformerConfig):
     """Token (+ learned position) embedding and the rope angles."""
     dtype = cfg.torch_dtype
@@ -364,7 +425,9 @@ def apply_hidden(params, tokens, cfg: TransformerConfig,
     ``cfg.dropout > 0`` enables training dropout: the embedding, then
     each block's attention and FFN outputs, in that order, draw their
     masks from it.  ``segment_ids [B, S]`` (packed sequences,
-    data/packing.py) masks attention to within-segment pairs.
+    data/packing.py) masks attention to within-segment pairs.  With
+    ``cfg.remat`` each block is recomputed in the backward
+    (:func:`_remat_block`).
     """
     _check_supported(cfg)
     _check_generator(dropout_rng)
@@ -375,8 +438,9 @@ def apply_hidden(params, tokens, cfg: TransformerConfig,
     if drop is not None:
         x = _dropout(x, cfg.dropout, drop)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _remat_block(cfg)
     for lp in _layers(params["layers"], cfg.n_layers):
-        x, aux = block_apply(lp, x, cfg, attention_fn, rope_ang, drop)
+        x, aux = block(lp, x, cfg, attention_fn, rope_ang, drop)
         aux_total = aux_total + aux
     return _rms_norm(x, params["ln_f_scale"]), aux_total
 

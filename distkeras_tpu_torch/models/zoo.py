@@ -143,7 +143,8 @@ def imdb_lstm(*args, **kwargs):
 def resnet50(*args, **kwargs):
     raise NotImplementedError(
         "resnet50 is not ported yet (ROADMAP A6): it needs a BatchNorm "
-        "with Keras' semantics (momentum 0.99, eps 1e-3)")
+        "with the semantics of keras.applications.ResNet50's (Keras "
+        "momentum 0.99, i.e. torch momentum 0.01, and epsilon=1.001e-5)")
 
 
 ZOO = {

@@ -9,22 +9,31 @@ the next ``batch_size * grad_accum`` rows and the remainder is dropped,
 and eval chunks of packed rows are weighted by their valid-target count.
 
 Dataset contract: token rows ``[N, seq_len + 1]`` (inputs plus the
-shifted targets, as ``lm_loss`` expects), with optional packed
-``segments`` of the same shape (``data.packing.pack_documents``).
+shifted targets, as ``lm_loss`` expects), as an array or as the
+``tokens_col`` column of a ``Dataset`` (``BPETokenizer.encode_corpus``
+makes them from text), with optional packed ``segments`` of the same
+shape (``data.packing.pack_documents``).
 
-Runs on the card unless ``device="cpu"``.  The parallel, checkpoint and
-profile knobs of the reference raise ``NotImplementedError``.
+``device_data=True`` stages the rows on the device once and gathers each
+step's batch there by index; ``profile_dir`` writes a ``torch.profiler``
+chrome trace of a few steady steps.  Runs on the card unless
+``device="cpu"``.  The parallel and checkpoint knobs of the reference
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.models import transformer as tfm
+from distkeras_tpu_torch.native import gather_rows
 from distkeras_tpu_torch.trainers.optim import LM_NAMES, Optimizer
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
 
@@ -33,13 +42,26 @@ _UNPORTED = {
     "mesh": (None, "A7"), "rules": (None, "A7"), "microbatches": (None, "A7"),
     "fsdp": (False, "A7"), "zero": (None, "A7"), "zero1": (False, "A7"),
     "zero1_bucket_mb": (None, "A7"), "zero_bucket_mb": (None, "A7"),
-    "device_data": (False, "A7"), "merge_rule": ("mean", "A7"),
+    "merge_rule": ("mean", "A7"),
     "sync_every": (1, "A7"), "compress": (None, "A7"),
     "topk_frac": (0.01, "A7"), "checkpoint_dir": (None, "A8"),
     "checkpoint_every": (0, "A8"), "max_checkpoints": (3, "A8"),
     "resume": (False, "A8"), "checkpoint_backend": ("auto", "A8"),
-    "profile_dir": (None, "A4"), "profile_steps": (3, "A4"),
 }
+
+# Staging more than this fraction of the device's memory fails fast (the
+# rest of the step still needs activations, params and moments).
+_STAGING_FRACTION = 0.8
+# With no device memory report (the CPU), only an absurd estimate warns.
+_STAGING_SANITY_BYTES = 8 << 30
+
+
+def _device_bytes_limit(device: torch.device) -> int | None:
+    """The card's memory in bytes, or None on the CPU (which reports no
+    budget).  Module-level so tests can patch in a small budget."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1]
 
 
 def nll_to_perplexity(mean_nll: float) -> float:
@@ -63,6 +85,14 @@ class LMTrainer:
     step (``probe_history``); ``ema_decay`` keeps an EMA of the weights
     (``ema_params``).  Dropout (``cfg.dropout > 0``) draws its masks from
     one generator seeded with ``seed + 0x5eed``.
+
+    ``device_data=True`` stages the (shuffled) int32 rows on the device
+    once, in consumption order, behind an HBM guard, and each step
+    gathers its rows there by index: the reference's one-device
+    ``_stage_stream``, the same data order as streaming.
+    ``profile_dir`` traces optimizer rounds ``[2, 2 + profile_steps)``
+    (round 1 pays the first-call set-up) with ``torch.profiler`` and
+    writes a chrome trace there (``profile_path``).
     """
 
     def __init__(self, cfg: tfm.TransformerConfig, optimizer: str = "adamw",
@@ -71,7 +101,9 @@ class LMTrainer:
                  grad_accum: int = 1, grad_clip_norm: float | None = None,
                  probe_metrics: bool = False, seed: int = 0,
                  shuffle: bool = False, eval_every: int = 0,
-                 ema_decay: float | None = None, device=None, **unported):
+                 ema_decay: float | None = None, device_data: bool = False,
+                 tokens_col: str = "tokens", profile_dir: str | None = None,
+                 profile_steps: int = 3, device=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"LMTrainer got an unexpected keyword "
@@ -87,6 +119,13 @@ class LMTrainer:
             raise ValueError(f"eval_every must be >= 0, got {eval_every}")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if profile_steps < 1:
+            raise ValueError(
+                f"profile_steps must be >= 1, got {profile_steps}")
+        if probe_metrics and device_data:
+            raise ValueError(
+                "probe_metrics does not compose with device_data=True "
+                "(the staged-stream step has no probe output slot)")
         if optimizer not in LM_NAMES:
             raise ValueError(f"unknown optimizer {optimizer!r}; known: "
                              f"{sorted(LM_NAMES)}")
@@ -101,6 +140,11 @@ class LMTrainer:
         self.seed = seed
         self.shuffle = shuffle
         self.eval_every = eval_every
+        self.device_data = device_data
+        self.tokens_col = tokens_col
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+        self.profile_path: str | None = None
         self.history: list[float] = []
         # [(round, {"loss", "perplexity"})]; round -1 = the final state.
         self.eval_history: list[tuple[int, dict]] = []
@@ -124,9 +168,33 @@ class LMTrainer:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
                                                             dtype)
 
-    def train(self, tokens, params=None, eval_tokens=None, segments=None,
+    def _guard_staged_bytes(self, n_rows: int, width: int,
+                            with_segments: bool) -> None:
+        """Fail fast when ``device_data=True`` would stage more than
+        ``_STAGING_FRACTION`` of the device's memory (int32 rows, doubled
+        with segments), instead of failing in the allocator later; on
+        the CPU, which reports no budget, only warn past an absurd size."""
+        staged = n_rows * width * 4 * (2 if with_segments else 1)
+        limit = _device_bytes_limit(self.device)
+        msg = (f"device_data=True would stage {staged / 2**20:.1f} MiB of "
+               "token rows" + (" (segments included)" if with_segments
+                               else ""))
+        if limit is not None and staged > _STAGING_FRACTION * limit:
+            raise ValueError(
+                f"{msg}, over {int(_STAGING_FRACTION * 100)}% of the "
+                f"{limit / 2**20:.1f} MiB device budget — train with "
+                "device_data=False (the streaming path) or trim the "
+                "dataset")
+        if limit is None and staged > _STAGING_SANITY_BYTES:
+            warnings.warn(
+                f"{msg}; this device reports no memory budget, but that "
+                "figure rarely fits — device_data=False streams from the "
+                "host instead", stacklevel=3)
+
+    def train(self, dataset, params=None, eval_tokens=None, segments=None,
               eval_segments=None):
-        """Train over the token rows; returns the trained params (a new
+        """Train over the token rows (an array, or a ``Dataset`` whose
+        ``tokens_col`` holds them); returns the trained params (a new
         dict: the caller's ``params`` are not modified).
 
         ``eval_tokens [M, seq+1]`` (with ``eval_every``) runs a held-out
@@ -136,7 +204,8 @@ class LMTrainer:
         ``segments`` (and ``eval_segments``): packed-sequence ids aligned
         with the rows.
         """
-        tokens = np.asarray(tokens)
+        tokens = np.asarray(dataset[self.tokens_col]
+                            if isinstance(dataset, Dataset) else dataset)
         if tokens.ndim != 2:
             raise ValueError(f"tokens must be [N, seq+1], got {tokens.shape}")
         if segments is not None:
@@ -149,11 +218,14 @@ class LMTrainer:
             raise ValueError("eval_segments without segments — pack "
                              "train and eval the same way")
         if self.shuffle:
+            # The reference's permutation; the rows are gathered by the
+            # native threaded loader when it builds.
             perm = np.random.default_rng(self.seed).permutation(len(tokens))
-            tokens = tokens[perm]
+            tokens = gather_rows(tokens, perm)
             if segments is not None:
-                segments = segments[perm]
+                segments = gather_rows(segments, perm)
         self.eval_history = []
+        self.profile_path = None
         if self.eval_every and eval_tokens is None:
             raise ValueError("eval_every is set but train() got no "
                              "eval_tokens")
@@ -227,27 +299,79 @@ class LMTrainer:
                     (rnd, {"loss": mean,
                            "perplexity": nll_to_perplexity(mean)}))
 
-        carry, losses, probes, rnd = (params, opt_state), [], [], 0
-        for _ in range(self.num_epoch):
-            for i in range(0, n_rows, rows_per_step):
-                rnd += 1
+            if self.profile_dir and self.eval_every:
+                # Warm the eval call, so an eval round inside the capture
+                # records its steady run, not its first-call set-up.
+                with torch.no_grad():
+                    tfm.lm_nll(params, chunks[0], self.cfg,
+                               segment_ids=None if seg_chunks is None
+                               else seg_chunks[0])
+
+        X_dev = seg_dev = None
+        if self.device_data:
+            self._guard_staged_bytes(n_rows, tokens.shape[1],
+                                     segments is not None)
+            X_dev = self._rows(np.asarray(tokens[:n_rows], np.int32),
+                               torch.int32)
+            if segments is not None:
+                seg_dev = self._rows(np.asarray(segments[:n_rows], np.int32),
+                                     torch.int32)
+
+        def batch_at(i):
+            """Rows ``[i, i + rows_per_step)`` of the stream on the device
+            (gathered from the staged stream by index under
+            ``device_data``), shaped for grad_accum."""
+            if X_dev is not None:
+                idx = torch.arange(i, i + rows_per_step, device=self.device)
+                block = X_dev.index_select(0, idx).long()
+                seg = None if seg_dev is None else seg_dev.index_select(0,
+                                                                        idx)
+            else:
                 block = self._rows(tokens[i:i + rows_per_step], torch.long)
                 seg = None
                 if segments is not None:
                     seg = self._rows(segments[i:i + rows_per_step],
                                      torch.int32)
-                if self.grad_accum > 1:
-                    block = block.reshape(self.grad_accum, bs, -1)
-                    if seg is not None:
-                        seg = seg.reshape(self.grad_accum, bs, -1)
-                carry, out = step(carry, block, drop, seg)
-                if self.probe_metrics:
-                    out, probe = out
-                    probes.append(probe["grad_norm"])
-                losses.append(out)
-                if eval_fn is not None and self.eval_every and \
-                        rnd % self.eval_every == 0:
-                    eval_fn(rnd)
+            if self.grad_accum > 1:
+                block = block.reshape(self.grad_accum, bs, -1)
+                if seg is not None:
+                    seg = seg.reshape(self.grad_accum, bs, -1)
+            return block, seg
+
+        carry, losses, probes, rnd = (params, opt_state), [], [], 0
+        prof, prof_start = None, 2
+        try:
+            for _ in range(self.num_epoch):
+                for i in range(0, n_rows, rows_per_step):
+                    rnd += 1
+                    block, seg = batch_at(i)
+                    if self.profile_dir and rnd == prof_start:
+                        prof = self._start_profile()
+                    carry, out = step(carry, block, drop, seg)
+                    if self.probe_metrics:
+                        out, probe = out
+                        probes.append(probe["grad_norm"])
+                    losses.append(out)
+                    if (prof is not None
+                            and rnd >= prof_start - 1 + self.profile_steps):
+                        self._stop_profile(prof, prof_start, rnd)
+                        prof = None
+                    if eval_fn is not None and self.eval_every and \
+                            rnd % self.eval_every == 0:
+                        eval_fn(rnd)
+            if prof is not None:  # a run shorter than the capture
+                self._stop_profile(prof, prof_start, rnd)
+                prof = None
+            elif self.profile_dir and rnd < prof_start:
+                warnings.warn(
+                    f"profile_dir is set but the run executed only {rnd} "
+                    f"round(s); the trace skips the first round and starts "
+                    f"at round {prof_start} — no profile was written. "
+                    "Train on more data or more epochs to capture one.",
+                    stacklevel=2)
+        finally:
+            if prof is not None:  # an exception mid-capture
+                prof.__exit__(None, None, None)
         if eval_fn is not None and not (
                 self.eval_history and self.eval_history[-1][0] == rnd):
             eval_fn(-1)  # final state not already evaluated
@@ -263,3 +387,24 @@ class LMTrainer:
         self.training_time = time.perf_counter() - t0
         return params
 
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof, first: int, last: int) -> None:
+        """Close the capture once its device work is done and write the
+        chrome trace of rounds ``[first, last]`` into ``profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir,
+                            f"lm_trainer_rounds_{first}-{last}.trace.json")
+        prof.export_chrome_trace(path)
+        self.profile_path = path

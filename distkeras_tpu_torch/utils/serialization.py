@@ -5,22 +5,23 @@ lists (``trainable_variables`` / ``non_trainable_variables`` as numpy,
 which is the JAX adapter's ``tv`` / ``ntv``) into a zoo module, and
 ``keras_numpy_from_module`` gives them back, exactly.
 
-The LM: ``load_lm`` reads the ``.npz`` that
-``distkeras_tpu.utils.serialization.save_lm`` writes (a ``__config__``
-JSON entry plus one array per ``/``-joined key path) with plain
-``np.load``; ``params_from_numpy`` carries a nested dict of arrays
-across as tensors, and ``params_to_numpy`` back (the trained weights
-then go into the JAX package, or its ``save_lm`` layout, unchanged).
+The LM: ``save_lm`` writes, and ``load_lm`` reads, the ``.npz`` of
+``distkeras_tpu.utils.serialization.save_lm`` (a ``__config__`` JSON
+entry plus one array per ``/``-joined key path), so an artefact of
+either package loads in the other; ``params_from_numpy`` carries a
+nested dict of arrays across as tensors, and ``params_to_numpy`` back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
 import torch
 
-from distkeras_tpu_torch.models.transformer import TransformerConfig
+from distkeras_tpu_torch.models.transformer import (TransformerConfig,
+                                                    named_leaves)
 from distkeras_tpu_torch.utils.device import resolve_device
 
 
@@ -102,6 +103,19 @@ def module_from_keras_numpy(module, tv, ntv=()):
             with torch.no_grad():
                 t.copy_(torch.tensor(a))
     return module
+
+
+def save_lm(path: str, params, cfg: TransformerConfig) -> None:
+    """Write a transformer LM (params dict + config) to one ``.npz``: the
+    config as ``__config__`` JSON and one array per leaf under its
+    ``/``-joined key path — the layout of the reference's ``save_lm``, so
+    ``distkeras_tpu.utils.serialization.load_lm`` reads it.  Leaves are
+    written in their dtype, except bf16 ones, which are written as f32
+    (numpy has no bfloat16; the values are exact and ``load_lm(...,
+    dtype=torch.bfloat16)`` restores them)."""
+    arrays = {name: a for name, a in named_leaves(params_to_numpy(params))}
+    np.savez(path, __config__=json.dumps(dataclasses.asdict(cfg)),
+             **arrays)
 
 
 def load_lm(path: str, device=None, dtype=None):

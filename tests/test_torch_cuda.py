@@ -412,3 +412,61 @@ def test_adag_window_one_equals_single_trainer_on_card(cuda):
     np.testing.assert_allclose(adag[0], single[0], rtol=0, atol=1e-6)
     for a, b in zip(adag[1], single[1]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("policy", [None, "dots", "dots_no_batch"])
+def test_remat_step_on_card_equals_no_remat(cuda, policy):
+    """A remat train step on the card (f32, dropout on, rope + GQA)
+    against the same step without remat: the recompute replays the
+    forward's kernels and masks, so loss and weights agree within 1e-6;
+    the flash forward launches twice a layer (forward and recompute)
+    under every policy, the backward kernels once."""
+    import dataclasses
+
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models.transformer import named_leaves
+
+    cfg = dkt.TransformerConfig(vocab_size=256, d_model=256, n_heads=2,
+                                n_kv_heads=1, n_layers=2, d_ff=512,
+                                max_len=130, rope=True, dropout=0.1,
+                                remat=True, remat_policy=policy)
+    tokens = np.random.default_rng(3).integers(0, 256, (2, 129))
+    out = []
+    for c in (cfg, dataclasses.replace(cfg, remat=False, remat_policy=None)):
+        params = dkt.init_params(0, c)
+        opt = dkt.Optimizer("adamw", 1e-3)
+        step = dkt.make_train_step(c, opt)
+        gen = torch.Generator("cuda").manual_seed(4)
+        before = dict(tattn.LAUNCHES)
+        _, loss = step((params, opt.init(params)), tokens, gen)
+        torch.cuda.synchronize()
+        went = {k: tattn.LAUNCHES[k] - before[k] for k in before}
+        out.append((float(loss), params, went))
+    (loss, params, went), (loss0, params0, went0) = out
+    assert went == {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert went0 == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert abs(loss - loss0) <= 1e-6
+    for (path, a), (_, b) in zip(named_leaves(params),
+                                 named_leaves(params0)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6, msg=path)
+
+
+def test_device_feed_on_card_yields_the_host_batches(cuda):
+    """Batches through pinned memory and non-blocking copies, several in
+    flight, each different: every one arrives on the card as it left
+    the host (a pinned buffer reused before its copy ended would show
+    here as a later batch's values)."""
+    from distkeras_tpu_torch.data.prefetch import DeviceFeed
+
+    rng = np.random.default_rng(1)
+    items = [(rng.normal(size=(64, 1024)).astype(np.float32),
+              rng.integers(0, 1000, (64,)).astype(np.int32))
+             for _ in range(12)]
+    got = []
+    for x, y in DeviceFeed(iter(items), depth=3):
+        assert x.is_cuda and y.is_cuda
+        got.append((x * 1, y + 0))  # device work queued behind each copy
+    torch.cuda.synchronize()
+    for (x, y), (gx, gy) in zip(items, got):
+        np.testing.assert_array_equal(gx.cpu().numpy(), x)
+        np.testing.assert_array_equal(gy.cpu().numpy(), y)

@@ -94,6 +94,54 @@ def test_greedy_generate_tokens_equal_jax(rng, extra, kw):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+BF16_ULPS = 4
+
+
+def bf16_bound(logits):
+    """The bf16 contract's bound: BF16_ULPS bf16 ulps of max |logit|
+    (a bf16 ulp at x is 2 ** (floor(log2 x) - 7))."""
+    top = float(np.abs(logits).max())
+    return BF16_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def test_bf16_contract_with_jax(rng):
+    """bf16 weights in both packages: the two round differently (each is
+    about as far from an f32 run on the same weights), so the contract
+    is a bound, not equality.  Prefill and apply logits lie within
+    BF16_ULPS bf16 ulps of max |logit| of JAX's; on JAX's own greedy
+    tokens the port picks JAX's token at every step whose top-2 gap in
+    JAX's logits exceeds that bound, and its own greedy ``generate``
+    equals JAX's in each row up to the first step that does not."""
+    jcfg, tcfg, p, _ = models(dtype="bfloat16")
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), p)
+    tp = params_from_numpy(p, "cpu", dtype=torch.bfloat16)
+    prompt = rng.integers(0, 128, (3, 7)).astype(np.int32)
+    _, jlast = jgen.prefill(jp, prompt, jcfg)
+    _, tlast = tgen.prefill(tp, prompt, tcfg, device="cpu")
+    jlast = np.asarray(jlast, np.float32)
+    assert np.abs(tlast.float().numpy() - jlast).max() <= bf16_bound(jlast)
+    n = 10
+    ref = np.asarray(jgen.generate(jp, prompt, jcfg, n))
+    out = tgen.generate(tp, prompt, tcfg, n, device="cpu").numpy()
+    jl, _ = jtfm.apply(jp, ref, jcfg)
+    jl = np.asarray(jl, np.float32)
+    tl, _ = ttfm.apply(tp, ref, tcfg, device="cpu")
+    tl = tl.float().numpy()
+    bound = bf16_bound(jl)
+    assert np.abs(tl - jl).max() <= bound
+    steps = jl[:, 6:6 + n]  # the logits that chose ref[:, 7:]
+    top2 = np.sort(steps, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > bound
+    assert clear.sum() >= n  # the contract binds somewhere
+    np.testing.assert_array_equal(
+        np.where(clear, tl[:, 6:6 + n].argmax(-1), 0),
+        np.where(clear, ref[:, 7:], 0))
+    for row in range(len(prompt)):
+        upto = n if clear[row].all() else int(np.argmin(clear[row]))
+        np.testing.assert_array_equal(out[row, 7:7 + upto],
+                                      ref[row, 7:7 + upto])
+
+
 def test_sampling_filters_match_jax(rng):
     logits = rng.normal(size=(4, 128)).astype(np.float32) * 3
     tl = torch.from_numpy(logits)
@@ -180,7 +228,9 @@ def test_port_imports_neither_jax_nor_reference_package():
         "         pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert 'distkeras_tpu_torch.trainers.elastic' in names, names\n"
+        "for name in ('trainers.elastic', 'native', 'data.tokenizer',\n"
+        "             'data.prefetch'):\n"
+        "    assert 'distkeras_tpu_torch.' + name in names, names\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'distkeras_tpu',\n"
         "                                    'keras', 'optax', 'flax'))\n"

@@ -82,8 +82,14 @@ def test_batch_streams_equal(bs, window, drop):
     np.testing.assert_array_equal(nolabel[0], a[0][0])
     with pytest.raises(ValueError, match="drop_remainder"):
         t.batches(4, window=2, drop_remainder=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        t.batches(4, prefetch=2)
+    pre = list(t.batches(bs, window=window, drop_remainder=drop,
+                         prefetch=2))
+    ref = list(j.batches(bs, window=window, drop_remainder=drop,
+                         prefetch=2))
+    assert len(pre) == len(ref) == len(a)
+    for (xa, ya), (xb, yb) in zip(ref, pre):
+        np.testing.assert_array_equal(xa, xb)
+        np.testing.assert_array_equal(ya, yb)
 
 
 def test_from_csv_equal(tmp_path):

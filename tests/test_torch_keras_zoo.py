@@ -121,8 +121,21 @@ def test_zoo_contracts():
         assert name in tzoo.ZOO
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tzoo.imdb_lstm()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6") as err:
         tzoo.resnet50()
+    # The BatchNorm it names is the one keras.applications.ResNet50
+    # builds: every BatchNormalization there passes epsilon=1.001e-5 and
+    # keeps the layer's default momentum.
+    import inspect
+
+    import keras
+    from keras.src.applications import resnet
+
+    src = inspect.getsource(resnet)
+    assert "epsilon=1.001e-5" in src and "momentum" not in src
+    assert keras.layers.BatchNormalization().momentum == 0.99
+    assert "epsilon=1.001e-5" in str(err.value)
+    assert "momentum 0.99" in str(err.value)
     with pytest.raises(ValueError, match="known"):
         tzoo.cifar_cnn(policy="float16")
     with pytest.raises(ValueError, match="does not fit"):

@@ -279,11 +279,14 @@ def test_lm_trainer_probe_ema_and_unported_knobs(rng):
     ema = tt.ema_params["tok_emb"]
     assert not torch.equal(ema, out["tok_emb"])
     for knob, value, item in [("mesh", object(), "A7"), ("zero", 1, "A7"),
-                              ("device_data", True, "A7"),
-                              ("checkpoint_dir", "/x", "A8"),
-                              ("profile_dir", "/x", "A4")]:
+                              ("checkpoint_dir", "/x", "A8")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tlm.LMTrainer(tcfg, device="cpu", **{knob: value})
+    with pytest.raises(ValueError, match="probe_metrics"):
+        tlm.LMTrainer(tcfg, device="cpu", probe_metrics=True,
+                      device_data=True)
+    with pytest.raises(ValueError, match="profile_steps"):
+        tlm.LMTrainer(tcfg, device="cpu", profile_steps=0)
     with pytest.raises(TypeError, match="unexpected"):
         tlm.LMTrainer(tcfg, device="cpu", bogus=1)
     with pytest.raises(ValueError, match="ema_decay"):

@@ -95,7 +95,7 @@ def test_init_params_layout_matches_jax_and_unported_configs_raise():
                for a in jax.tree.leaves(tp))
     again = ttfm.init_params(0, tcfg, device="cpu")
     assert torch.equal(tp["tok_emb"], again["tok_emb"])
-    for bad in [dict(num_experts=2), dict(remat=True)]:
+    for bad in [dict(num_experts=2)]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttfm.init_params(0, ttfm.TransformerConfig(**BASE, **bad),
                              device="cpu")
