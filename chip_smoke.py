@@ -29,7 +29,23 @@ each went through its kernels:
   ``long_serve``); the rope + GQA, window-1024, ``remat_policy="dots"``
   and remat-off variants timed (peak memory with remat below without);
   and the training kernels against their plain versions at
-  [8, 4096, 8, 128].
+  [8, 4096, 8, 128];
+- continuous batching (phase ``engine``, its profiled window at the
+  end of the script): ``ContinuousBatcher``
+  under an open-loop load of 48 requests at 32 requests/s (TTFT, TPOT,
+  tokens/s, idle share, a sample against batch-1 ``generate``); a
+  ``PrefixPool`` of two ``prefill`` segments (the forward kernel)
+  against ``generate(prompt_cache=)`` and against a pool-less engine
+  that admits prefix + tail through the plain attention; chunked
+  prefill of a 768-token prompt beside 7 decoding lanes against
+  monolithic admission; ``SpeculativeBatcher`` with the target and its
+  first 2 layers as drafts against plain decode (the bf16 self-draft
+  may reject a proposal only at a near tie), and
+  ``speculative_generate`` (whose warm prefills launch the forward
+  kernel); an f32 2-layer schedule on the card against the CPU, and the
+  f32 self-draft accepting every proposal.  bf16 greedy tokens of two
+  paths must agree up to a near tie of the reference's logits
+  (``greedy_agreement``).
 
 Usage: python3 chip_smoke.py [--profile]     (needs one CUDA device)
 
@@ -41,8 +57,11 @@ Output: the card's name and power limit, one line per phase, then a
 line.  Any failed phase raises, so the exit code is nonzero.  In the
 kernels line, ``flash_fwd``'s times are the serving prefill case (bf16,
 causal, no lse), with the training case (f32, causal, with lse) beside
-it under ``"f32_lse_causal"``, and its launches those of all three
-main-path runs (``launches_by_path``); the backward kernels' times are
+it under ``"f32_lse_causal"`` and the engine's prefill shapes under
+``"bf16_causal_pool256"``, ``"bf16_causal_pool128"`` and
+``"bf16_causal_spec_warm"``, and its launches those of all three
+main-path runs and the engine phase's prefills (``launches_by_path``);
+the backward kernels' times are
 the training case (f32, causal) and their launches those of the two
 training runs, with the bf16 causal case beside it under
 ``"bf16_causal"``; each kernel also carries its seq-4096 f32 readings
@@ -311,13 +330,14 @@ def train_kernel_case(dtype, causal, window, segmented, seed=0,
                 **{f"{k}_bound_by": v[1] for k, v in bounds.items()})
 
 
-def kernel_case(dtype, causal, window, seed=0):
-    """flash kernel vs the plain (blockwise) version at the prefill
-    shape: max error, and kernel / plain / library times."""
+def kernel_case(dtype, causal, window, seed=0, shape=PREFILL_SHAPE):
+    """flash kernel vs the plain (blockwise) version at a prefill shape
+    (``shape``: q/k/v [B, L, H, D]): max error, and kernel / plain /
+    library times."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(PREFILL_SHAPE, generator=gen, device="cuda",
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda",
                            dtype=dtype) for _ in range(3))
-    scale = 1.0 / PREFILL_SHAPE[-1] ** 0.5
+    scale = 1.0 / shape[-1] ** 0.5
     with torch.no_grad():
         out = attn.flash_attention(q, k, v, causal, window=window)
         ref = attn.blockwise_attention(q, k, v, causal, window=window)
@@ -340,7 +360,7 @@ def kernel_case(dtype, causal, window, seed=0):
             q, k, v, causal, window=window))
         library_ms = time_ms(sdpa)
     bound_ms, bound_by = bound(q, causal, window)
-    return dict(dtype=str(dtype).split(".")[-1], causal=causal,
+    return dict(dtype=str(dtype).split(".")[-1], shape=shape, causal=causal,
                 window=window, max_abs_err=err, tol=tol, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -961,6 +981,474 @@ def long_phase():
     return launches, cases
 
 
+# The engine phase: the flagship config, as scripts/bench_serving.py's
+# engine rows drive ContinuousBatcher / SpeculativeBatcher.
+ENGINE_LANES = 8
+LOAD_REQUESTS, LOAD_PROMPT, LOAD_NEW, LOAD_RPS = 48, 64, 128, 32.0
+SPEC_NEW, SPEC_DRAFT = 256, 3
+# Random weights make the target's first 2 layers a draft that agrees
+# with it by chance only (acceptance 0.001 at full width on an H100).
+# Phase (d)'s target therefore scales the residual writes (wo, w2) of its
+# layers 3-8 by DEEP_SCALE, as if the deep layers refined what a
+# distilled shallow draft already predicts.
+DEEP_SCALE = 0.1
+# Two bf16 paths through the model (kernel and plain attention, or a
+# chunk and single steps) differ by up to 2% of max |logit| (phase
+# `parity`'s bound); greedy tokens of two such paths may part only where
+# the reference's top-2 logit gap is inside that bound.
+BF16_PATH_TOL = 2e-2
+
+
+def top2_gap(params, cfg, seq):
+    """The gap between the top two next-token logits after ``seq``
+    (teacher-forced through ``apply``), as a share of max |logit|."""
+    with torch.no_grad():
+        logits, _ = dkt.apply(params, torch.from_numpy(
+            np.asarray(seq)[None]).cuda(), cfg)
+    row = logits[0, -1].float()
+    top2 = row.topk(2).values
+    return float((top2[0] - top2[1]) / row.abs().max())
+
+
+def greedy_agreement(out, ref, params, cfg, prompt_len, context=None):
+    """Greedy tokens ``out`` against ``ref`` (both prompt + generation,
+    past an optional ``context`` prefix): equal, or parted at a step
+    where ``ref``'s own top-2 logit gap (teacher-forced through
+    ``apply``) lies within BF16_PATH_TOL of max |logit| — a near tie that
+    bf16 rounding may break either way.  Raises otherwise; returns
+    ``(exact, first_diff, gap / max|logit|)``."""
+    out, ref = np.asarray(out), np.asarray(ref)
+    n = min(len(out), len(ref))
+    diff = np.nonzero(out[:n] != ref[:n])[0]
+    if not len(diff) and len(out) == len(ref):
+        return True, None, None
+    if not len(diff):
+        raise AssertionError(f"lengths differ: {len(out)} vs {len(ref)}")
+    d = int(diff[0])
+    if d < prompt_len:
+        raise AssertionError(f"prompts differ at {d}")
+    seq = ref[:d] if context is None else np.concatenate([context, ref[:d]])
+    rel = top2_gap(params, cfg, seq)
+    if not rel <= BF16_PATH_TOL:
+        raise AssertionError(
+            f"greedy tokens part at generated step {d - prompt_len} where "
+            f"the reference's top-2 gap is {rel:.4f} of max |logit| "
+            f"(> {BF16_PATH_TOL}): not a near tie")
+    return False, d - prompt_len, rel
+
+
+def agreement_summary(results):
+    """Counts of exact matches and the near-tie partings."""
+    return {"requests": len(results),
+            "exact": sum(1 for r in results if r[0]),
+            "near_tie_partings": [{"step": r[1], "gap_rel": r[2]}
+                                  for r in results if not r[0]]}
+
+
+def drain_all(eng, lanes):
+    return [eng.drain(lane) for lane in lanes]
+
+
+def run_engine(eng, lanes, step_args=(4,)):
+    while eng.running():
+        eng.step(*step_args)
+    return drain_all(eng, lanes)
+
+
+def engine_idle_share(params, cfg):
+    """The device's idle share over a profiled steady window of 4
+    step(4) calls with 8 busy lanes (run at the end of the script, with
+    the other profiled windows: the profiler may leave the host slower
+    behind it, so the host-timed phases run before any of them)."""
+    rng = np.random.default_rng(9)
+    eng = dkt.ContinuousBatcher(params, cfg, lanes=ENGINE_LANES)
+    lanes = [eng.submit(p, LOAD_NEW) for p in rng.integers(
+        0, cfg.vocab_size, (ENGINE_LANES, LOAD_PROMPT)).astype(np.int32)]
+    eng.step(4)
+    idle = profile_window("engine_4x_step4",
+                          lambda: [eng.step(4) for _ in range(4)])
+    run_engine(eng, lanes)
+    return idle
+
+
+def engine_load(params, cfg):
+    """(a) Open-loop load as bench_engine_load(8, 32.0): 48 requests,
+    prompt 64, 128 new tokens, seeded exponential inter-arrivals at 32
+    requests/s, step(4) windows, one warm-up request before the clock.
+    TTFT and TPOT at p50 / p99, achieved tokens/s, peak memory, and a
+    sample of 4 requests against batch-1 generate."""
+    rng = np.random.default_rng(0)
+    arrivals = np.cumsum(rng.exponential(1.0 / LOAD_RPS, LOAD_REQUESTS))
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (LOAD_REQUESTS, LOAD_PROMPT)).astype(np.int32)
+    eng = dkt.ContinuousBatcher(params, cfg, lanes=ENGINE_LANES)
+    warm = eng.submit(prompts[0], LOAD_NEW)
+    run_engine(eng, [warm])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    lane_req, outs = {}, {}
+    first_t = np.full(LOAD_REQUESTS, np.nan)
+    done_t = np.full(LOAD_REQUESTS, np.nan)
+    n_tok = np.zeros(LOAD_REQUESTS, np.int64)
+    nxt, windows = 0, 0
+    t0 = time.perf_counter()
+    while np.isnan(done_t).any():
+        now = time.perf_counter() - t0
+        while (nxt < LOAD_REQUESTS and arrivals[nxt] <= now
+               and eng.free_lanes()):
+            lane_req[eng.submit(prompts[nxt], LOAD_NEW)] = nxt
+            nxt += 1
+        if not eng.running():
+            if nxt < LOAD_REQUESTS:
+                time.sleep(max(0.0, arrivals[nxt]
+                               - (time.perf_counter() - t0)))
+            continue
+        out = eng.step(4)
+        windows += 1
+        now = time.perf_counter() - t0
+        for lane, toks in out.items():
+            rid = lane_req[lane]
+            if toks and np.isnan(first_t[rid]):
+                first_t[rid] = now
+            n_tok[rid] += len(toks)
+        for lane, rid in list(lane_req.items()):
+            if lane not in eng.running():
+                done_t[rid] = now
+                outs[rid] = eng.drain(lane)
+                del lane_req[lane]
+    launches = dict(attn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches["flash_fwd"] != 0:
+        raise AssertionError(f"engine admission launched {launches}: it "
+                             "must run the plain chunk attention")
+    if int(n_tok.sum()) != LOAD_REQUESTS * LOAD_NEW:
+        raise AssertionError(f"emitted {int(n_tok.sum())} tokens")
+    makespan = float(np.nanmax(done_t))
+    ttft = first_t - arrivals
+    tpot = (done_t - first_t) / np.maximum(n_tok - 1, 1)
+    pct = lambda a, q: float(np.percentile(a, q)) * 1e3
+    sample = (0, 13, 29, 47)
+    agree = []
+    for rid in sample:
+        ref = dkt.generate(params, prompts[rid:rid + 1], cfg,
+                           LOAD_NEW)[0].cpu().numpy()
+        agree.append(greedy_agreement(outs[rid], ref, params, cfg,
+                                      LOAD_PROMPT))
+    log("engine_load", config=dataclasses.asdict(cfg), lanes=ENGINE_LANES,
+        requests=LOAD_REQUESTS, prompt=LOAD_PROMPT, new_tokens=LOAD_NEW,
+        offered_rps=LOAD_RPS, step_window=4, windows=windows,
+        makespan_s=makespan, tokens=int(n_tok.sum()),
+        tokens_per_s=float(n_tok.sum()) / makespan,
+        achieved_rps=LOAD_REQUESTS / makespan,
+        ttft_p50_ms=pct(ttft, 50), ttft_p99_ms=pct(ttft, 99),
+        tpot_p50_ms=pct(tpot, 50), tpot_p99_ms=pct(tpot, 99),
+        peak_mem_gb=peak, launches=launches,
+        vs_generate=agreement_summary(agree), sample=list(sample))
+
+
+def engine_prefix(params, cfg):
+    """(b) A PrefixPool of 2 segments built by prefill (the forward
+    kernel, n_layers launches each); 8 requests over the two prefixes
+    against generate(tail, prompt_cache=(segment, P))."""
+    rng = np.random.default_rng(5)
+    prefixes = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n in (256, 128)]
+    pool = dkt.PrefixPool(cfg, slots=2)
+    zero_launches()
+    ids, segs = [], []
+    for pref in prefixes:
+        seg, _ = dkt.prefill(params, pref[None], cfg, last_logits=False)
+        segs.append(seg)
+        ids.append(pool.put(seg, len(pref), last_token=int(pref[-1])))
+    launches = dict(attn.LAUNCHES)
+    if launches["flash_fwd"] != 2 * cfg.n_layers:
+        raise AssertionError(f"pool segments launched {launches}")
+    eng = dkt.ContinuousBatcher(params, cfg, lanes=ENGINE_LANES,
+                                prefix_pool=pool)
+    tails = rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32)
+    lanes = [eng.submit(tails[i], 64, prefix_id=ids[i % 2])
+             for i in range(8)]
+    t0 = time.perf_counter()
+    outs = run_engine(eng, lanes)
+    serve_s = time.perf_counter() - t0
+    if any(pool.refs_of(i) for i in ids):
+        raise AssertionError("pool pins not released at drain")
+    agree = []
+    for j in range(2):   # one generate per prefix, its 4 tails batched
+        refs = dkt.generate(params, tails[j::2], cfg, 64,
+                            prompt_cache=(segs[j], len(prefixes[j])))
+        agree += [greedy_agreement(out, ref, params, cfg, 32,
+                                   context=prefixes[j])
+                  for out, ref in zip(outs[j::2], refs.cpu().numpy())]
+    # The segments against no kernel at all: a pool-less engine admits
+    # prefix + tail through the plain chunk attention.
+    plain = dkt.ContinuousBatcher(params, cfg, lanes=ENGINE_LANES)
+    whole = run_engine(plain, [plain.submit(np.concatenate(
+        [prefixes[i % 2], tails[i]]), 64) for i in range(8)])
+    no_pool = [greedy_agreement(out, ref[len(prefixes[i % 2]):], params,
+                                cfg, 32, context=prefixes[i % 2])
+               for i, (out, ref) in enumerate(zip(outs, whole))]
+    log("engine_prefix", prefixes=[len(p) for p in prefixes], requests=8,
+        tail=32, new_tokens=64, launches=launches, serve_s=serve_s,
+        vs_generate_prompt_cache=agreement_summary(agree),
+        vs_poolless_engine=agreement_summary(no_pool))
+    return launches["flash_fwd"]
+
+
+def engine_chunked(params, cfg):
+    """(c) A 768-token prompt (64 new tokens) admitted with
+    prefill_chunk=128 while 7 lanes decode: its tokens against monolithic
+    admission's, and the largest gap between two decode windows of the
+    other lanes while it admits."""
+    rng = np.random.default_rng(6)
+    short = rng.integers(0, cfg.vocab_size, (7, 64)).astype(np.int32)
+    long_p = rng.integers(0, cfg.vocab_size, 768).astype(np.int32)
+    eng = dkt.ContinuousBatcher(params, cfg, lanes=ENGINE_LANES,
+                                prefill_chunk=128)
+    others = [eng.submit(p, 200) for p in short]
+    eng.step(4)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gaps_plain = []
+    for _ in range(3):
+        eng.step(4)
+        gaps_plain.append(time.perf_counter() - t)
+        t = time.perf_counter()
+    lane = eng.submit(long_p, 64)
+    chunks = len(eng._lane_state[lane].chunks) + 1
+    gaps = [time.perf_counter() - t]
+    t = time.perf_counter()
+    while eng._lane_state[lane].chunks is not None:
+        out = eng.step(4)
+        gaps.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        if any(len(out.get(o, [])) != 4 for o in others):
+            raise AssertionError("a decoding lane stalled during admission")
+    chunked = run_engine(eng, [lane] + others)[0]
+    mono = dkt.ContinuousBatcher(params, cfg, lanes=1)
+    ref = run_engine(mono, [mono.submit(long_p, 64)])[0]
+    agree = greedy_agreement(chunked, ref, params, cfg, 768)
+    log("engine_chunked", prompt=768, new_tokens=64, prefill_chunk=128,
+        chunks=chunks, decoding_lanes=7,
+        window_gap_ms_before=[1e3 * g for g in gaps_plain],
+        window_gaps_ms_admitting=[1e3 * g for g in gaps],
+        largest_gap_ms=1e3 * max(gaps),
+        vs_monolithic=agreement_summary([agree]))
+
+
+def draft_layers(params, n):
+    """The target's first ``n`` layers with its embedding and ln_f."""
+    return {**params, "layers": {k: (v[:n] if not isinstance(v, dict) else
+                                     {kk: vv[:n] for kk, vv in v.items()})
+                                 for k, v in params["layers"].items()}}
+
+
+def deep_scaled(np_params):
+    """``np_params`` with the residual writes of layers 3.. scaled by
+    DEEP_SCALE (phase (d)'s target)."""
+    layers = {**np_params["layers"]}
+    for grp, key in (("attn", "wo"), ("ffn", "w2")):
+        w = layers[grp][key].copy()
+        w[2:] *= np.float32(DEEP_SCALE)
+        layers[grp] = {**layers[grp], key: w}
+    return {**np_params, "layers": layers}
+
+
+def self_draft_rejections(rounds, lanes, outs, params, cfg, prompt_len,
+                          new, rejected):
+    """The target as its own bf16 draft: the draft's chunks (T = 2, 1, 1)
+    and the verify chunk (T = n_draft + 1) round apart, so a proposal
+    may be rejected, but only at a near tie.  A lane's round that emits
+    fewer than ``min(n_draft + 1, budget left)`` tokens rejected the
+    proposal in its last token's place; the target's top-2 logit gap
+    there must lie within BF16_PATH_TOL of max |logit|.  ``rejected``
+    (the engine's count of rejected proposals) must be covered by the
+    rejections found, but for what a lane's last, budget-cut round may
+    hide.  Raises otherwise; returns the rejections' gaps."""
+    found, gaps = 0, []
+    for lane, out in zip(lanes, outs):
+        done = 0
+        for r in rounds:
+            toks = r.get(lane, [])
+            if len(toks) < min(SPEC_DRAFT + 1, new - done):
+                found += SPEC_DRAFT - (len(toks) - 1)
+                gaps.append(top2_gap(params, cfg,
+                                     out[:prompt_len + done + len(toks) - 1]))
+            done += len(toks)
+    hidden = len(lanes) * SPEC_DRAFT    # one cut round per lane at most
+    if not found <= rejected <= found + hidden:
+        raise AssertionError(f"found {found} rejected proposals, the "
+                             f"engine counted {rejected}")
+    if gaps and not max(gaps) <= BF16_PATH_TOL:
+        raise AssertionError(
+            f"the target as its own draft rejected a proposal where the "
+            f"top-2 gap is {max(gaps):.4f} of max |logit| (> "
+            f"{BF16_PATH_TOL}): not a near tie")
+    return {"rounds_with_rejection": len(gaps), "rejected_proposals":
+            rejected, "gaps_rel": sorted(gaps)}
+
+
+def engine_speculative(np_params, cfg):
+    """(d) SpeculativeBatcher(lanes=8, n_draft=3) against
+    ContinuousBatcher at step(4) over 8 x 256 tokens, as
+    bench_engine_speculative drives them (a short warm-up run, then the
+    timed run), with two drafts: the target itself and its first 2
+    layers (the target's deep layers scaled, DEEP_SCALE); then
+    speculative_generate at batch 8 (its prefill warm-up of both models:
+    the forward kernel)."""
+    params = dkt.params_from_numpy(deep_scaled(np_params), "cuda",
+                                   dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (8, 64)).astype(np.int32)
+
+    def drive(eng, *step_args):
+        runs = []
+        for new in (16, SPEC_NEW):  # warm-up, then timed
+            lanes = [eng.submit(prompts[i], new) for i in range(8)]
+            rounds = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while eng.running():
+                rounds.append(eng.step(*step_args))
+            dt = time.perf_counter() - t0
+            runs.append((drain_all(eng, lanes), lanes, rounds, dt))
+        return runs[-1]
+
+    plain, _, plain_rounds, plain_dt = drive(
+        dkt.ContinuousBatcher(params, cfg, lanes=8), SPEC_DRAFT + 1)
+    rows = {}
+    launches = 0
+    for name, n_layers in (("self", cfg.n_layers), ("first2", 2)):
+        dcfg = dataclasses.replace(cfg, n_layers=n_layers)
+        draft = draft_layers(params, n_layers)
+        eng = dkt.SpeculativeBatcher(params, draft, cfg, dcfg, lanes=8,
+                                     n_draft=SPEC_DRAFT)
+        with dkt.obs.session() as sess:
+            outs, lanes, rounds, dt = drive(eng)
+            reg = sess.registry
+            proposed = reg.counter("serving.spec.proposed").value()
+            accepted = reg.counter("serving.spec.accepted").value()
+        acc = accepted / proposed
+        if eng.degraded:
+            raise AssertionError(f"draft {name}: the engine degraded "
+                                 f"({eng.degraded_error!r})")
+        agree = [greedy_agreement(o, r, params, cfg, 64)
+                 for o, r in zip(outs, plain)]
+        rows[name] = dict(draft_layers=n_layers, rounds=len(rounds),
+                          seconds=dt, tokens_per_s=8 * SPEC_NEW / dt,
+                          acceptance_rate=acc,
+                          vs_plain=agreement_summary(agree))
+        if name == "self":
+            rows[name]["rejections"] = self_draft_rejections(
+                rounds, lanes, outs, params, cfg, 64, SPEC_NEW,
+                int(proposed - accepted))
+        zero_launches()
+        out, stats = dkt.speculative_generate(params, draft, prompts, cfg,
+                                              dcfg, 32, n_draft=SPEC_DRAFT)
+        launched = dict(attn.LAUNCHES)
+        if launched["flash_fwd"] != cfg.n_layers + n_layers:
+            raise AssertionError(f"speculative warm-up launched {launched}")
+        launches += launched["flash_fwd"]
+        out = out.cpu().numpy()
+        solo = [greedy_agreement(out[i], plain[i][:64 + 32], params, cfg, 64)
+                for i in range(8)]
+        rows[name]["speculative_generate"] = dict(
+            iterations=int(stats["iterations"]),
+            acceptance_rate=float(stats["acceptance_rate"]),
+            launches=launched, vs_plain=agreement_summary(solo))
+    if not 0.1 < rows["first2"]["acceptance_rate"] < 0.95:
+        raise AssertionError("the 2-layer draft is not a partial draft: "
+                             f"{rows['first2']['acceptance_rate']}")
+    log("engine_speculative", lanes=8, n_draft=SPEC_DRAFT,
+        new_tokens=SPEC_NEW, prompt=64, deep_scale=DEEP_SCALE,
+        plain=dict(step_window=SPEC_DRAFT + 1, rounds=len(plain_rounds),
+                   seconds=plain_dt, tokens_per_s=8 * SPEC_NEW / plain_dt),
+        **rows)
+    return launches
+
+
+def engine_schedule(params, cfg, device):
+    """(e)'s schedule: 4 lanes, staggered admissions, a 1-token prompt
+    and a reused lane; returns every request's tokens."""
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (16, 9, 1, 12, 5)]
+    eng = dkt.ContinuousBatcher(params, cfg, lanes=4, device=device)
+    outs = {}
+    a = eng.submit(prompts[0], 24)
+    eng.step(4)
+    eng.step(2)
+    b, c = eng.submit(prompts[1], 20), eng.submit(prompts[2], 16)
+    eng.step(3)
+    d = eng.submit(prompts[3], 12)
+    for name, lane in zip("abcd", (a, b, c, d)):
+        while lane in eng.running():
+            eng.step(4)
+        outs[name] = eng.drain(lane)
+    e = eng.submit(prompts[4], 20)     # a reused lane
+    while e in eng.running():
+        eng.step(1)
+    outs["e"] = eng.drain(e)
+    return outs
+
+
+def engine_f32(np_params):
+    """(e) An f32 copy of a 2-layer engine schedule on the card and on
+    the CPU: the same greedy tokens.  And on the card, the f32 target as
+    its own draft: every proposal accepted, the plain engine's tokens."""
+    cfg = dataclasses.replace(FLAGSHIP, n_layers=2, dtype="float32")
+    two = draft_layers(np_params, 2)
+    params = dkt.params_from_numpy(two, "cuda", dtype=torch.float32)
+    card = engine_schedule(params, cfg, "cuda")
+    cpu = engine_schedule(dkt.params_from_numpy(two, "cpu",
+                                                dtype=torch.float32),
+                          cfg, "cpu")
+    for name in card:
+        if not np.array_equal(card[name], cpu[name]):
+            raise AssertionError(f"request {name}: card {card[name]} != "
+                                 f"cpu {cpu[name]}")
+    prompts = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (8, 64)).astype(np.int32)
+    plain = dkt.ContinuousBatcher(params, cfg, lanes=8)
+    ref = run_engine(plain, [plain.submit(p, 64) for p in prompts])
+    spec = dkt.SpeculativeBatcher(params, params, cfg, cfg, lanes=8,
+                                  n_draft=SPEC_DRAFT)
+    with dkt.obs.session() as sess:
+        outs = run_engine(spec, [spec.submit(p, 64) for p in prompts], ())
+        reg = sess.registry
+        acc = (reg.counter("serving.spec.accepted").value()
+               / reg.counter("serving.spec.proposed").value())
+    if spec.degraded:
+        raise AssertionError(f"f32 self-draft: the engine degraded "
+                             f"({spec.degraded_error!r})")
+    if acc != 1.0 or not all(np.array_equal(a, b)
+                             for a, b in zip(outs, ref)):
+        raise AssertionError(f"f32 self-draft: acceptance {acc}, tokens "
+                             "differ from plain decode")
+    log("engine_f32", layers=2, dtype="float32", card_vs_cpu=dict(
+        lanes=4, requests=len(card),
+        tokens=sum(len(v) for v in card.values()), equal=True),
+        self_draft=dict(lanes=8, n_draft=SPEC_DRAFT, new_tokens=64,
+                        acceptance_rate=acc, tokens_equal_plain=True))
+
+
+def engine_phase(np_params):
+    """Phase engine: the continuous-batching serving path at the
+    flagship width, bf16, seed-0 weights.  Returns the forward kernel's
+    launches on its main paths (pool segments, speculative warm-up)."""
+    t0 = time.perf_counter()
+    cfg = FLAGSHIP
+    params = dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16)
+    engine_load(params, cfg)
+    launches = engine_prefix(params, cfg)
+    engine_chunked(params, cfg)
+    launches += engine_speculative(np_params, cfg)
+    engine_f32(np_params)
+    log("engine", seconds=time.perf_counter() - t0, fwd_launches=launches)
+    return launches
+
+
 def main(profile=False):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -986,9 +1474,17 @@ def main(profile=False):
     for dtype in (torch.bfloat16, torch.float32):
         for causal, window in ((True, None), (True, 256), (False, None)):
             cases.append(kernel_case(dtype, causal, window))
-            log("kernel_vs_plain", kernel="flash_fwd", shape=PREFILL_SHAPE,
-                **cases[-1])
+            log("kernel_vs_plain", kernel="flash_fwd", **cases[-1])
     main_case = cases[0]   # bf16 causal: what the prefill launches
+    # The engine's prefills: pool segments of 256 and 128 tokens at batch
+    # 1, and the speculative warm-up of 8 x 64-token prompts.
+    engine_cases = {}
+    for name, shape in (("pool256", (1, 256, 8, 128)),
+                        ("pool128", (1, 128, 8, 128)),
+                        ("spec_warm", (8, 64, 8, 128))):
+        engine_cases[name] = kernel_case(torch.bfloat16, True, None,
+                                         shape=shape)
+        log("kernel_vs_plain", kernel="flash_fwd", **engine_cases[name])
 
     # 2b. The training kernels at the train-step shape.
     train_cases = []
@@ -1080,17 +1576,28 @@ def main(profile=False):
         seconds_total=time.perf_counter() - t_start)
     del params, params32
 
-    # 5. The training path at full width, and its parity.
+    # 5. The continuous-batching serving path at full width (no profiled
+    # window: its idle share is read at the end).
+    torch.cuda.empty_cache()
+    engine_launches = engine_phase(np_params)
+
+    # 6. The training path at full width, and its parity.
     train_np = numpy_params(FLAGSHIP_TRAIN, seed=1)
     train_launches = train_phase(train_np, profile)
     train_parity_phase(train_np)
 
-    # 6. The paper's path: the Keras trainer family on the CIFAR CNN.
+    # 7. The paper's path: the Keras trainer family on the CIFAR CNN.
     keras_phase()
 
-    # 7. Long-context LM training from raw text, at seq 4096.
+    # 8. Long-context LM training from raw text, at seq 4096.
     torch.cuda.empty_cache()
     long_launches, long_cases = long_phase()
+
+    # 9. The engine's profiled window.
+    torch.cuda.empty_cache()
+    log("engine_idle", idle_share_4x_step4=engine_idle_share(
+        dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16),
+        FLAGSHIP))
     log("done", seconds_total=time.perf_counter() - t_start)
 
     bwd_source = "distkeras_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -1115,25 +1622,29 @@ def main(profile=False):
     def launch_counts(name, *paths):
         return {"launches": sum(p[name] for p in paths),
                 "launches_by_path": {k: p[name] for k, p in zip(
-                    ("serve", "train", "long_train"), paths)}}
+                    ("serve", "engine", "train", "long_train"), paths)}}
 
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "distkeras_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "distkeras_tpu/ops/attention.py:197",
         **launch_counts("flash_fwd", {"flash_fwd": serve_fwd_launches},
-                   train_launches, long_launches),
+                        {"flash_fwd": engine_launches}, train_launches,
+                        long_launches),
         "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        **{f"bf16_causal_{name}": {k: c[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")} for name, c in engine_cases.items()},
         "f32_lse_causal": fwd_times(tmain),
         "f32_lse_causal_seq4096": fwd_times(lcausal),
         "f32_lse_window1024_seq4096": fwd_times(lwindow)}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd_source,
         "replaces": "distkeras_tpu/ops/attention.py:438",
-        **launch_counts("flash_bwd_dq", {"flash_bwd_dq": 0}, train_launches,
-                        long_launches),
+        **launch_counts("flash_bwd_dq", {"flash_bwd_dq": 0},
+                        {"flash_bwd_dq": 0}, train_launches, long_launches),
         **bwd_times(tmain, "dq", ("dq",)),
         "bf16_causal": bwd_times(tbf16, "dq", ("dq",)),
         "f32_causal_seq4096": bwd_times(lcausal, "dq", ("dq",)),
@@ -1141,7 +1652,7 @@ def main(profile=False):
         "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_source,
         "replaces": "distkeras_tpu/ops/attention.py:498",
         **launch_counts("flash_bwd_dkv", {"flash_bwd_dkv": 0},
-                        train_launches, long_launches),
+                        {"flash_bwd_dkv": 0}, train_launches, long_launches),
         **bwd_times(tmain, "dkv", ("dk", "dv")),
         "bf16_causal": bwd_times(tbf16, "dkv", ("dk", "dv")),
         "f32_causal_seq4096": bwd_times(lcausal, "dkv", ("dk", "dv")),

@@ -24,6 +24,11 @@ through the port's loader) give token rows, a ``Dataset`` of them feeds
 configs for long contexts), and ``save_lm`` writes the artefact that
 ``load_lm`` (here or in the JAX package) serves.
 
+Serving: ``ContinuousBatcher`` admits requests into lanes at any time and
+decodes them together (chunked prefill, a ``PrefixPool`` of prefilled
+prefixes, elastic lane tiers, deadlines and a bounded queue), and
+``SpeculativeBatcher`` / ``speculative_generate`` add a draft model.
+
 Device rule: entry points run on CUDA by default; with no card they
 raise unless called with ``device="cpu"`` (as the tests do).  The port
 imports ``torch`` and numpy, never ``jax`` or ``distkeras_tpu``.
@@ -54,6 +59,7 @@ from distkeras_tpu_torch.models.generate import (
     top_k_mask,
     top_p_mask,
 )
+from distkeras_tpu_torch.models.speculative import speculative_generate
 from distkeras_tpu_torch.models.transformer import (
     TransformerConfig,
     apply,
@@ -71,6 +77,9 @@ from distkeras_tpu_torch.ops.attention import (
     naive_attention,
 )
 from distkeras_tpu_torch.predictors import ModelPredictor, Predictor
+from distkeras_tpu_torch.serving import (ContinuousBatcher, EngineClosed,
+                                         PrefixPool, QueueFull, RequestResult,
+                                         SpeculativeBatcher, TraceReplay)
 from distkeras_tpu_torch.trainers.base import SingleTrainer, Trainer
 from distkeras_tpu_torch.trainers.distributed import ADAG, DynSGD
 from distkeras_tpu_torch.trainers.elastic import (AEASGD, DOWNPOUR, EAMSGD,
@@ -89,6 +98,14 @@ from distkeras_tpu_torch.utils.serialization import (
 
 __all__ = [
     "ADAG",
+    "ContinuousBatcher",
+    "EngineClosed",
+    "PrefixPool",
+    "QueueFull",
+    "RequestResult",
+    "SpeculativeBatcher",
+    "TraceReplay",
+    "speculative_generate",
     "AEASGD",
     "AccuracyEvaluator",
     "AveragingTrainer",

@@ -9,8 +9,11 @@ package's tokens exactly; sampling draws from a per-position
 ``torch.Generator`` seeded from ``(seed, pos)`` (JAX's ``fold_in`` keys
 cannot be reproduced), and ``top_k`` is always exact.
 
-Not in this slice: ``prompt_cache``, ``kv_int8``, int8 weights, per-row
-(speculative) chunks and ``beam_search`` (ROADMAP A5, A9).
+:func:`_decode_chunk` runs T tokens per row at per-row device positions
+(the serving engines' step, speculative verification, admission chunks
+and ``prompt_cache`` suffixes), writing the preallocated cache in place.
+Not in this slice: ``kv_int8``, int8 weights (ROADMAP A9) and
+``beam_search`` (A5).
 """
 
 from __future__ import annotations
@@ -84,18 +87,6 @@ def prefill(params, prompt, cfg: TransformerConfig,
         return cache, _unembed(x[:, -1:], params, cfg)[:, 0]
 
 
-def _layer_slab_update(cache_all, i: int, rows, pos: int):
-    """Write ``rows [B, T, kv, hd]`` into layer ``i`` of the stacked cache
-    ``[L, B, S, kv, hd]`` at position ``pos`` (clamped to ``S - T``, as
-    ``dynamic_update_slice`` clamps).  Unlike the reference, which
-    returns a new array, this writes IN PLACE into the preallocated
-    buffer and returns it — no cache copy per step."""
-    t_len = rows.shape[1]
-    pos = min(max(int(pos), 0), cache_all.shape[2] - t_len)
-    cache_all[i, :, pos:pos + t_len].copy_(rows)
-    return cache_all
-
-
 def _attend(qg, ck, cv, mask, cfg: TransformerConfig):
     """Decode attention over the cache in f32: ``qg [B, T, kv, G, hd]``
     against ``ck/cv [B, S, kv, hd]`` under a boolean mask broadcastable to
@@ -107,11 +98,120 @@ def _attend(qg, ck, cv, mask, cfg: TransformerConfig):
     return torch.einsum("btcgs,bsck->btcgk", probs, cv.float())
 
 
-def _decode_layers(params, cache, x, rope_ang, wr_pos: int, mask,
+def _rows_update(cache_layer, rows, pos0):
+    """Write ``rows [B, T, kv, hd]`` into ``cache_layer [B, S, kv, hd]``
+    at per-row offsets ``pos0 [B]`` (device tensor), IN PLACE: one
+    ``index_put_`` over the ``[B, T]`` slots.  Starts clamp to
+    ``S - T`` as the reference's ``dynamic_update_slice`` clamps them
+    (callers keep their writes in range; the clamp keeps a stray one
+    from faulting the device)."""
+    t_len = rows.shape[1]
+    ar = torch.arange(t_len, device=rows.device)
+    start = pos0.clamp(0, cache_layer.shape[1] - t_len)
+    brow = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    cache_layer.index_put_((brow, start[:, None] + ar),
+                           rows.to(cache_layer.dtype))
+    return cache_layer
+
+
+def _rows_update_ring(cache_layer, rows, pos0, max_len: int):
+    """Per-row T-span write at ring slots ``(pos0[b] + t) % max_len``, in
+    place: the modular form of :func:`_rows_update` for windowed chunks
+    that may wrap mid-chunk (speculative decoding at divergent per-row
+    positions on a ring cache)."""
+    t_len = rows.shape[1]
+    ar = torch.arange(t_len, device=rows.device)
+    idx = torch.remainder(pos0[:, None] + ar, max_len)       # [B, T]
+    brow = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    cache_layer.index_put_((brow, idx), rows.to(cache_layer.dtype))
+    return cache_layer
+
+
+def _layer_slab_update(cache_layer, rows, pos):
+    """Write ``rows [B, T, kv, hd]`` (every row at the same position) into
+    ``cache_layer [B, S, kv, hd]`` at ``pos`` (a ``[1]`` device tensor),
+    in place: one ``index_copy_`` over the T slots, start clamped to
+    ``S - T`` as ``dynamic_update_slice`` clamps."""
+    t_len = rows.shape[1]
+    start = pos.clamp(0, cache_layer.shape[1] - t_len)
+    idx = start + torch.arange(t_len, device=rows.device)
+    cache_layer.index_copy_(1, idx, rows.to(cache_layer.dtype))
+    return cache_layer
+
+
+def _decode_chunk(params, cache, tokens, pos0, cfg: TransformerConfig,
+                  uniform_pos: bool = False, beam_anc=None):
+    """Process T new tokens per row against the cache in ONE pass:
+    ``tokens [B, T]`` at global positions ``pos0[b] + (0..T-1)`` (``pos0``
+    a ``[B]`` int tensor on the device) -> ``(logits [B, T, V] f32,
+    cache)``; the chunk's K/V land in the preallocated cache in place.
+
+    Queries attend every cached position <= their own (in-chunk
+    causality included), so rows at different positions share one call.
+    Windowed configs run in the reference's three shapes: per-row T == 1
+    (each row writes ring slot ``pos0[b] % max_len`` under its own band
+    mask: the serving engine's decode step); ``uniform_pos`` chunks under
+    the no-wrap contract ``pos0[0] % max_len + T <= max_len`` (admission);
+    per-row multi-token chunks through a modular scatter, guarded by
+    ``T + window <= max_len`` (speculative decoding on a ring).  Stale
+    slots past a row's position are masked until overwritten.
+
+    ``uniform_pos``: every row holds the same position, so each layer's
+    write is one slab ``index_copy_`` instead of a per-row scatter.
+    Nothing here reads a device value on the host.  Beam ancestry
+    attention (``beam_anc``) comes with ``beam_search`` (ROADMAP A5).
+    """
+    if beam_anc is not None:
+        raise _not_ported("beam ancestry attention", "A5")
+    dtype = cfg.torch_dtype
+    b, t_len = tokens.shape
+    dev = tokens.device
+    ar = torch.arange(t_len, device=dev)
+    pos_ids = pos0[:, None] + ar[None, :]                    # [B, T]
+    x = embed_rows(params["tok_emb"], tokens, dtype)         # [B, T, D]
+    rope_ang = None
+    if cfg.rope:
+        rope_ang = rope_angles(pos_ids, cfg.head_dim,
+                               cfg.rope_theta)[:, :, None, :]
+    else:
+        # XLA's gather clamps an index past the table; so does this.
+        x = x + params["pos_emb"][pos_ids.clamp(max=cfg.max_len - 1)
+                                  ].to(dtype)
+    win = cfg.attention_window is not None
+    if (win and t_len > 1 and not uniform_pos
+            and t_len + cfg.attention_window > cfg.max_len):
+        raise ValueError(
+            f"windowed per-row chunk of {t_len} tokens + "
+            f"attention_window={cfg.attention_window} exceeds the ring "
+            f"size (max_len={cfg.max_len}); shrink the chunk or grow "
+            "the ring")
+    span = torch.arange(cfg.max_len, device=dev)
+    if win:
+        # Ring band: slot s holds global position pos - ((pos - s) mod C);
+        # keep it iff real (>= 0) and inside the window.
+        delta = torch.remainder(pos_ids[:, :, None] - span, cfg.max_len)
+        mask = ((delta < cfg.attention_window)
+                & (pos_ids[:, :, None] - delta >= 0))
+        wr_pos = torch.remainder(pos0, cfg.max_len)
+    else:
+        mask = span <= pos_ids[:, :, None]
+        wr_pos = pos0
+    mask = mask[:, :, None, None, :]                         # [B, T, 1, 1, S]
+    if uniform_pos:
+        write = lambda c, r: _layer_slab_update(c, r, wr_pos[:1])
+    elif win and t_len > 1:
+        write = lambda c, r: _rows_update_ring(c, r, pos0, cfg.max_len)
+    else:
+        write = lambda c, r: _rows_update(c, r, wr_pos)
+    return _decode_layers(params, cache, x, rope_ang, write, mask,
+                          cfg), cache
+
+
+def _decode_layers(params, cache, x, rope_ang, write, mask,
                    cfg: TransformerConfig):
-    """The cached layer stack shared by the decode paths: ``x [B, T, D]``
-    at cache slots ``wr_pos .. wr_pos + T - 1``; returns f32 logits
-    [B, T, V] and writes the new K/V into ``cache`` in place."""
+    """The cached layer stack shared by the decode paths: ``x [B, T, D]``;
+    ``write(cache_layer, rows)`` lands each layer's new K/V in place.
+    Returns f32 logits [B, T, V]."""
     dtype = cfg.torch_dtype
     b, t_len = x.shape[:2]
     groups = cfg.n_heads // cfg.kv_heads
@@ -122,49 +222,15 @@ def _decode_layers(params, cache, x, rope_ang, wr_pos: int, mask,
         v = _dot(h, deq(lp["attn"]["wv"]))
         if rope_ang is not None:
             q, k = rope_rotate(q, rope_ang), rope_rotate(k, rope_ang)
-        _layer_slab_update(cache["k"], i, k, wr_pos)
-        _layer_slab_update(cache["v"], i, v, wr_pos)
+        ck, cv = write(cache["k"][i], k), write(cache["v"][i], v)
         # GQA: grouped einsums read only the kv-head cache.
         qg = q.float().reshape(b, t_len, cfg.kv_heads, groups, cfg.head_dim)
-        attn = _attend(qg, cache["k"][i], cache["v"][i], mask, cfg).reshape(
+        attn = _attend(qg, ck, cv, mask, cfg).reshape(
             b, t_len, cfg.n_heads, cfg.head_dim)
         x = x + _dot(attn.to(dtype), deq(lp["attn"]["wo"]), n=2)
         x = x + _ffn(lp["ffn"], _rms_norm(x, lp["ln2_scale"]))
     x = _rms_norm(x, params["ln_f_scale"])
     return unembed_logits(x, params["tok_emb"], dtype).float()
-
-
-def _decode_chunk(params, cache, tokens, pos0: int, cfg: TransformerConfig):
-    """Process ``tokens [B, T]`` at positions ``pos0 .. pos0 + T - 1``
-    (the same for every row) against the cache in one pass ->
-    ``(logits [B, T, V] f32, cache)``; queries attend every cached
-    position <= their own, in-chunk causality included.  Windowed
-    configs follow the reference's no-wrap contract
-    (``pos0 % max_len + T <= max_len``).  Per-row positions
-    (speculative decoding) are a later slice."""
-    dtype = cfg.torch_dtype
-    t_len = tokens.shape[1]
-    x = embed_rows(params["tok_emb"], tokens, dtype)
-    pos_ids = pos0 + torch.arange(t_len, device=tokens.device)   # [T]
-    rope_ang = None
-    if cfg.rope:
-        rope_ang = rope_angles(pos_ids, cfg.head_dim,
-                               cfg.rope_theta)[None, :, None, :]
-    else:
-        x = x + params["pos_emb"][pos_ids][None].to(dtype)
-    span = torch.arange(cfg.max_len, device=tokens.device)
-    if cfg.attention_window is not None:
-        delta = torch.remainder(pos_ids[:, None] - span[None, :],
-                                cfg.max_len)
-        mask = ((delta < cfg.attention_window)
-                & (pos_ids[:, None] - delta >= 0))
-        wr_pos = pos0 % cfg.max_len
-    else:
-        mask = span[None, :] <= pos_ids[:, None]
-        wr_pos = pos0
-    mask = mask[None, :, None, None, :]                   # [1, T, 1, 1, S]
-    return _decode_layers(params, cache, x, rope_ang, wr_pos, mask,
-                          cfg), cache
 
 
 def _decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig,
@@ -178,8 +244,11 @@ def _decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig,
     below a row's pad are never attended, and position ids count from
     the row's true start, so each row decodes as it would alone.
     """
+    b = tokens.shape[0]
+    pos_t = torch.full((b,), pos, dtype=torch.long, device=tokens.device)
     if pad_lens is None:
-        out, cache = _decode_chunk(params, cache, tokens[:, None], pos, cfg)
+        out, cache = _decode_chunk(params, cache, tokens[:, None], pos_t, cfg,
+                                   uniform_pos=True)
         return out[:, 0], cache
     dtype = cfg.torch_dtype
     x = embed_rows(params["tok_emb"], tokens, dtype)[:, None]     # [B, 1, D]
@@ -192,8 +261,6 @@ def _decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig,
         x = x + params["pos_emb"][pos_ids][:, None].to(dtype)
     span = torch.arange(cfg.max_len, device=tokens.device)
     if cfg.attention_window is not None:
-        # Ring band: slot s holds global position pos - ((pos - s) mod C);
-        # keep it iff real (>= 0) and inside the window.
         delta = torch.remainder(pos - span, cfg.max_len)
         row_mask = (delta < cfg.attention_window) & (pos - delta >= 0)
         slot = pos % cfg.max_len
@@ -202,7 +269,10 @@ def _decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig,
         slot = pos
     mask = row_mask[None, :] & (span[None, :] >= pad_lens[:, None])  # [B, S]
     mask = mask[:, None, None, None, :]
-    out = _decode_layers(params, cache, x, rope_ang, slot, mask, cfg)
+    slot_t = torch.full((1,), slot, dtype=torch.long, device=tokens.device)
+    out = _decode_layers(params, cache, x, rope_ang,
+                         lambda c, r: _layer_slab_update(c, r, slot_t),
+                         mask, cfg)
     return out[:, 0], cache
 
 
@@ -218,16 +288,27 @@ def top_k_mask(logits, k: int):
 
 def _validate_unit_interval(name, p, zero_ok: bool = False):
     """Range-check a sampling filter value, scalar or per-row array;
-    ``zero_ok`` admits 0.0 in arrays only (the per-row "no filter")."""
-    vals = (p.detach().cpu().numpy() if isinstance(p, torch.Tensor)
-            else np.asarray(p))
-    zero_ok = zero_ok and vals.ndim > 0
-    lo_ok = (vals >= 0.0) if zero_ok else (vals > 0.0)
-    if not np.all(lo_ok & (vals <= 1.0)):
-        lo = "[0, 1]" if zero_ok else "(0, 1]"
-        raise ValueError(
-            f"{name} must be in {lo}, got "
-            f"{p if np.ndim(vals) == 0 else vals}")
+    ``zero_ok`` admits 0.0 in arrays only (the per-row "no filter").  A
+    tensor is checked where it lives, by one device reduction and one
+    read of its boolean (a card tensor costs one sync per call; the
+    serving engine validates its values on the host at ``submit`` and
+    calls the unchecked :func:`_min_p_mask` / :func:`_top_p_mask`)."""
+    if isinstance(p, torch.Tensor):
+        vals = p.detach()
+        zero_ok = zero_ok and vals.dim() > 0
+        lo_ok = (vals >= 0.0) if zero_ok else (vals > 0.0)
+        if bool(torch.all(lo_ok & (vals <= 1.0))):
+            return
+        vals = vals.cpu().numpy()
+    else:
+        vals = np.asarray(p)
+        zero_ok = zero_ok and vals.ndim > 0
+        lo_ok = (vals >= 0.0) if zero_ok else (vals > 0.0)
+        if np.all(lo_ok & (vals <= 1.0)):
+            return
+    lo = "[0, 1]" if zero_ok else "(0, 1]"
+    raise ValueError(f"{name} must be in {lo}, got "
+                     f"{p if np.ndim(vals) == 0 else vals}")
 
 
 def min_p_mask(logits, min_p):
@@ -235,6 +316,12 @@ def min_p_mask(logits, min_p):
     token's; the rest go to -inf.  ``min_p`` may be a per-row [B, 1]
     array (a row of 0.0 is a no-op)."""
     _validate_unit_interval("min_p", min_p, zero_ok=True)
+    return _min_p_mask(logits, min_p)
+
+
+def _min_p_mask(logits, min_p):
+    """:func:`min_p_mask` for a ``min_p`` validated already (no range
+    check, so no host sync)."""
     gap = logits - logits.amax(dim=-1, keepdim=True)
     thr = torch.log(torch.as_tensor(min_p, dtype=torch.float32,
                                     device=logits.device))
@@ -246,6 +333,12 @@ def top_p_mask(logits, p):
     reaches ``p`` (exclusive cumulative sum, so the top token is always
     kept); the rest go to -inf.  ``p`` may be a per-row [B, 1] array."""
     _validate_unit_interval("top_p", p)
+    return _top_p_mask(logits, p)
+
+
+def _top_p_mask(logits, p):
+    """:func:`top_p_mask` for a ``p`` validated already (no range check,
+    so no host sync)."""
     sl = torch.sort(logits, dim=-1, descending=True).values
     probs = torch.softmax(sl, dim=-1)
     exclusive = torch.cumsum(probs, dim=-1) - probs
@@ -305,6 +398,53 @@ def _resolve_prefill(cfg: TransformerConfig, p: int,
     return use_prefill
 
 
+def _resolve_prompt_cache(prompt_cache, cfg: TransformerConfig, b: int,
+                          p: int, max_new_tokens: int, use_prefill,
+                          device):
+    """The ``prompt_cache`` contract (the reference's
+    ``_resolve_prompt_cache``): validates the config, budget and batch,
+    and returns ``(cache, cached_len)`` -- a COPY of the segment, fanned
+    out to ``b`` rows when it was prefilled at batch 1, so decoding in
+    place never writes into the caller's segment."""
+    pc_cache, cached_len = prompt_cache
+    if cfg.attention_window is not None:
+        raise ValueError("prompt_cache requires a full-cache config "
+                         "(no attention_window)")
+    if use_prefill is not None:
+        raise ValueError(
+            "use_prefill has no effect with prompt_cache (the suffix "
+            "always runs as one chunked pass); drop the argument")
+    if cached_len < 1:
+        raise ValueError(
+            f"cached prefix length must be >= 1, got {cached_len} "
+            "(an empty prefix is just a plain call)")
+    if cached_len > cfg.max_len - p - max_new_tokens:
+        raise ValueError(
+            f"cached prefix length {cached_len} + prompt {p} + "
+            f"{max_new_tokens} new tokens must fit max_len={cfg.max_len}")
+    if "k_scale" in pc_cache:
+        raise _not_ported("kv_int8 prompt_cache", "A9")
+    want = (cfg.n_layers, cfg.max_len, cfg.kv_heads, cfg.head_dim)
+    if (set(pc_cache) != {"k", "v"}
+            or any(tuple(a.shape[:1] + a.shape[2:]) != want
+                   for a in pc_cache.values())):
+        raise ValueError(
+            "prompt_cache must be a prefill() cache of this config: "
+            f"{{'k', 'v'}} of [L, B, max_len, kv_heads, head_dim] = "
+            f"[{want[0]}, B, {', '.join(map(str, want[1:]))}]")
+    pcb = pc_cache["k"].shape[1]
+    if pcb not in (1, b):
+        raise ValueError(
+            f"prompt_cache batch {pcb} incompatible with prompt "
+            f"batch {b} (must match or be 1)")
+    # A shared prefix (a system prompt) prefilled once at batch 1 fans
+    # out per request; repeat copies either way.
+    reps = b // pcb
+    return ({k: torch.as_tensor(a, device=device).to(cfg.torch_dtype)
+             .repeat(1, reps, 1, 1, 1) for k, a in pc_cache.items()},
+            int(cached_len))
+
+
 def beam_search(*args, **kwargs):
     """Beam search (ancestry attention) comes with a later slice."""
     raise _not_ported("beam_search", "A5")
@@ -320,8 +460,11 @@ def _position_generator(seed: int, pos: int, device) -> torch.Generator:
 
 def _sample(logits, temperature, top_k, top_p, min_p, gen):
     """Filter the temperature-scaled logits (top-k, nucleus, min-p, in
-    that order) and draw one token per row by the Gumbel-max trick."""
-    scaled = logits / temperature
+    that order) and draw one token per row by the Gumbel-max trick.  The
+    temperature divides as a device tensor (a true division on every
+    device, as the serving engine's per-lane temperatures divide; CUDA
+    turns a division by a host scalar into a reciprocal product)."""
+    scaled = logits / torch.full((1,), temperature, device=logits.device)
     if top_k is not None:
         scaled = top_k_mask(scaled, top_k)
     if top_p is not None and top_p < 1.0:
@@ -350,9 +493,15 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
     ``top_k`` / ``top_p`` / ``min_p`` filters.  ``eos_token`` makes
     completion sticky per row.  Runs on ``device`` — the card unless
     ``device="cpu"`` — where the params must already live.
+
+    ``prompt_cache=(cache, cached_len)`` reuses a prefilled prefix (the
+    system-prompt pattern): ``prefill`` the prefix once, at the request
+    batch or at batch 1 (which fans out), and pass each request's
+    remaining prompt here.  The suffix runs as ONE chunked pass against a
+    copy of the prefix cache, positions (and sampling streams) count from
+    the prefix start, and the result is ``[B, P + N]`` without the
+    prefix.  Full-cache configs only.
     """
-    if prompt_cache is not None:
-        raise _not_ported("prompt_cache", "A5")
     if kv_int8:
         raise _not_ported("kv_int8", "A9")
     device = resolve_device(device)
@@ -378,6 +527,13 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
     if min_p is not None and not 0.0 <= min_p <= 1.0:
         raise ValueError(f"min_p must be in [0, 1], got {min_p}")
+    cached_len = 0
+    if prompt_cache is not None:
+        if prompt_lengths is not None:
+            raise ValueError("prompt_cache requires uniform prompts "
+                             "(no prompt_lengths)")
+        cache, cached_len = _resolve_prompt_cache(
+            prompt_cache, cfg, b, p, max_new_tokens, use_prefill, device)
 
     pad_lens = None
     if prompt_lengths is not None:
@@ -394,13 +550,23 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
         idx = torch.remainder(torch.arange(p, device=device)[None]
                               - pad_lens[:, None], p)
         prompt = torch.gather(prompt, 1, idx)
-    use_prefill = _resolve_prefill(cfg, p, use_prefill,
-                                   ragged=pad_lens is not None)
+    if prompt_cache is None:
+        use_prefill = _resolve_prefill(cfg, p, use_prefill,
+                                       ragged=pad_lens is not None)
 
+    # Absolute positions: the prompt occupies [cached_len, cached_len + p).
+    total = cached_len + total
     buf = torch.zeros((b, total), dtype=torch.long, device=device)
-    buf[:, :p] = prompt
+    buf[:, cached_len:cached_len + p] = prompt
     with torch.no_grad():
-        if use_prefill:
+        if prompt_cache is not None:
+            # The suffix in one chunked pass over the prefix cache; the
+            # loop starts at the last prompt position, as after prefill.
+            _decode_chunk(params, cache, prompt,
+                          torch.full((b,), cached_len, dtype=torch.long,
+                                     device=device), cfg, uniform_pos=True)
+            start = cached_len + p - 1
+        elif use_prefill:
             # The cache holds K/V for [0, p); the loop starts at the last
             # prompt position (its step recomputes identical K/V in place
             # and yields the logits that pick token p).
@@ -414,7 +580,7 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
         for pos in range(start, total - 1):
             logits, cache = _decode_step(params, cache, buf[:, pos], pos,
                                          cfg, pad_lens)
-            if pos + 1 < p:
+            if pos + 1 < cached_len + p:
                 continue  # prompt positions are forced
             if temperature > 0:
                 nxt = _sample(logits, temperature, top_k, top_p, min_p,
@@ -430,4 +596,4 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
         idx = torch.remainder(torch.arange(total, device=device)[None]
                               + pad_lens[:, None], total)
         buf = torch.gather(buf, 1, idx)
-    return buf.to(torch.int32)
+    return buf[:, cached_len:].to(torch.int32)

@@ -24,3 +24,10 @@ def unembed_logits(x, tok_emb, dtype):
 def embed_rows(tok_emb, tokens, dtype):
     """Embedding lookup, cast to the compute dtype."""
     return tok_emb[tokens].to(dtype)
+
+
+def is_quantized(params) -> bool:
+    """An int8 tree (the reference's ``QTensor`` leaves) holds something
+    other than a plain tensor at ``tok_emb``; the port cannot run one
+    yet (ROADMAP A9)."""
+    return not isinstance(params.get("tok_emb"), torch.Tensor)

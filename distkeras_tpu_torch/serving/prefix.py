@@ -1,0 +1,210 @@
+"""Multi-prefix KV pool: N prefilled prefix segments, device-resident.
+
+The port's counterpart of ``distkeras_tpu/serving/prefix.py``.
+:class:`PrefixPool` holds up to ``slots`` prefilled prefix segments
+stacked in ONE device slab; requests carry ``prefix_id`` at ``submit`` /
+``enqueue`` and admission copies the segment into the lane on the
+device, so the prefix tokens cost no prefill work per request.
+
+Bookkeeping is host-side:
+
+- **refcounts**: a lane decoding past a prefix pins it (the engines
+  call ``acquire`` / ``release`` at admission and at lane vacation); a
+  pinned entry is never evicted;
+- **LRU eviction**: ``put`` on a full pool evicts the least-recently
+  used entry with no references; if every entry is pinned, ``put``
+  raises instead of corrupting an in-flight lane;
+- **ids are never reused**: a stale ``prefix_id`` fails loudly.
+
+Segments are what :func:`~distkeras_tpu_torch.models.generate.prefill`
+returns for one prefix — a full-``max_len`` batch-1 cache, prefix slots
+filled and the rest zero, so building one runs the flash forward kernel
+on the card.  For :class:`~distkeras_tpu_torch.serving.SpeculativeBatcher`
+pools (``draft_cfg=``) a segment is the ``(target_cache, draft_cache)``
+pair.  The paged engine's ``PinnedStems`` is not ported yet (ROADMAP
+A10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from distkeras_tpu_torch.models.generate import _not_ported, init_cache
+from distkeras_tpu_torch.models.transformer import TransformerConfig
+from distkeras_tpu_torch.utils.device import resolve_device
+from distkeras_tpu_torch.utils.locks import TracedRLock
+
+
+@dataclasses.dataclass
+class _Entry:
+    slot: int
+    length: int
+    refs: int = 0
+    tick: int = 0
+    last_token: int | None = None
+
+
+def _spec(tree):
+    """``{name: (shape, dtype)}`` of a cache dict, or a tuple of them."""
+    if isinstance(tree, tuple):
+        return tuple(_spec(t) for t in tree)
+    if not isinstance(tree, dict):
+        return None
+    return {name: (tuple(a.shape), a.dtype) for name, a in tree.items()}
+
+
+class PrefixPool:
+    """Refcounted, LRU-evicting pool of prefilled prefix segments.
+
+    ``cfg``: the serving model config (segment shape =
+    ``init_cache(cfg, 1)``).  ``slots``: device capacity, ~``slots`` x
+    one lane's cache bytes.  ``draft_cfg``: a speculative pool instead
+    (segments are ``(target, draft)`` cache pairs).  ``device``: where
+    the slab lives — the card unless ``device="cpu"``; it must be the
+    engine's.  ``kv_int8`` pools are ROADMAP A9.
+
+    Thread-safe: one leaf lock serializes ``put`` / ``acquire`` /
+    ``release`` (engines call acquire/release under their own admission
+    locks; nothing is acquired under this one).
+    """
+
+    def __init__(self, cfg: TransformerConfig, slots: int = 4,
+                 kv_int8: bool = False,
+                 draft_cfg: TransformerConfig | None = None, device=None):
+        if kv_int8:
+            raise _not_ported("kv_int8 prefix pools", "A9")
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if cfg.attention_window is not None or (
+                draft_cfg is not None
+                and draft_cfg.attention_window is not None):
+            raise ValueError(
+                "prefix pools need full-cache configs (no "
+                "attention_window): a ring slot has no stable notion "
+                "of 'the first P positions' to seed from")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.draft_cfg = draft_cfg
+        self.slots = slots
+        if draft_cfg is None:
+            seg = init_cache(cfg, 1, device=self.device)
+            self.slab = {n: a.new_zeros((slots,) + a.shape)
+                         for n, a in seg.items()}
+        else:
+            seg = (init_cache(cfg, 1, device=self.device),
+                   init_cache(draft_cfg, 1, device=self.device))
+            self.slab = tuple({n: a.new_zeros((slots,) + a.shape)
+                               for n, a in s.items()} for s in seg)
+        self._seg_spec = _spec(seg)
+        self._entries: dict[int, _Entry] = {}
+        self._next_id = 0
+        self._tick = 0
+        self._lock = TracedRLock("serving.prefix_pool")
+
+    # -------------------------------------------------------- mutation
+
+    def put(self, segment, length: int, last_token: int | None = None
+            ) -> int:
+        """Insert a prefilled segment; returns its ``prefix_id``.
+
+        ``segment``: the ``prefill(prefix[None], ...)`` cache (or the
+        ``(target, draft)`` pair for speculative pools), matching the
+        pool's spec exactly.  ``length``: the prefix token count it
+        holds.  ``last_token``: the prefix's final token, which a
+        :class:`SpeculativeBatcher` needs to admit a 1-token prompt
+        against this prefix.
+
+        A full pool evicts the least-recently-used entry with zero
+        references; if every entry is referenced by a lane, raises
+        ``RuntimeError``.  The segment is copied into the slab."""
+        if length < 1:
+            raise ValueError(f"prefix length must be >= 1, got {length}")
+        if length >= self.cfg.max_len:
+            raise ValueError(
+                f"prefix length {length} must leave room under "
+                f"max_len={self.cfg.max_len}")
+        if _spec(segment) != self._seg_spec:
+            raise ValueError(
+                f"segment does not match the pool's spec "
+                f"{self._seg_spec} (build it with prefill() on the "
+                "pool's config)")
+        with self._lock:
+            used = {e.slot for e in self._entries.values()}
+            free = [s for s in range(self.slots) if s not in used]
+            if free:
+                slot = free[0]
+            else:
+                victims = [(e.tick, pid) for pid, e in
+                           self._entries.items() if e.refs == 0]
+                if not victims:
+                    raise RuntimeError(
+                        f"prefix pool full: all {self.slots} slots are "
+                        "referenced by live lanes; wait for requests "
+                        "to finish or grow slots")
+                _, victim = min(victims)
+                slot = self._entries.pop(victim).slot
+            pairs = (zip(self.slab, segment) if self.draft_cfg is not None
+                     else [(self.slab, segment)])
+            for slab, seg in pairs:
+                for name, a in slab.items():
+                    a[slot].copy_(seg[name])
+            pid = self._next_id
+            self._next_id += 1
+            self._tick += 1
+            self._entries[pid] = _Entry(slot=slot, length=int(length),
+                                        tick=self._tick,
+                                        last_token=last_token)
+            return pid
+
+    def acquire(self, prefix_id: int) -> _Entry:
+        """Pin the entry (a lane is about to decode against it) and mark
+        it recently used; returns the entry."""
+        with self._lock:
+            e = self._entry(prefix_id)
+            e.refs += 1
+            self._tick += 1
+            e.tick = self._tick
+            return e
+
+    def release(self, prefix_id: int) -> None:
+        """Unpin (the referencing lane was vacated)."""
+        with self._lock:
+            e = self._entries.get(prefix_id)
+            if e is not None and e.refs > 0:
+                e.refs -= 1
+
+    # ------------------------------------------------------ inspection
+
+    def _entry(self, prefix_id: int) -> _Entry:
+        e = self._entries.get(prefix_id)
+        if e is None:
+            raise KeyError(
+                f"unknown prefix_id {prefix_id} (evicted or never "
+                "inserted; ids are never reused)")
+        return e
+
+    def length_of(self, prefix_id: int) -> int:
+        return self._entry(prefix_id).length
+
+    def slot_of(self, prefix_id: int) -> int:
+        return self._entry(prefix_id).slot
+
+    def last_token_of(self, prefix_id: int) -> int | None:
+        return self._entry(prefix_id).last_token
+
+    def refs_of(self, prefix_id: int) -> int:
+        return self._entry(prefix_id).refs
+
+    def ids(self) -> list[int]:
+        return sorted(self._entries)
+
+    def __contains__(self, prefix_id: int) -> bool:
+        return prefix_id in self._entries
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+__all__ = ["PrefixPool"]

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card:
 the flash forward (inference and training launches), the FA2 dQ and
-dK/dV kernels, and ``flash_attention`` under autograd; and the Keras
-family's CIFAR CNN path on the card against the same path on the CPU.
+dK/dV kernels, and ``flash_attention`` under autograd; the Keras
+family's CIFAR CNN path on the card against the same path on the CPU;
+and the serving engines on the card (an f32 schedule against the CPU's,
+prefix-pool segments and speculative warm-ups through the kernel).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports no JAX, so on a machine with
@@ -470,3 +472,110 @@ def test_device_feed_on_card_yields_the_host_batches(cuda):
     for (x, y), (gx, gy) in zip(items, got):
         np.testing.assert_array_equal(gx.cpu().numpy(), x)
         np.testing.assert_array_equal(gy.cpu().numpy(), y)
+
+
+# --------------------------------------------- continuous-batching serving
+
+def _serving_model(device, n_layers=2):
+    """An f32 serving config whose head_dim (64) the forward kernel
+    takes, with numpy-seeded weights on ``device``."""
+    from distkeras_tpu_torch.models.transformer import TransformerConfig
+    from distkeras_tpu_torch.utils.serialization import params_from_numpy
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=2,
+                            n_layers=n_layers, d_ff=256, max_len=96,
+                            rope=True)
+    rng = np.random.default_rng(3)
+    dense = lambda *s: (rng.standard_normal(s, dtype=np.float32)
+                        / np.float32(s[-2] if len(s) > 1 else 1) ** 0.5)
+    L, d, h, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim
+    np_params = {
+        "tok_emb": dense(cfg.vocab_size, d),
+        "ln_f_scale": np.ones(d, np.float32),
+        "layers": {
+            "ln1_scale": np.ones((L, d), np.float32),
+            "ln2_scale": np.ones((L, d), np.float32),
+            "attn": {"wq": dense(L, d, h, hd), "wk": dense(L, d, h, hd),
+                     "wv": dense(L, d, h, hd), "wo": dense(L, h, hd, d)},
+            "ffn": {"w1": dense(L, d, cfg.d_ff), "w2": dense(L, cfg.d_ff, d)},
+        }}
+    return cfg, np_params, params_from_numpy(np_params, device)
+
+
+def _schedule(cfg, params, device):
+    """Staggered admissions over 4 lanes, a 1-token prompt, a lane reused
+    after a longer occupant, a sampled request; every request's tokens."""
+    from distkeras_tpu_torch.serving import ContinuousBatcher
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 7, 1, 11, 4)]
+    eng = ContinuousBatcher(params, cfg, lanes=4, temperature=0.9,
+                            per_request_sampling=True, device=device)
+    a = eng.submit(prompts[0], 40, temperature=0.0)
+    eng.step(4)
+    b = eng.submit(prompts[1], 30, temperature=0.0)
+    c = eng.submit(prompts[2], 24, seed=5)
+    eng.step(2)
+    d = eng.submit(prompts[3], 16, temperature=0.0)
+    outs = {}
+    for name, lane in zip("abcd", (a, b, c, d)):
+        while lane in eng.running():
+            eng.step(3)
+        outs[name] = eng.drain(lane)
+    e = eng.submit(prompts[4], 12, temperature=0.0)   # lane a, reused
+    while e in eng.running():
+        eng.step(1)
+    outs["e"] = eng.drain(e)
+    return outs
+
+
+def test_engine_schedule_on_card_matches_cpu(cuda):
+    """An f32 engine schedule gives the same greedy tokens on the card as
+    on the CPU.  CUDA and CPU generators draw different uniforms, so the
+    sampled lane is held to its own solo generate(seed=) on each device."""
+    from distkeras_tpu_torch.models.generate import generate
+
+    cfg, _, card_p = _serving_model("cuda")
+    _, _, cpu_p = _serving_model("cpu")
+    card, cpu = _schedule(cfg, card_p, "cuda"), _schedule(cfg, cpu_p, "cpu")
+    for name in "abde":
+        np.testing.assert_array_equal(card[name], cpu[name])
+    for outs, p, dev in ((card, card_p, "cuda"), (cpu, cpu_p, "cpu")):
+        solo = generate(p, outs["c"][None, :1], cfg, 24, temperature=0.9,
+                        seed=5, device=dev)[0].cpu().numpy()
+        np.testing.assert_array_equal(outs["c"], solo)
+
+
+def test_prefix_pool_segment_on_card_launches_the_forward_kernel(cuda):
+    """A PrefixPool segment built by prefill on the card launches the
+    forward kernel once a layer; a pooled request equals
+    generate(tail, prompt_cache=(segment, P)) and greedy
+    speculative_generate (its warm prefills launch the kernel too)
+    equals generate."""
+    from distkeras_tpu_torch.models.generate import generate, prefill
+    from distkeras_tpu_torch.models.speculative import speculative_generate
+    from distkeras_tpu_torch.serving import ContinuousBatcher, PrefixPool
+
+    cfg, _, params = _serving_model("cuda")
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(0, cfg.vocab_size, 40)
+    before = tattn.LAUNCHES["flash_fwd"]
+    seg, _ = prefill(params, prefix[None], cfg, last_logits=False)
+    assert tattn.LAUNCHES["flash_fwd"] == before + cfg.n_layers
+    pool = PrefixPool(cfg, slots=2)
+    pid = pool.put(seg, 40)
+    eng = ContinuousBatcher(params, cfg, lanes=2, prefix_pool=pool)
+    tail = rng.integers(0, cfg.vocab_size, 9)
+    lane = eng.submit(tail, 20, prefix_id=pid)
+    while lane in eng.running():
+        eng.step(4)
+    ref = generate(params, tail[None], cfg, 20, prompt_cache=(seg, 40))
+    np.testing.assert_array_equal(eng.drain(lane), ref[0].cpu().numpy())
+    prompts = rng.integers(0, cfg.vocab_size, (3, 12))
+    before = tattn.LAUNCHES["flash_fwd"]
+    out, stats = speculative_generate(params, params, prompts, cfg, cfg, 16,
+                                      n_draft=3)
+    assert tattn.LAUNCHES["flash_fwd"] == before + 2 * cfg.n_layers
+    assert float(stats["acceptance_rate"]) == 1.0
+    torch.testing.assert_close(out, generate(params, prompts, cfg, 16),
+                               rtol=0, atol=0)

@@ -186,7 +186,7 @@ def test_sampled_generate_deterministic_and_topk1_is_greedy(rng):
         tgen.generate(tp, prompt, tcfg, top_k=3, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgen.generate(tp, prompt, tcfg, kv_int8=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="prompt_cache"):
         tgen.generate(tp, prompt, tcfg, prompt_cache=({}, 1), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgen.beam_search(tp, prompt, tcfg, 2, 4)
@@ -229,7 +229,9 @@ def test_port_imports_neither_jax_nor_reference_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "for name in ('trainers.elastic', 'native', 'data.tokenizer',\n"
-        "             'data.prefetch'):\n"
+        "             'data.prefetch', 'serving.lanes',\n"
+        "             'serving.speculative', 'models.speculative', 'obs',\n"
+        "             'utils.locks'):\n"
         "    assert 'distkeras_tpu_torch.' + name in names, names\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'distkeras_tpu',\n"
