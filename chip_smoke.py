@@ -45,12 +45,30 @@ each went through its kernels:
   kernel); an f32 2-layer schedule on the card against the CPU, and the
   f32 self-draft accepting every proposal.  bf16 greedy tokens of two
   paths must agree up to a near tie of the reference's logits
-  (``greedy_agreement``).
+  (``greedy_agreement``);
+- the model surface: phase ``moe_serve`` (the flagship serving config
+  with 8 experts, top-1 and top-2: prefill through the forward kernel
+  with the dense routing, the per-token expert gather, and f32 prefill
+  == sequential tokens), phase ``int8_serve`` (``quantize_params`` on
+  the card == the CPU bit for bit; the int8 tree decoding with no kernel
+  launch; ``generate(kv_int8=True)`` through the kernel prefill against
+  the sequential path; ``ContinuousBatcher(kv_int8=True)`` with an f32
+  schedule == solo ``generate``; the int8 tree drafting for its f32
+  parent with the parent's greedy tokens; a ``kv_int8`` ``PrefixPool``
+  segment), phase ``moe_train`` (``LMTrainer`` over the MoE training
+  rows, top-1 and top-2: step ms, tokens/s, peak GB, aux loss, drop
+  share; the index dispatch against the reference's one-hot einsums on
+  one layer at full width; the f32 gradient parity) and phase
+  ``lora_train`` (``LoRATrainer`` rank 8 on wq / wv: the base
+  bit-identical, the optimizer holding the adapters only, ``train`` ==
+  ``lora_merge(base, adapters)``).
 
 Usage: python3 chip_smoke.py [--profile]     (needs one CUDA device)
 
 ``--profile`` adds the device time by kernel (torch.profiler) of one
-prefill, a short generate and one train step.
+prefill, a short generate and one train step, and of the model
+surface's top-2 MoE train step and 8-token generates (MoE, int8 tree,
+``kv_int8``), these last after every timed phase.
 
 Output: the card's name and power limit, one line per phase, then a
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
@@ -59,13 +77,15 @@ kernels line, ``flash_fwd``'s times are the serving prefill case (bf16,
 causal, no lse), with the training case (f32, causal, with lse) beside
 it under ``"f32_lse_causal"`` and the engine's prefill shapes under
 ``"bf16_causal_pool256"``, ``"bf16_causal_pool128"`` and
-``"bf16_causal_spec_warm"``, and its launches those of all three
-main-path runs and the engine phase's prefills (``launches_by_path``);
-the backward kernels' times are
-the training case (f32, causal) and their launches those of the two
-training runs, with the bf16 causal case beside it under
-``"bf16_causal"``; each kernel also carries its seq-4096 f32 readings
-(causal, and window 1024).
+``"bf16_causal_spec_warm"`` and the f32 speculative warm-up of
+``int8_serve`` under ``"f32_causal_spec_int8_warm"``, and its launches
+those of every main-path run: serve, engine, train, long_train and the
+four model-surface phases (``launches_by_path``; a run that only
+serves a comparison is not counted); the backward kernels'
+times are the training case (f32, causal) and their launches those of
+the training runs (train, long_train, moe_train, lora_train), with the
+bf16 causal case beside it under ``"bf16_causal"``; each kernel also
+carries its seq-4096 f32 readings (causal, and window 1024).
 """
 
 import dataclasses
@@ -367,7 +387,8 @@ def kernel_case(dtype, causal, window, seed=0, shape=PREFILL_SHAPE):
 
 
 def numpy_params(cfg, seed):
-    """Random weights in the reference's layout and scales, from numpy."""
+    """Random weights in the reference's layout and scales, from numpy
+    (the MoE FFN's ``wg`` / ``w1`` / ``w2`` for an MoE config)."""
     rng = np.random.default_rng(seed)
     d, f, h, hd, L = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim, \
         cfg.n_layers
@@ -386,9 +407,13 @@ def numpy_params(cfg, seed):
                      "wk": dense((L, d, cfg.kv_heads, hd), d),
                      "wv": dense((L, d, cfg.kv_heads, hd), d),
                      "wo": dense((L, h, hd, d), d)},
-            "ffn": {"w1": dense((L, d, f), d), "w2": dense((L, f, d), f)},
         },
     }
+    e = cfg.num_experts
+    params["layers"].update(
+        {"moe": {"wg": dense((L, d, e), d), "w1": dense((L, e, d, f), d),
+                 "w2": dense((L, e, f, d), f)}} if e else
+        {"ffn": {"w1": dense((L, d, f), d), "w2": dense((L, f, d), f)}})
     if not cfg.rope:
         params["pos_emb"] = dense((cfg.max_len, d), 1.0) * np.float32(0.02)
     return params
@@ -480,7 +505,7 @@ def train_phase(np_params, profile):
         carry = (params, opt.init(params))
         tokens = torch.from_numpy(batch).to("cuda")
         profile_window("train_step", lambda: step(carry, tokens))
-    return launches
+    return launches, step_ms
 
 
 def train_parity_phase(np_params):
@@ -1001,10 +1026,13 @@ BF16_PATH_TOL = 2e-2
 
 def top2_gap(params, cfg, seq):
     """The gap between the top two next-token logits after ``seq``
-    (teacher-forced through ``apply``), as a share of max |logit|."""
+    (teacher-forced through ``apply``), as a share of max |logit|.  A
+    comparison, so its kernel launches are not counted."""
+    counts = dict(attn.LAUNCHES)
     with torch.no_grad():
         logits, _ = dkt.apply(params, torch.from_numpy(
             np.asarray(seq)[None]).cuda(), cfg)
+    attn.LAUNCHES.update(counts)
     row = logits[0, -1].float()
     top2 = row.topk(2).values
     return float((top2[0] - top2[1]) / row.abs().max())
@@ -1449,6 +1477,569 @@ def engine_phase(np_params):
     return launches
 
 
+# The model surface.  MoE: the transformer_moe_top1 / _top2 rows of
+# scripts/bench_suite.py (:313-330), 8 experts over the d1024 L8 trunk at
+# capacity_factor 1.25, trained as _measure_lm trains (adamw 3e-4, batch
+# 8 x seq 1024, f32 weights: an f32 trunk and the f32 kernels), and
+# bench_serving.py's bench_moe (:366) over the flagship serving config.
+# LoRA: bench_suite.py's lora_finetune (:332-372), rank 8, alpha 16,
+# wq / wv over the d1024 L8 base.  int8: bench_serving.py's bench_int8
+# (:218), bench_kv_int8 (:178), bench_speculative_int8draft (:327) and
+# the kv_int8 engine (:480), with fewer new tokens.
+MOE_EXPERTS, MOE_CAPACITY = 8, 1.25
+SURFACE_STEPS = 4
+MOE_SERVE_PROMPT, MOE_SERVE_NEW = 64, 64
+INT8_PROMPT, INT8_NEW = 16, 128
+KV8_PROMPT, KV8_NEW = 64, 64
+# The index dispatch against the reference's one-hot einsums on one layer
+# at full width: the dispatch is exact and each token's top-k combine
+# sums the same terms in another order, so the two outputs may differ in
+# the last bits only.
+MOE_DISPATCH_TOL = 1e-6
+
+
+def moe_cfg(base, top_k):
+    return dataclasses.replace(base, num_experts=MOE_EXPERTS,
+                               moe_top_k=top_k,
+                               capacity_factor=MOE_CAPACITY)
+
+
+def expect_fwd(fn, want, what, counted=True):
+    """Run ``fn``; it must launch the forward kernel ``want`` times and no
+    backward kernel.  A run that only serves a comparison
+    (``counted=False``) leaves the launch counts as they were.  Returns
+    what ``fn`` returns."""
+    before = dict(attn.LAUNCHES)
+    out = fn()
+    went = {k: attn.LAUNCHES[k] - before[k] for k in before}
+    if not counted:
+        attn.LAUNCHES.update(before)
+    if went != {"flash_fwd": want, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise AssertionError(f"{what}: launched {went}, expected {want} "
+                             "forward launches")
+    return out
+
+
+def expect_tokens(out, prompt, new, vocab, what):
+    """``out`` must be the int32 ``prompt`` rows, each followed by ``new``
+    tokens in [0, vocab)."""
+    prompt = torch.as_tensor(np.asarray(prompt))
+    b, p = prompt.shape
+    if (tuple(out.shape) != (b, p + new) or out.dtype != torch.int32
+            or not torch.equal(out[:, :p].cpu(), prompt)
+            or int(out.min()) < 0 or int(out.max()) >= vocab):
+        raise AssertionError(f"bad {what} output {tuple(out.shape)} "
+                             f"{out.dtype}")
+
+
+def moe_route_stats(params, cfg, tokens):
+    """One no-grad training forward (capacity routing): its aux loss, and
+    the share of top-k assignments every layer drops at capacity, as
+    ``_moe_block`` counts them."""
+    tfm = dkt.models.transformer
+    real, stats = tfm._moe_block, {}
+    tfm._moe_block = lambda lp, x, cfg_: real(lp, x, cfg_, stats=stats)
+    try:
+        with torch.no_grad():
+            _, aux = dkt.apply(params, torch.from_numpy(tokens).cuda(), cfg)
+    finally:
+        tfm._moe_block = real
+    return float(aux), float(stats["dropped"]) / stats["assigned"]
+
+
+def moe_einsum_block(lp, x, cfg):
+    """The reference's ``_moe_block`` as written: one-hot slots [k, N, E,
+    C] and the dispatch / expert / combine einsums, in f32."""
+    b, s, d = x.shape
+    n, e, k = b * s, cfg.num_experts, cfg.moe_top_k
+    cap = max(1, int(cfg.capacity_factor * k * n / e))
+    flat = x.reshape(n, d).float()
+    probs = torch.softmax(flat @ lp["wg"].float(), dim=-1)
+    gates, expert = dkt.models.transformer._moe_gates(probs, cfg)
+    one_hot = F.one_hot(expert, e).float()                    # [N, k, E]
+    aux = (one_hot[:, 0].mean(0) * probs.mean(0)).sum() * e \
+        * cfg.aux_loss_coef
+    oh_cm = one_hot.transpose(0, 1).reshape(k * n, e)
+    pos = oh_cm.cumsum(0) * oh_cm                             # 1-based
+    keep = (pos <= cap).float() * oh_cm
+    slot = F.one_hot((pos - 1).clamp(0, cap - 1).long(), cap).float()
+    slot_k = (slot * keep[..., None]).reshape(k, n, e, cap)
+    del slot
+    xe = torch.einsum("knec,nd->ecd", slot_k, flat)
+    h = F.gelu(torch.einsum("ecd,edf->ecf", xe, lp["w1"].float()),
+               approximate="tanh")
+    ye = torch.einsum("ecf,efd->ecd", h, lp["w2"].float())
+    comb = slot_k * gates.t().reshape(k, n)[:, :, None, None]
+    out = torch.einsum("ecd,knec->nd", ye, comb)
+    return out.reshape(b, s, d), aux
+
+
+def moe_dispatch_check(np_moe):
+    """The index dispatch (``_moe_block``) against ``moe_einsum_block`` on
+    layer 0 at the bench row's full width: 8 x 1024 tokens, d 1024, 8
+    experts, top-1 (C = 1280) and top-2 (C = 2560)."""
+    lp = {k: torch.from_numpy(v[0]).cuda()
+          for k, v in np_moe["layers"]["moe"].items()}
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (8, TRAIN_SHAPE[1], FLAGSHIP_TRAIN.d_model),
+        dtype=np.float32)).cuda()
+    out = {}
+    for k in (1, 2):
+        cfg = moe_cfg(FLAGSHIP_TRAIN, k)
+        with torch.no_grad():
+            got, aux = dkt.models.transformer._moe_block(lp, x, cfg)
+            want, want_aux = moe_einsum_block(lp, x, cfg)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= MOE_DISPATCH_TOL * scale or float(
+                (aux - want_aux).abs()) > 1e-7:
+            raise AssertionError(
+                f"top-{k} index dispatch differs from the einsums: "
+                f"{err} (max |out| {scale}), aux {float(aux)} vs "
+                f"{float(want_aux)}")
+        out[f"top{k}"] = dict(max_abs_err=err, max_abs_out=scale,
+                              aux=float(aux))
+        del got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_parity(np_moe):
+    """One f32 top-2 lm_loss gradient at full width (2 x 1024 tokens)
+    through the kernels and through the blockwise tier: every leaf within
+    1e-3 * max|g| of the plain one (PERF.md section 2), as
+    train_parity_phase holds the dense model."""
+    cfg = dataclasses.replace(moe_cfg(FLAGSHIP_TRAIN, 2), dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (2, TRAIN_SHAPE[1] + 1))).cuda()
+    runs = []
+    for fn in (None, plain_flash):
+        params = dkt.params_from_numpy(np_moe, "cuda")
+        named = named_leaves(params)
+        for _, leaf in named:
+            leaf.requires_grad_()
+        before = attn.LAUNCHES["flash_bwd_dkv"]
+        loss = dkt.lm_loss(params, tokens, cfg, attention_fn=fn)
+        loss.backward()
+        went = attn.LAUNCHES["flash_bwd_dkv"] - before
+        if went != (cfg.n_layers if fn is None else 0):
+            raise AssertionError(f"moe parity run launched dK/dV {went}")
+        runs.append((float(loss.detach()),
+                     {path: p.grad for path, p in named}))
+        del params, named, loss
+    (loss_k, gk), (loss_p, gp) = runs
+    worst = {path: float((g - gp[path]).abs().max()
+                         / gp[path].abs().max().clamp(min=1e-30))
+             for path, g in gk.items()}
+    bad = {p: r for p, r in worst.items() if not r <= 1e-3}
+    if bad or not abs(loss_k - loss_p) <= 1e-4:
+        raise AssertionError(f"moe grads {bad}, losses {loss_k} {loss_p}")
+    del runs, gk, gp
+    torch.cuda.empty_cache()
+    return dict(loss_kernel=loss_k, loss_plain=loss_p,
+                grad_max_rel_err=max(worst.values()),
+                worst_leaf=max(worst, key=worst.get), tol=1e-3)
+
+
+def timed_trainer(trainer, first, timed, **kw):
+    """A warm-up run and a one-step run of ``first``, then ``timed``
+    (SURFACE_STEPS steps) with the launches zeroed and the peak memory
+    reset; returns (what the timed run returns, its launches, steady
+    step ms, peak GB).  Both runs pay the same set-up (param copy,
+    optimizer init), so their difference is SURFACE_STEPS - 1 steps."""
+    trainer.train(first, **kw)
+    trainer.train(first, **kw)
+    one_s = trainer.training_time
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    out = trainer.train(timed, **kw)
+    launches = dict(attn.LAUNCHES)
+    step_ms = 1e3 * (trainer.training_time - one_s) / (SURFACE_STEPS - 1)
+    return (out, launches, step_ms,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def moe_train_phase(np_moe, dense_step_ms):
+    """Phase moe_train: LMTrainer over the MoE rows, top-1 and top-2
+    (a warm-up step, then SURFACE_STEPS timed steps on one repeated
+    batch), every step through the training kernels; the aux loss and
+    the capacity drop share of the trained weights; the index dispatch
+    against the einsums; the f32 gradient parity."""
+    batch = np.random.default_rng(2).integers(
+        0, FLAGSHIP_TRAIN.vocab_size, (8, TRAIN_SHAPE[1] + 1)).astype(
+            np.int32)
+    rows, total = {}, dict.fromkeys(attn.LAUNCHES, 0)
+    for k in (1, 2):
+        cfg = moe_cfg(FLAGSHIP_TRAIN, k)
+        params = dkt.params_from_numpy(np_moe, "cuda")
+        trainer = dkt.LMTrainer(cfg, optimizer="adamw", learning_rate=3e-4,
+                                batch_size=8)
+        trained, launches, step_ms, peak = timed_trainer(
+            trainer, batch, np.tile(batch, (SURFACE_STEPS, 1)),
+            params=params)
+        expect_launches(launches, cfg.n_layers * SURFACE_STEPS,
+                        f"moe_train top-{k}")
+        hist = trainer.history
+        if not all(np.isfinite(hist)) or not hist[-1] < hist[0]:
+            raise AssertionError(f"moe top-{k} losses {hist}")
+        aux, dropped = moe_route_stats(trained, cfg, batch[:, :-1])
+        rows[f"top{k}"] = dict(
+            losses=hist, step_ms=step_ms,
+            tokens_per_s=8 * TRAIN_SHAPE[1] * 1e3 / step_ms,
+            vs_dense_step=step_ms / dense_step_ms, peak_mem_gb=peak,
+            aux_loss=aux, dropped_share=dropped, launches=launches)
+        for name in total:
+            total[name] += launches[name]
+        del trainer, trained, params
+        torch.cuda.empty_cache()
+    log("moe_train", config=dataclasses.asdict(moe_cfg(FLAGSHIP_TRAIN, 2)),
+        batch=8, seq=TRAIN_SHAPE[1], steps=SURFACE_STEPS,
+        optimizer="adamw", learning_rate=3e-4, dense_step_ms=dense_step_ms,
+        **rows, dispatch_vs_einsum=dict(moe_dispatch_check(np_moe),
+                                        tol_rel=MOE_DISPATCH_TOL),
+        parity=moe_parity(np_moe))
+    return total
+
+
+def lora_train_phase(np_params, dense_step_ms):
+    """Phase lora_train: LoRATrainer (rank 8, alpha 16, wq / wv) over a
+    token Dataset on the d1024 L8 f32 base: a warm-up step, then
+    SURFACE_STEPS timed steps.  The caller's base and the trainer's copy
+    come out bit-identical, the optimizer holds the adapter leaves only,
+    and ``train`` returns ``lora_merge(base, adapters)`` exactly."""
+    cfg = FLAGSHIP_TRAIN
+    base = dkt.params_from_numpy(np_params, "cuda")
+    rows = np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (8, TRAIN_SHAPE[1] + 1)).astype(np.int32)
+    trainer = dkt.LoRATrainer(cfg, base, lora_rank=8, lora_alpha=16.0,
+                              lora_targets=("wq", "wv"), optimizer="adamw",
+                              learning_rate=3e-4, batch_size=8)
+    merged, launches, step_ms, peak = timed_trainer(
+        trainer, dkt.Dataset({"tokens": rows}),
+        dkt.Dataset({"tokens": np.tile(rows, (SURFACE_STEPS, 1))}))
+    expect_launches(launches, cfg.n_layers * SURFACE_STEPS, "lora_train")
+    if not all(np.isfinite(trainer.history)):
+        raise AssertionError(f"lora losses {trainer.history}")
+    fresh = dkt.params_from_numpy(np_params, "cuda")
+    fresh_named = dict(named_leaves(fresh))
+    for path, t in named_leaves(base):
+        if not torch.equal(t, fresh_named[path]):
+            raise AssertionError(f"the caller's base changed at {path}")
+    with torch.no_grad():
+        want = dkt.lora_merge(fresh, trainer.adapters, cfg, trainer.lora)
+    for (path, a), (_, b) in zip(named_leaves(merged), named_leaves(want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"train() != lora_merge(base, adapters) "
+                                 f"at {path}")
+    adapters = [t for _, t in named_leaves(trainer.adapters)]
+    state = trainer.opt_state
+    if ({id(t) for t in state.leaves} != {id(t) for t in adapters}
+            or {id(t) for t in state.torch_opt.state}
+            != {id(t) for t in adapters}):
+        raise AssertionError("the optimizer holds more than the adapters")
+    log("lora_train", config=dataclasses.asdict(cfg), rank=8, alpha=16.0,
+        targets=["wq", "wv"], batch=8, seq=TRAIN_SHAPE[1],
+        steps=SURFACE_STEPS, losses=trainer.history, step_ms=step_ms,
+        tokens_per_s=8 * TRAIN_SHAPE[1] * 1e3 / step_ms,
+        dense_step_ms=dense_step_ms, vs_dense_step=step_ms / dense_step_ms,
+        peak_mem_gb=peak, adapter_leaves=len(adapters),
+        adapter_params=sum(t.numel() for t in adapters),
+        optimizer_state_tensors=len(state.torch_opt.state),
+        base_bit_identical=True, train_returns_merge=True,
+        launches=launches)
+    return launches
+
+
+def moe_serve_phase(np_moe):
+    """Phase moe_serve: bench_moe(8, top_k) for top-1 and top-2: the
+    flagship serving config with 8 experts, bf16, batch 8, prompt 64, 64
+    new tokens (prefill through the kernel with the dense routing, then
+    the per-token expert gather); at f32 on 2 rows, prefill (kernel)
+    tokens equal sequential (no kernel) tokens, a comparison whose
+    launches are not counted."""
+    np_serve = moe_serve_tree(np_moe)
+    prompt = moe_serve_prompt()
+    zero_launches()
+    rows = {}
+    for k in (1, 2):
+        cfg = moe_cfg(FLAGSHIP, k)
+        n = cfg.n_layers
+        params = dkt.params_from_numpy(np_serve, "cuda", dtype=torch.bfloat16)
+        gen = lambda: dkt.generate(params, prompt, cfg, MOE_SERVE_NEW)
+        out, first_s = expect_fwd(lambda: wall_s(gen), n, "moe generate")
+        _, prefill_s = expect_fwd(lambda: wall_s(lambda: dkt.prefill(
+            params, prompt, cfg, last_logits=False)), n, "moe prefill")
+        again, gen_s = expect_fwd(lambda: wall_s(gen), n, "moe generate")
+        expect_tokens(out, prompt, MOE_SERVE_NEW, cfg.vocab_size,
+                      "moe generate")
+        if not torch.equal(out, again):
+            raise AssertionError("moe generate is not deterministic")
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = dkt.params_from_numpy(np_serve, "cuda", dtype=torch.float32)
+        short = prompt[:2, :32]
+        via = expect_fwd(lambda: dkt.generate(p32, short, cfg32, 16,
+                                              use_prefill=True), n,
+                         "moe f32 prefill", counted=False)
+        seq = expect_fwd(lambda: dkt.generate(p32, short, cfg32, 16,
+                                              use_prefill=False), 0,
+                         "moe f32 sequential", counted=False)
+        if not torch.equal(via, seq):
+            raise AssertionError(f"moe top-{k}: f32 prefill (kernel) and "
+                                 "sequential tokens differ")
+        rows[f"top{k}"] = dict(
+            first_call_s=first_s, prefill_ms=1e3 * prefill_s,
+            generate_s=gen_s,
+            decode_ms_per_token=1e3 * (gen_s - prefill_s) / MOE_SERVE_NEW,
+            tokens_per_s=8 * MOE_SERVE_NEW / gen_s,
+            f32_prefill_vs_sequential_tokens_equal=True)
+        del p32
+    launches = dict(attn.LAUNCHES)
+    log("moe_serve", config=dataclasses.asdict(moe_cfg(FLAGSHIP, 2)),
+        batch=8, prompt=MOE_SERVE_PROMPT, new_tokens=MOE_SERVE_NEW,
+        launches=launches, **rows)
+    return launches
+
+
+def argmax_agreement(a_params, b_params, seq, cfg, start):
+    """Share of the positions past ``start`` of the token rows ``seq``
+    where two trees' teacher-forced argmax agree (the plain chunk
+    attention, no kernel)."""
+    toks = torch.as_tensor(seq, device="cuda").long()
+    pos0 = torch.zeros(toks.shape[0], dtype=torch.long, device="cuda")
+    picks = []
+    with torch.no_grad():
+        for p in (a_params, b_params):
+            cache = dkt.init_cache(cfg, toks.shape[0])
+            logits, _ = dkt.models.generate._decode_chunk(
+                p, cache, toks[:, :-1], pos0, cfg, uniform_pos=True)
+            picks.append(logits[:, start - 1:].argmax(-1))
+            del cache, logits
+    return float((picks[0] == picks[1]).float().mean())
+
+
+def kv8_schedule(params, cfg):
+    """A small kv_int8 engine schedule (4 lanes, staggered admissions, a
+    1-token prompt, a reused lane): each request's tokens and prompt."""
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (16, 9, 1, 12, 5)]
+    eng = dkt.ContinuousBatcher(params, cfg, lanes=4, kv_int8=True)
+    lanes = [eng.submit(prompts[0], 24)]
+    eng.step(4)
+    lanes += [eng.submit(prompts[1], 20), eng.submit(prompts[2], 16)]
+    eng.step(3)
+    lanes.append(eng.submit(prompts[3], 12))
+    outs = [run_engine(eng, [lane])[0] for lane in lanes]
+    outs += run_engine(eng, [eng.submit(prompts[4], 20)], (1,))
+    return outs, prompts
+
+
+def int8_serve_phase(np_params):
+    """Phase int8_serve over the flagship serving config: (a)
+    quantize_params on the card equals the CPU's bit for bit; (b)
+    bench_int8: the int8 tree decodes sequentially (no kernel launch),
+    ms per token and the argmax agreement with the bf16 tree; (c)
+    bench_kv_int8: generate(kv_int8=True) through the kernel prefill
+    against the sequential path (greedy_agreement) and beside bf16 decode;
+    (d) ContinuousBatcher(kv_int8=True) over 16 requests, and an f32
+    2-layer schedule equal to solo generate(kv_int8=True,
+    use_prefill=False); (e) the int8 tree drafting for its f32 parent:
+    greedy tokens equal the parent's; (f) a kv_int8 PrefixPool segment.
+    The bf16, f32 and sequential runs that only serve a comparison are
+    not counted in the launches."""
+    cfg = FLAGSHIP
+    n = cfg.n_layers
+    rng = np.random.default_rng(17)
+    zero_launches()
+    p32 = dkt.params_from_numpy(np_params, "cuda")
+    # (a)
+    q8 = dkt.quantize_params(p32)
+    cpu_q = dkt.quantize_params(dkt.params_from_numpy(np_params, "cpu"))
+    qleaves = lambda t: [t["tok_emb"]] + [t["layers"][g][k] for g in (
+        "attn", "ffn") for k in sorted(t["layers"][g])]
+    for got, want in zip(qleaves(q8), qleaves(cpu_q)):
+        if not (torch.equal(got.q.cpu(), want.q)
+                and torch.equal(got.s.cpu(), want.s)):
+            raise AssertionError("quantize_params on the card != the CPU")
+    del cpu_q
+    # (b)
+    pb = dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16)
+    prompt16 = rng.integers(0, cfg.vocab_size, (8, INT8_PROMPT)).astype(
+        np.int32)
+    gen8 = lambda: wall_s(lambda: dkt.generate(q8, prompt16, cfg, INT8_NEW))
+    expect_fwd(gen8, 0, "int8 generate")
+    out8, int8_s = expect_fwd(gen8, 0, "int8 generate")
+    ref16 = expect_fwd(lambda: dkt.generate(pb, prompt16, cfg, INT8_NEW), n,
+                       "bf16 generate", counted=False)
+    expect_tokens(out8, prompt16, INT8_NEW, cfg.vocab_size, "int8 generate")
+    expect_tokens(ref16, prompt16, INT8_NEW, cfg.vocab_size, "bf16 generate")
+    steps = INT8_PROMPT - 1 + INT8_NEW
+    int8_row = dict(
+        batch=8, prompt=INT8_PROMPT, new_tokens=INT8_NEW, generate_s=int8_s,
+        ms_per_step=1e3 * int8_s / steps, sequential_steps=steps,
+        argmax_agreement_vs_bf16=argmax_agreement(q8, pb, ref16.cpu(), cfg,
+                                                  INT8_PROMPT),
+        rows_equal_bf16_rollout=int(
+            (out8 == ref16).all(dim=1).sum()))
+    # (c)
+    prompt64 = rng.integers(0, cfg.vocab_size, (8, KV8_PROMPT)).astype(
+        np.int32)
+    kv8 = lambda: wall_s(lambda: dkt.generate(pb, prompt64, cfg, KV8_NEW,
+                                              kv_int8=True))
+    expect_fwd(kv8, n, "kv_int8 generate")
+    out_kv, kv_s = expect_fwd(kv8, n, "kv_int8 generate")
+    expect_tokens(out_kv, prompt64, KV8_NEW, cfg.vocab_size,
+                  "kv_int8 generate")
+    _, bf16_s = expect_fwd(lambda: wall_s(lambda: dkt.generate(
+        pb, prompt64, cfg, KV8_NEW)), n, "bf16 generate", counted=False)
+    seq_kv = expect_fwd(lambda: dkt.generate(
+        pb, prompt64, cfg, KV8_NEW, kv_int8=True, use_prefill=False), 0,
+        "kv_int8 sequential", counted=False)
+    kv_agree = [greedy_agreement(a, b, pb, cfg, KV8_PROMPT)
+                for a, b in zip(out_kv.cpu().numpy(), seq_kv.cpu().numpy())]
+    kv_row = dict(batch=8, prompt=KV8_PROMPT, new_tokens=KV8_NEW,
+                  generate_s=kv_s, bf16_generate_s=bf16_s,
+                  ms_per_token=1e3 * kv_s / KV8_NEW,
+                  bf16_ms_per_token=1e3 * bf16_s / KV8_NEW,
+                  prefill_vs_sequential=agreement_summary(kv_agree))
+    # (d)
+    prompts = rng.integers(0, cfg.vocab_size, (16, KV8_PROMPT)).astype(
+        np.int32)
+    eng = dkt.ContinuousBatcher(pb, cfg, lanes=ENGINE_LANES, kv_int8=True)
+    run_engine(eng, [eng.submit(prompts[0], 8)])   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending, outs, live = list(range(16)), {}, {}
+    while pending or live:
+        while pending and eng.free_lanes():
+            i = pending.pop(0)
+            live[eng.submit(prompts[i], KV8_NEW)] = i
+        eng.step(4)
+        for lane in [ln for ln in live if ln not in eng.running()]:
+            outs[live.pop(lane)] = eng.drain(lane)
+    engine_s = time.perf_counter() - t0
+    sample = (0, 7, 15)
+    solo = expect_fwd(lambda: dkt.generate(
+        pb, prompts[list(sample)], cfg, KV8_NEW, kv_int8=True,
+        use_prefill=False), 0, "kv_int8 solo", counted=False)
+    eng_agree = [greedy_agreement(outs[i], r, pb, cfg, KV8_PROMPT)
+                 for i, r in zip(sample, solo.cpu().numpy())]
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    two = dkt.params_from_numpy(draft_layers(np_params, 2), "cuda")
+    sched, sched_prompts = expect_fwd(lambda: kv8_schedule(two, cfg2), 0,
+                                      "kv_int8 schedule")
+    for got, p in zip(sched, sched_prompts):
+        want = dkt.generate(two, p[None], cfg2, len(got) - len(p),
+                            kv_int8=True, use_prefill=False)[0]
+        if not np.array_equal(got, want.cpu().numpy()):
+            raise AssertionError("f32 kv_int8 engine request differs from "
+                                 "its solo generate(kv_int8=True, "
+                                 "use_prefill=False)")
+    engine_row = dict(lanes=ENGINE_LANES, requests=16, prompt=KV8_PROMPT,
+                      new_tokens=KV8_NEW, step_window=4, seconds=engine_s,
+                      tokens_per_s=16 * KV8_NEW / engine_s,
+                      vs_solo=agreement_summary(eng_agree),
+                      f32_schedule_requests=len(sched),
+                      f32_schedule_equal_solo=True)
+    # (e)
+    prompt_spec = prompts[:8]
+    spec = lambda: wall_s(lambda: dkt.speculative_generate(
+        p32, q8, prompt_spec, cfg, cfg, KV8_NEW, n_draft=SPEC_DRAFT))
+    expect_fwd(spec, n, "int8-draft speculative warm-up")
+    (spec_out, stats), spec_s = expect_fwd(spec, n,
+                                           "int8-draft speculative")
+    plain = expect_fwd(lambda: dkt.generate(p32, prompt_spec, cfg, KV8_NEW),
+                       n, "f32 generate", counted=False)
+    expect_tokens(plain, prompt_spec, KV8_NEW, cfg.vocab_size,
+                  "f32 generate")
+    if not torch.equal(spec_out, plain):
+        raise AssertionError("int8-draft speculative tokens differ from the "
+                             "f32 target's greedy tokens")
+    spec_row = dict(batch=8, prompt=KV8_PROMPT, new_tokens=KV8_NEW,
+                    n_draft=SPEC_DRAFT, seconds=spec_s,
+                    tokens_per_s=8 * KV8_NEW / spec_s,
+                    acceptance_rate=float(stats["acceptance_rate"]),
+                    target_passes=int(stats["iterations"]),
+                    tokens_equal_target=True)
+    del p32, q8
+    # (f)
+    prefix = rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+    seg, _ = expect_fwd(lambda: dkt.prefill(pb, prefix[None], cfg,
+                                            last_logits=False, kv_int8=True),
+                        n, "kv_int8 pool segment")
+    pool = dkt.PrefixPool(cfg, slots=1, kv_int8=True)
+    pid = pool.put(seg, 128)
+    eng = dkt.ContinuousBatcher(pb, cfg, lanes=4, kv_int8=True,
+                                prefix_pool=pool)
+    tails = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    pooled = expect_fwd(lambda: run_engine(eng, [
+        eng.submit(t, 32, prefix_id=pid) for t in tails]), 0, "pooled lanes")
+    refs = expect_fwd(lambda: dkt.generate(
+        pb, tails, cfg, 32, kv_int8=True, prompt_cache=(seg, 128)), 0,
+        "kv_int8 prompt_cache", counted=False).cpu().numpy()
+    pool_agree = [greedy_agreement(a, b, pb, cfg, 32, context=prefix)
+                  for a, b in zip(pooled, refs)]
+    launches = dict(attn.LAUNCHES)
+    log("int8_serve", config=dataclasses.asdict(cfg),
+        quantize_card_equals_cpu=True, int8_decode=int8_row,
+        kv_int8_decode=kv_row, kv_int8_engine=engine_row,
+        speculative_int8_draft=spec_row,
+        kv_int8_prefix_pool=dict(prefix=128, requests=4, tail=32,
+                                 new_tokens=32,
+                                 vs_prompt_cache=agreement_summary(
+                                     pool_agree)),
+        launches=launches)
+    return launches
+
+
+def moe_serve_tree(np_moe):
+    """The MoE weights for the (rope) serving config: no pos_emb."""
+    return {k: v for k, v in np_moe.items() if k != "pos_emb"}
+
+
+def moe_serve_prompt():
+    return np.random.default_rng(15).integers(
+        0, FLAGSHIP.vocab_size, (8, MOE_SERVE_PROMPT)).astype(np.int32)
+
+
+def profile_surface(np_params, np_moe):
+    """``--profile``: the model surface's profiled windows, after every
+    timed phase (the profiler leaves the host slower behind it): the
+    top-2 MoE decode and train step, and the int8 tree's and the
+    ``kv_int8`` cache's 8-token generates."""
+    cfg = moe_cfg(FLAGSHIP, 2)
+    params = dkt.params_from_numpy(moe_serve_tree(np_moe), "cuda",
+                                   dtype=torch.bfloat16)
+    prompt = moe_serve_prompt()
+    profile_window("moe_top2_generate_8_tokens", lambda: dkt.generate(
+        params, prompt, cfg, 8))
+    del params
+    cfg = moe_cfg(FLAGSHIP_TRAIN, 2)
+    params = dkt.params_from_numpy(np_moe, "cuda")
+    opt = dkt.Optimizer("adamw", 3e-4)
+    step = dkt.make_train_step(cfg, opt)
+    carry = (params, opt.init(params))
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (8, TRAIN_SHAPE[1] + 1)).astype(np.int32)).cuda()
+    profile_window("moe_top2_train_step", lambda: step(carry, tokens))
+    del params, opt, step, carry
+    torch.cuda.empty_cache()
+    cfg = FLAGSHIP
+    q8 = dkt.quantize_params(dkt.params_from_numpy(np_params, "cuda"))
+    rng = np.random.default_rng(17)
+    prompt16 = rng.integers(0, cfg.vocab_size, (8, INT8_PROMPT)).astype(
+        np.int32)
+    profile_window("int8_generate_8_tokens", lambda: dkt.generate(
+        q8, prompt16, cfg, 8))
+    del q8
+    pb = dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16)
+    prompt64 = rng.integers(0, cfg.vocab_size, (8, KV8_PROMPT)).astype(
+        np.int32)
+    profile_window("kv_int8_generate_8_tokens", lambda: dkt.generate(
+        pb, prompt64, cfg, 8, kv_int8=True))
+
+
 def main(profile=False):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1485,6 +2076,9 @@ def main(profile=False):
         engine_cases[name] = kernel_case(torch.bfloat16, True, None,
                                          shape=shape)
         log("kernel_vs_plain", kernel="flash_fwd", **engine_cases[name])
+    # The f32 target's warm-up under its int8 draft (phase int8_serve).
+    spec32 = kernel_case(torch.float32, True, None, shape=(8, 64, 8, 128))
+    log("kernel_vs_plain", kernel="flash_fwd", **spec32)
 
     # 2b. The training kernels at the train-step shape.
     train_cases = []
@@ -1517,11 +2111,7 @@ def main(profile=False):
         raise AssertionError(f"prefill launched flash_fwd "
                              f"{launches['flash_fwd']} times, expected "
                              f"{cfg.n_layers}")
-    if (tuple(out.shape) != (8, 512 + NEW_TOKENS) or out.dtype != torch.int32
-            or not torch.equal(out[:, :512].cpu(), torch.from_numpy(prompt))
-            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size):
-        raise AssertionError(f"bad generate output {tuple(out.shape)} "
-                             f"{out.dtype}")
+    expect_tokens(out, prompt, NEW_TOKENS, cfg.vocab_size, "generate")
     # Steady-state times (the first call above paid the warm-up).
     _, prefill_s = wall_s(lambda: dkt.prefill(params, prompt, cfg,
                                               last_logits=False))
@@ -1581,10 +2171,25 @@ def main(profile=False):
     torch.cuda.empty_cache()
     engine_launches = engine_phase(np_params)
 
+    # 5b. The model surface at inference: MoE, int8 weights, the int8
+    # KV cache.
+    np_moe = numpy_params(moe_cfg(FLAGSHIP_TRAIN, 1), seed=11)
+    torch.cuda.empty_cache()
+    moe_serve_launches = moe_serve_phase(np_moe)
+    torch.cuda.empty_cache()
+    int8_launches = int8_serve_phase(np_params)
+
     # 6. The training path at full width, and its parity.
     train_np = numpy_params(FLAGSHIP_TRAIN, seed=1)
-    train_launches = train_phase(train_np, profile)
+    torch.cuda.empty_cache()
+    train_launches, dense_step_ms = train_phase(train_np, profile)
     train_parity_phase(train_np)
+
+    # 6b. The model surface in training: MoE and LoRA.
+    torch.cuda.empty_cache()
+    moe_train_launches = moe_train_phase(np_moe, dense_step_ms)
+    torch.cuda.empty_cache()
+    lora_launches = lora_train_phase(train_np, dense_step_ms)
 
     # 7. The paper's path: the Keras trainer family on the CIFAR CNN.
     keras_phase()
@@ -1598,6 +2203,10 @@ def main(profile=False):
     log("engine_idle", idle_share_4x_step4=engine_idle_share(
         dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16),
         FLAGSHIP))
+    if profile:
+        torch.cuda.empty_cache()
+        profile_surface(np_params, np_moe)
+    del np_moe
     log("done", seconds_total=time.perf_counter() - t_start)
 
     bwd_source = "distkeras_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -1619,10 +2228,15 @@ def main(profile=False):
 
     lcausal, lwindow = long_cases  # f32 [8, 4096, 8, 128]: causal, 1024
 
+    surface = (moe_train_launches, lora_launches, moe_serve_launches,
+               int8_launches)
+
     def launch_counts(name, *paths):
+        paths = paths + surface
         return {"launches": sum(p[name] for p in paths),
                 "launches_by_path": {k: p[name] for k, p in zip(
-                    ("serve", "engine", "train", "long_train"), paths)}}
+                    ("serve", "engine", "train", "long_train", "moe_train",
+                     "lora_train", "moe_serve", "int8_serve"), paths)}}
 
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
@@ -1638,6 +2252,9 @@ def main(profile=False):
         **{f"bf16_causal_{name}": {k: c[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")} for name, c in engine_cases.items()},
+        "f32_causal_spec_int8_warm": {k: spec32[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
         "f32_lse_causal": fwd_times(tmain),
         "f32_lse_causal_seq4096": fwd_times(lcausal),
         "f32_lse_window1024_seq4096": fwd_times(lwindow)}, {

@@ -29,6 +29,12 @@ decodes them together (chunked prefill, a ``PrefixPool`` of prefilled
 prefixes, elastic lane tiers, deadlines and a bounded queue), and
 ``SpeculativeBatcher`` / ``speculative_generate`` add a draft model.
 
+The model surface: MoE configs (``num_experts``, top-k capacity routing
+in training, dense routing at inference), int8 weights
+(``quantize_params``, ``QTensor``) and the int8 KV cache (``kv_int8=``)
+through ``generate`` and the engines, and LoRA fine-tuning
+(``LoRAConfig``, ``lora_init``, ``lora_merge``, ``LoRATrainer``).
+
 Device rule: entry points run on CUDA by default; with no card they
 raise unless called with ``device="cpu"`` (as the tests do).  The port
 imports ``torch`` and numpy, never ``jax`` or ``distkeras_tpu``.
@@ -59,6 +65,8 @@ from distkeras_tpu_torch.models.generate import (
     top_k_mask,
     top_p_mask,
 )
+from distkeras_tpu_torch.models.lora import LoRAConfig, lora_init, lora_merge
+from distkeras_tpu_torch.models.quant import QTensor, quantize_params
 from distkeras_tpu_torch.models.speculative import speculative_generate
 from distkeras_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -85,11 +93,12 @@ from distkeras_tpu_torch.trainers.distributed import ADAG, DynSGD
 from distkeras_tpu_torch.trainers.elastic import (AEASGD, DOWNPOUR, EAMSGD,
                                                   AveragingTrainer,
                                                   EnsembleTrainer)
-from distkeras_tpu_torch.trainers.lm import LMTrainer
+from distkeras_tpu_torch.trainers.lm import LMTrainer, LoRATrainer
 from distkeras_tpu_torch.trainers.optim import Optimizer
 from distkeras_tpu_torch.utils.serialization import (
     keras_numpy_from_module,
     load_lm,
+    lora_from_numpy,
     module_from_keras_numpy,
     params_from_numpy,
     params_to_numpy,
@@ -121,12 +130,15 @@ __all__ = [
     "LAUNCHES",
     "LMTrainer",
     "LabelIndexTransformer",
+    "LoRAConfig",
+    "LoRATrainer",
     "MinMaxTransformer",
     "ModelAdapter",
     "ModelPredictor",
     "OneHotTransformer",
     "Optimizer",
     "PerplexityEvaluator",
+    "QTensor",
     "Predictor",
     "Prefetcher",
     "ReshapeTransformer",
@@ -148,6 +160,9 @@ __all__ = [
     "lm_loss",
     "lm_nll",
     "load_lm",
+    "lora_from_numpy",
+    "lora_init",
+    "lora_merge",
     "make_train_step",
     "min_p_mask",
     "module_from_keras_numpy",
@@ -157,6 +172,7 @@ __all__ = [
     "params_from_numpy",
     "params_to_numpy",
     "prefill",
+    "quantize_params",
     "save_lm",
     "top_k_mask",
     "top_p_mask",

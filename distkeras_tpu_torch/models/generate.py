@@ -12,8 +12,14 @@ cannot be reproduced), and ``top_k`` is always exact.
 :func:`_decode_chunk` runs T tokens per row at per-row device positions
 (the serving engines' step, speculative verification, admission chunks
 and ``prompt_cache`` suffixes), writing the preallocated cache in place.
-Not in this slice: ``kv_int8``, int8 weights (ROADMAP A9) and
-``beam_search`` (A5).
+
+MoE configs prefill with the capacity-free dense routing and decode with
+the reference's per-token expert gather (T = 1) or the dense block
+(T > 1).  int8 trees (``models.quant.quantize_params``) decode on the
+sequential path, every weight read through ``deq``; ``kv_int8=True``
+stores K/V as int8 with per-token, per-kv-head f32 scales that ride the
+same slot arithmetic as K/V.  Not in this slice: ``beam_search``
+(ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -23,14 +29,17 @@ import math
 import numpy as np
 import torch
 
-from distkeras_tpu_torch.models.quant import deq, embed_rows, unembed_logits
+from distkeras_tpu_torch.models.quant import (deq, embed_rows, is_quantized,
+                                              quantize_kv, unembed_logits)
 from distkeras_tpu_torch.models.transformer import (
     TransformerConfig,
-    _check_supported,
     _dot,
+    _einsum,
     _embed,
-    _ffn,
+    _gelu,
     _layers,
+    _moe_dense_block,
+    _moe_gates,
     _rms_norm,
     _unembed,
     block_apply,
@@ -45,38 +54,60 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
-def init_cache(cfg: TransformerConfig, batch: int, dtype=None, device=None):
+def init_cache(cfg: TransformerConfig, batch: int, dtype=None,
+               kv_int8: bool = False, device=None):
     """Per-layer KV buffers [L, B, max_len, kv_heads, head_dim] (GQA
-    configs cache only the shared K/V heads)."""
+    configs cache only the shared K/V heads).  ``kv_int8``: int8 K/V
+    plus f32 ``k_scale`` / ``v_scale`` [L, B, max_len, kv_heads]; the
+    scale leaves are what switches the decode attention to the
+    dequantizing form."""
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.max_len, cfg.kv_heads, cfg.head_dim)
-    dtype = dtype or cfg.torch_dtype
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    dtype = torch.int8 if kv_int8 else (dtype or cfg.torch_dtype)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_int8:
+        cache["k_scale"] = torch.zeros(shape[:-1], device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], device=device)
+    return cache
 
 
 def prefill(params, prompt, cfg: TransformerConfig,
-            last_logits: bool = True, device=None):
+            last_logits: bool = True, kv_int8: bool = False, device=None):
     """Fill the KV cache for all prompt positions in ONE batched pass
     (the same ``block_apply`` body as the forward, flash attention over
-    [B, P]).  Returns ``(cache, last [B, V] f32 or None)``."""
+    [B, P]).  Returns ``(cache, last [B, V] f32 or None)``.
+
+    MoE configs run the capacity-free dense routing, so prefilled and
+    sequential prompts match.  ``kv_int8``: the forward runs in full
+    precision and each layer's K/V are quantized after the fact.
+    Full-precision params only (an int8 tree decodes sequentially)."""
     device = resolve_device(device)
     check_on_device(params, device)
-    _check_supported(cfg)
+    if is_quantized(params):
+        raise ValueError(
+            "prefill runs the batched forward, which needs full-precision "
+            "params; an int8 tree decodes on the sequential path "
+            "(generate picks it)")
     prompt = torch.as_tensor(prompt, device=device).long()
     b, p_len = prompt.shape
     if p_len > cfg.max_len:
         raise ValueError(
             f"prompt length {p_len} exceeds max_len={cfg.max_len} "
             "(the KV cache size)")
-    cache = init_cache(cfg, b, device=device)
+    cache = init_cache(cfg, b, kv_int8=kv_int8, device=device)
     attention_fn = lambda q, k, v: flash_attention(
         q, k, v, True, window=cfg.attention_window)
     with torch.no_grad():
         x, rope_ang = _embed(params, prompt, cfg)
         for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
             x, _, (k, v) = block_apply(lp, x, cfg, attention_fn, rope_ang,
-                                       return_kv=True)
+                                       return_kv=True,
+                                       moe_dense_routing=True)
+            if kv_int8:
+                (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+                cache["k_scale"][i, :, :p_len].copy_(ks)
+                cache["v_scale"][i, :, :p_len].copy_(vs)
             # In place into the preallocated cache (copy_ casts to the
             # cache dtype, as the reference's astype does).
             cache["k"][i, :, :p_len].copy_(k)
@@ -87,19 +118,28 @@ def prefill(params, prompt, cfg: TransformerConfig,
         return cache, _unembed(x[:, -1:], params, cfg)[:, 0]
 
 
-def _attend(qg, ck, cv, mask, cfg: TransformerConfig):
+def _attend(qg, ck, cv, mask, cfg: TransformerConfig, scales=None):
     """Decode attention over the cache in f32: ``qg [B, T, kv, G, hd]``
     against ``ck/cv [B, S, kv, hd]`` under a boolean mask broadcastable to
-    ``[B, T, kv, G, S]``; masked slots take the literal -1e30."""
+    ``[B, T, kv, G, S]``; masked slots take the literal -1e30.
+    ``scales = (k_scale, v_scale) [B, S, kv]``: an int8 cache, whose
+    scales multiply the scores and the probabilities, as in the
+    reference."""
+    sc_b = lambda sc: sc.transpose(1, 2)[:, None, :, None, :]
     logits = torch.einsum("btcgk,bsck->btcgs", qg, ck.float())
+    if scales is not None:
+        logits = logits * sc_b(scales[0])
     logits = logits / math.sqrt(cfg.head_dim)
     logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
+    if scales is not None:
+        probs = probs * sc_b(scales[1])
     return torch.einsum("btcgs,bsck->btcgk", probs, cv.float())
 
 
 def _rows_update(cache_layer, rows, pos0):
-    """Write ``rows [B, T, kv, hd]`` into ``cache_layer [B, S, kv, hd]``
+    """Write ``rows [B, T, ...]`` into ``cache_layer [B, S, ...]`` (K/V
+    rows, or their int8 scales)
     at per-row offsets ``pos0 [B]`` (device tensor), IN PLACE: one
     ``index_put_`` over the ``[B, T]`` slots.  Starts clamp to
     ``S - T`` as the reference's ``dynamic_update_slice`` clamps them
@@ -128,8 +168,8 @@ def _rows_update_ring(cache_layer, rows, pos0, max_len: int):
 
 
 def _layer_slab_update(cache_layer, rows, pos):
-    """Write ``rows [B, T, kv, hd]`` (every row at the same position) into
-    ``cache_layer [B, S, kv, hd]`` at ``pos`` (a ``[1]`` device tensor),
+    """Write ``rows [B, T, ...]`` (every row at the same position) into
+    ``cache_layer [B, S, ...]`` at ``pos`` (a ``[1]`` device tensor),
     in place: one ``index_copy_`` over the T slots, start clamped to
     ``S - T`` as ``dynamic_update_slice`` clamps."""
     t_len = rows.shape[1]
@@ -157,7 +197,9 @@ def _decode_chunk(params, cache, tokens, pos0, cfg: TransformerConfig,
     slots past a row's position are masked until overwritten.
 
     ``uniform_pos``: every row holds the same position, so each layer's
-    write is one slab ``index_copy_`` instead of a per-row scatter.
+    write is one slab ``index_copy_`` instead of a per-row scatter.  An
+    int8 cache (``k_scale`` in ``cache``) writes its scales by the same
+    slot arithmetic, in all three windowed shapes.
     Nothing here reads a device value on the host.  Beam ancestry
     attention (``beam_anc``) comes with ``beam_search`` (ROADMAP A5).
     """
@@ -210,11 +252,13 @@ def _decode_chunk(params, cache, tokens, pos0, cfg: TransformerConfig,
 def _decode_layers(params, cache, x, rope_ang, write, mask,
                    cfg: TransformerConfig):
     """The cached layer stack shared by the decode paths: ``x [B, T, D]``;
-    ``write(cache_layer, rows)`` lands each layer's new K/V in place.
-    Returns f32 logits [B, T, V]."""
+    ``write(cache_layer, rows)`` lands each layer's new K/V (and, for an
+    int8 cache, their scales) in place.  Every weight read goes through
+    ``deq``.  Returns f32 logits [B, T, V]."""
     dtype = cfg.torch_dtype
     b, t_len = x.shape[:2]
     groups = cfg.n_heads // cfg.kv_heads
+    kv_q = "k_scale" in cache
     for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         h = _rms_norm(x, lp["ln1_scale"])
         q = _dot(h, deq(lp["attn"]["wq"]))
@@ -222,15 +266,40 @@ def _decode_layers(params, cache, x, rope_ang, write, mask,
         v = _dot(h, deq(lp["attn"]["wv"]))
         if rope_ang is not None:
             q, k = rope_rotate(q, rope_ang), rope_rotate(k, rope_ang)
+        scales = None
+        if kv_q:  # post-rotation, like the full-precision cache
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            scales = (write(cache["k_scale"][i], ks),
+                      write(cache["v_scale"][i], vs))
         ck, cv = write(cache["k"][i], k), write(cache["v"][i], v)
         # GQA: grouped einsums read only the kv-head cache.
         qg = q.float().reshape(b, t_len, cfg.kv_heads, groups, cfg.head_dim)
-        attn = _attend(qg, ck, cv, mask, cfg).reshape(
+        attn = _attend(qg, ck, cv, mask, cfg, scales).reshape(
             b, t_len, cfg.n_heads, cfg.head_dim)
         x = x + _dot(attn.to(dtype), deq(lp["attn"]["wo"]), n=2)
-        x = x + _ffn(lp["ffn"], _rms_norm(x, lp["ln2_scale"]))
+        x = x + _decode_ffn(lp, _rms_norm(x, lp["ln2_scale"]), cfg)
     x = _rms_norm(x, params["ln_f_scale"])
     return unembed_logits(x, params["tok_emb"], dtype).float()
+
+
+def _decode_ffn(lp, h, cfg: TransformerConfig):
+    """The FFN of a decode chunk ``h [B, T, D]``.  MoE: T > 1 takes the
+    batched :func:`_moe_dense_block`; T = 1 gathers each row's top-k
+    expert slabs (cast to the compute dtype) and combines them UNMASKED,
+    as the reference's decode step does.  Dense: through ``deq``."""
+    dtype = cfg.torch_dtype
+    if cfg.num_experts and h.shape[1] > 1:
+        return _moe_dense_block(lp["moe"], h, cfg)
+    if cfg.num_experts:
+        moe = lp["moe"]
+        probs = torch.softmax(_dot(h.float(), moe["wg"]), dim=-1)
+        gates, expert = _moe_gates(probs, cfg)             # [B, T, k]
+        w1, w2 = moe["w1"][expert], moe["w2"][expert]      # [B, T, k, ., .]
+        hk = _gelu(_einsum("btd,btkdf->btkf", h, w1.to(dtype)))
+        yk = _einsum("btkf,btkfd->btkd", hk, w2.to(dtype))
+        return _einsum("btkd,btk->btd", yk, gates.to(dtype))
+    ffn = lp["ffn"]
+    return _dot(_gelu(_dot(h, deq(ffn["w1"]))), deq(ffn["w2"]))
 
 
 def _decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig,
@@ -383,24 +452,27 @@ def _check_decode_budget(p: int, max_new_tokens: int,
     return total
 
 
-def _resolve_prefill(cfg: TransformerConfig, p: int,
+def _resolve_prefill(params, cfg: TransformerConfig, p: int,
                      use_prefill: bool | None, ragged: bool) -> bool:
     """Prefill eligibility: a uniform prompt of >= 2 tokens that fits the
-    cache (int8 weights, which also bar it in the reference, are not
-    ported)."""
-    can = not ragged and 1 < p <= cfg.max_len
+    cache, and full-precision params (an int8 tree takes the sequential
+    path and launches no kernel, as in the reference)."""
+    can = (not ragged and 1 < p <= cfg.max_len
+           and not is_quantized(params))
     if use_prefill is None:
         return can
     if use_prefill and not can:
         raise ValueError(
             "use_prefill=True needs a uniform-length (no prompt_lengths) "
-            "prompt of >= 2 tokens that fits the cache (p <= max_len)")
+            "prompt of >= 2 tokens that fits the cache (p <= max_len) and "
+            "full-precision params (the batched prefill forward wants the "
+            "training weights)")
     return use_prefill
 
 
 def _resolve_prompt_cache(prompt_cache, cfg: TransformerConfig, b: int,
                           p: int, max_new_tokens: int, use_prefill,
-                          device):
+                          device, kv_int8: bool = False):
     """The ``prompt_cache`` contract (the reference's
     ``_resolve_prompt_cache``): validates the config, budget and batch,
     and returns ``(cache, cached_len)`` -- a COPY of the segment, fanned
@@ -422,27 +494,37 @@ def _resolve_prompt_cache(prompt_cache, cfg: TransformerConfig, b: int,
         raise ValueError(
             f"cached prefix length {cached_len} + prompt {p} + "
             f"{max_new_tokens} new tokens must fit max_len={cfg.max_len}")
-    if "k_scale" in pc_cache:
-        raise _not_ported("kv_int8 prompt_cache", "A9")
+    if ("k_scale" in pc_cache) != kv_int8:
+        raise ValueError(
+            "prompt_cache quantization must match kv_int8= (build the "
+            "prefix cache with prefill(..., kv_int8=...))")
     want = (cfg.n_layers, cfg.max_len, cfg.kv_heads, cfg.head_dim)
-    if (set(pc_cache) != {"k", "v"}
-            or any(tuple(a.shape[:1] + a.shape[2:]) != want
-                   for a in pc_cache.values())):
+    names = {"k", "v"} | ({"k_scale", "v_scale"} if kv_int8 else set())
+    if (set(pc_cache) != names
+            or any(tuple(a.shape[:1] + a.shape[2:])
+                   != (want if n in ("k", "v") else want[:-1])
+                   for n, a in pc_cache.items())):
         raise ValueError(
             "prompt_cache must be a prefill() cache of this config: "
-            f"{{'k', 'v'}} of [L, B, max_len, kv_heads, head_dim] = "
-            f"[{want[0]}, B, {', '.join(map(str, want[1:]))}]")
+            f"{sorted(names)} of [L, B, max_len, kv_heads, head_dim] = "
+            f"[{want[0]}, B, {', '.join(map(str, want[1:]))}]"
+            + (" (scales without head_dim)" if kv_int8 else ""))
     pcb = pc_cache["k"].shape[1]
     if pcb not in (1, b):
         raise ValueError(
             f"prompt_cache batch {pcb} incompatible with prompt "
             f"batch {b} (must match or be 1)")
     # A shared prefix (a system prompt) prefilled once at batch 1 fans
-    # out per request; repeat copies either way.
+    # out per request; repeat copies either way.  An int8 segment keeps
+    # its int8 K/V and f32 scales.
     reps = b // pcb
-    return ({k: torch.as_tensor(a, device=device).to(cfg.torch_dtype)
-             .repeat(1, reps, 1, 1, 1) for k, a in pc_cache.items()},
-            int(cached_len))
+    out = {}
+    for name, a in pc_cache.items():
+        a = torch.as_tensor(a, device=device)
+        if not kv_int8:
+            a = a.to(cfg.torch_dtype)
+        out[name] = a.repeat(1, reps, *([1] * (a.dim() - 2)))
+    return out, int(cached_len)
 
 
 def beam_search(*args, **kwargs):
@@ -500,13 +582,16 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
     remaining prompt here.  The suffix runs as ONE chunked pass against a
     copy of the prefix cache, positions (and sampling streams) count from
     the prefix start, and the result is ``[B, P + N]`` without the
-    prefix.  Full-cache configs only.
+    prefix.  Full-cache configs only; the segment's quantization must
+    match ``kv_int8``.
+
+    ``kv_int8=True`` stores the cache as int8 K/V with f32 scales (the
+    prefill forward attends in full precision and quantizes after the
+    fact; the sequential path attends the quantized cache).  An int8
+    tree (``quantize_params``) decodes sequentially.
     """
-    if kv_int8:
-        raise _not_ported("kv_int8", "A9")
     device = resolve_device(device)
     check_on_device(params, device)
-    _check_supported(cfg)
     prompt = torch.as_tensor(prompt, device=device).long()
     b, p = prompt.shape
     total = _check_decode_budget(p, max_new_tokens, cfg, eos_token,
@@ -533,7 +618,8 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
             raise ValueError("prompt_cache requires uniform prompts "
                              "(no prompt_lengths)")
         cache, cached_len = _resolve_prompt_cache(
-            prompt_cache, cfg, b, p, max_new_tokens, use_prefill, device)
+            prompt_cache, cfg, b, p, max_new_tokens, use_prefill, device,
+            kv_int8)
 
     pad_lens = None
     if prompt_lengths is not None:
@@ -551,7 +637,7 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
                               - pad_lens[:, None], p)
         prompt = torch.gather(prompt, 1, idx)
     if prompt_cache is None:
-        use_prefill = _resolve_prefill(cfg, p, use_prefill,
+        use_prefill = _resolve_prefill(params, cfg, p, use_prefill,
                                        ragged=pad_lens is not None)
 
     # Absolute positions: the prompt occupies [cached_len, cached_len + p).
@@ -571,10 +657,10 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
             # prompt position (its step recomputes identical K/V in place
             # and yields the logits that pick token p).
             cache, _ = prefill(params, prompt, cfg, last_logits=False,
-                               device=device)
+                               kv_int8=kv_int8, device=device)
             start = p - 1
         else:
-            cache = init_cache(cfg, b, device=device)
+            cache = init_cache(cfg, b, kv_int8=kv_int8, device=device)
             start = 0
         done = torch.zeros(b, dtype=torch.bool, device=device)
         for pos in range(start, total - 1):

@@ -30,17 +30,11 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.models.generate import (_check_eos, _decode_chunk,
-                                                 _not_ported, init_cache,
-                                                 prefill, rolling_eligible)
+                                                 init_cache, prefill,
+                                                 rolling_eligible)
 from distkeras_tpu_torch.models.quant import is_quantized
-from distkeras_tpu_torch.models.transformer import (TransformerConfig,
-                                                    _check_supported)
+from distkeras_tpu_torch.models.transformer import TransformerConfig
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
-
-
-def _check_plain(params, name: str) -> None:
-    if is_quantized(params):
-        raise _not_ported(f"an int8 {name} tree", "A9")
 
 
 def _draw_generator(seed: int, it: int, slot: int, device) -> torch.Generator:
@@ -134,16 +128,26 @@ def speculative_accept(p_logp, q_logp, d, u):
     return n, torch.log(r + 1e-30)
 
 
-def _warm_cache(model_params, model_cfg, buf, p, device):
-    """A cache holding prompt positions 0..p-1 by :func:`prefill` (the
-    flash kernel on the card); position p-1 is re-processed by the first
-    verify/draft chunk, as generate()'s prefill path does.  A 1-token
-    prompt needs no warm-up."""
-    if p > 1:
+def _warm_cache(model_params, model_cfg, buf, p, device, kv_int8=False):
+    """A cache holding the prompt positions before p-1 (position p-1 is
+    re-processed by the first verify/draft chunk, as generate()'s prefill
+    path does): by :func:`prefill` (the flash kernel on the card) for a
+    full-precision tree; for an int8 tree, by teacher-forced chunks of up
+    to 128 positions through the plain decode attention, as the
+    reference warms it.  A 1-token prompt needs no warm-up."""
+    if p > 1 and not is_quantized(model_params):
         cache, _ = prefill(model_params, buf[:, :p], model_cfg,
-                           last_logits=False, device=device)
+                           last_logits=False, kv_int8=kv_int8, device=device)
         return cache
-    return init_cache(model_cfg, buf.shape[0], device=device)
+    b = buf.shape[0]
+    cache = init_cache(model_cfg, b, kv_int8=kv_int8, device=device)
+    for start in range(0, p - 1, 128):
+        width = min(128, p - 1 - start)
+        _decode_chunk(model_params, cache, buf[:, start:start + width],
+                      torch.full((b,), start, dtype=torch.long,
+                                 device=device), model_cfg,
+                      uniform_pos=True)
+    return cache
 
 
 def speculative_generate(params, draft_params, prompt, cfg: TransformerConfig,
@@ -162,17 +166,13 @@ def speculative_generate(params, draft_params, prompt, cfg: TransformerConfig,
     it and the row stops consuming passes.  Either model may run a rope
     + ``attention_window`` ring cache, rolling past ``max_len``, under
     ``window + n_draft + 1 <= max_len``.  Uniform-length prompts; runs on
-    ``device`` (the card unless ``device="cpu"``).
+    ``device`` (the card unless ``device="cpu"``).  Either tree may be
+    int8 (``quantize_params``: the self-speculative int8 draft of its own
+    parent); ``kv_int8=True`` stores both caches as int8.
     """
-    if kv_int8:
-        raise _not_ported("kv_int8", "A9")
     device = resolve_device(device)
-    _check_plain(params, "target")
-    _check_plain(draft_params, "draft")
     check_on_device(params, device)
     check_on_device(draft_params, device)
-    _check_supported(cfg)
-    _check_supported(draft_cfg)
     prompt = torch.as_tensor(prompt, device=device).long()
     b, p = prompt.shape
     total = _validate(params, draft_params, cfg, draft_cfg, p,
@@ -188,8 +188,9 @@ def speculative_generate(params, draft_params, prompt, cfg: TransformerConfig,
     idx = torch.arange(k + 1, device=device)
     two = torch.arange(2, device=device)
     with torch.no_grad():
-        tcache = _warm_cache(params, cfg, buf, p, device)
-        dcache = _warm_cache(draft_params, draft_cfg, buf, p, device)
+        tcache = _warm_cache(params, cfg, buf, p, device, kv_int8)
+        dcache = _warm_cache(draft_params, draft_cfg, buf, p, device,
+                             kv_int8)
         cur = torch.full((b,), p - 1, dtype=torch.long, device=device)
         acc = torch.zeros((), dtype=torch.long, device=device)
         props = torch.zeros((), dtype=torch.long, device=device)

@@ -16,8 +16,11 @@ flash kernels' backward on the card; ``make_train_step`` applies an
 recomputes each block in the backward (``torch.utils.checkpoint``), with
 the reference's two selective policies.
 
-Not ported yet: MoE FFNs (ROADMAP A9) and the pipelined trunk.  MoE
-configs raise ``NotImplementedError``.
+MoE (``num_experts > 0``): training runs the reference's top-k capacity
+dispatch (:func:`_moe_block`, computed by index instead of one-hot
+einsums, with the load-balancing aux loss); ``moe_dense_routing=True``
+and the KV-cached decode run the capacity-free :func:`_moe_dense_block`.
+Not ported yet: the pipelined trunk (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from distkeras_tpu_torch.models.quant import QTensor
 from distkeras_tpu_torch.ops.attention import flash_attention
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
 
@@ -113,8 +117,7 @@ def _validate_remat_policy(cfg: TransformerConfig,
 
 
 def _validate(cfg: TransformerConfig) -> None:
-    """The JAX ``init_params`` checks, plus the configs this slice does
-    not run."""
+    """The JAX ``init_params`` checks."""
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"dropout must be in [0, 1), got {cfg.dropout}")
     if cfg.ce_chunks < 0:
@@ -135,13 +138,6 @@ def _validate(cfg: TransformerConfig) -> None:
         raise ValueError(
             f"rope needs an even head_dim, got {cfg.head_dim} "
             f"(d_model={cfg.d_model}, n_heads={cfg.n_heads})")
-    _check_supported(cfg)
-
-
-def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE configs (num_experts > 0) are not ported yet (ROADMAP A9)")
 
 
 def _layers(tree, n: int):
@@ -152,16 +148,22 @@ def _layers(tree, n: int):
     if isinstance(tree, dict):
         per_key = {k: _layers(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if isinstance(tree, QTensor):
+        return [QTensor(q, s) for q, s in zip(tree.q.unbind(0),
+                                              tree.s.unbind(0))]
     return tree.unbind(0)
 
 
 def named_leaves(tree, prefix=""):
     """``[(path, tensor)]`` of a nested params dict, paths joined by
-    ``/`` (the reference's key paths)."""
+    ``/`` (the reference's key paths); a tuple or list (a packed
+    ``(adapters, base)`` state, a list of tensors) is keyed by index."""
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree))
     out = []
-    for key, value in tree.items():
+    for key, value in items:
         path = f"{prefix}{key}"
-        if isinstance(value, dict):
+        if isinstance(value, (dict, tuple, list)):
             out += named_leaves(value, path + "/")
         else:
             out.append((path, value))
@@ -175,17 +177,31 @@ def _leaves(tree):
 def _map_leaves(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
     return fn(tree)
+
+
+def _promoted(*xs):
+    """``xs`` cast to their common dtype, as JAX promotes einsum
+    operands (bf16 x f32 -> f32)."""
+    common = xs[0].dtype
+    for x in xs[1:]:
+        common = torch.promote_types(common, x.dtype)
+    return [x.to(common) for x in xs]
+
+
+def _einsum(eq, *xs):
+    return torch.einsum(eq, *_promoted(*xs))
 
 
 def _dot(x, w, n: int = 1):
     """Contract the last ``n`` axes of ``x`` with the first ``n`` of
     ``w`` (the reference's einsums), both operands promoted as JAX
     promotes them (bf16 x f32 -> f32)."""
-    common = torch.promote_types(x.dtype, w.dtype)
+    xc, wc = _promoted(x, w)
     inner = math.prod(w.shape[:n])
-    out = torch.matmul(x.to(common).reshape(-1, inner),
-                       w.to(common).reshape(inner, -1))
+    out = torch.matmul(xc.reshape(-1, inner), wc.reshape(inner, -1))
     return out.reshape(*x.shape[:x.dim() - n], *w.shape[n:])
 
 
@@ -205,23 +221,32 @@ def init_params(rng, cfg: TransformerConfig, device=None):
     def dense(shape, fan_in):
         return torch.randn(shape, generator=gen) / math.sqrt(fan_in)
 
+    layers = {
+        "ln1_scale": torch.ones(L, d),
+        "ln2_scale": torch.ones(L, d),
+        "attn": {
+            "wq": dense((L, d, h, hd), d),
+            "wk": dense((L, d, kv, hd), d),
+            "wv": dense((L, d, kv, hd), d),
+            "wo": dense((L, h, hd, d), d),
+        },
+    }
+    if cfg.num_experts:
+        e = cfg.num_experts
+        layers["moe"] = {
+            "wg": dense((L, d, e), d),
+            "w1": dense((L, e, d, f), d),
+            "w2": dense((L, e, f, d), f),
+        }
+    else:
+        layers["ffn"] = {
+            "w1": dense((L, d, f), d),
+            "w2": dense((L, f, d), f),
+        }
     params = {
         "tok_emb": dense((cfg.vocab_size, d), d),
         "ln_f_scale": torch.ones(d),
-        "layers": {
-            "ln1_scale": torch.ones(L, d),
-            "ln2_scale": torch.ones(L, d),
-            "attn": {
-                "wq": dense((L, d, h, hd), d),
-                "wk": dense((L, d, kv, hd), d),
-                "wv": dense((L, d, kv, hd), d),
-                "wo": dense((L, h, hd, d), d),
-            },
-            "ffn": {
-                "w1": dense((L, d, f), d),
-                "w2": dense((L, f, d), f),
-            },
-        },
+        "layers": layers,
     }
     if not cfg.rope:
         params["pos_emb"] = dense((cfg.max_len, d), 1.0) * 0.02
@@ -335,14 +360,104 @@ def _ffn(lp, h):
     return _dot(F.gelu(_dot(h, lp["w1"]), approximate="tanh"), lp["w2"])
 
 
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def _moe_gates(probs, cfg: TransformerConfig):
+    """Top-k expert choice shared by every routing path: ``(gates [..., k],
+    expert [..., k])``.  k = 1 keeps the raw top-1 probability (Switch);
+    k > 1 renormalizes the top-k probabilities over the selected experts.
+    Ties go to the lower expert index, as ``jax.lax.top_k`` breaks them
+    (a stable descending sort; ``torch.topk`` promises no order)."""
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates = order.values[..., :cfg.moe_top_k]
+    expert = order.indices[..., :cfg.moe_top_k]
+    if cfg.moe_top_k > 1:
+        gates = gates / gates.sum(dim=-1, keepdim=True)
+    return gates, expert
+
+
+def _moe_block(lp, x, cfg: TransformerConfig, stats=None):
+    """Top-k MoE with capacity dropping (Switch at k = 1, GShard at
+    k = 2); returns ``(out, aux_loss)``.  A ``stats`` dict, when given,
+    gains this call's ``dropped`` and ``assigned`` counts (device
+    tensors) of top-k assignments.
+
+    The reference's function, computed by index: its one-hot dispatch
+    ``[k, N, E, C]`` would be 1.3 GB per layer at the d1024 bench row.
+    Slots come from the same choice-major cumsum (first choices claim
+    capacity before any second choice), so each kept assignment owns
+    exactly one slot of ``[E, C]``: tokens gather into the slots, the
+    experts run as two batched products, and each token sums its kept
+    choices' gated outputs.  Dropped assignments contribute 0.  The
+    dispatch is exact; the top-k combine differs from the einsum by
+    summation order only.  f32 throughout, output in ``x.dtype``; the
+    load-balancing aux loss (Switch eq. 4) is on first choices.
+    """
+    b, s, d = x.shape
+    n = b * s
+    e, k_sel = cfg.num_experts, cfg.moe_top_k
+    cap = max(1, int(cfg.capacity_factor * k_sel * n / e))
+    flat = x.reshape(n, d).float()
+    probs = torch.softmax(_dot(flat, lp["wg"]), dim=-1)      # [N, E]
+    gates, expert = _moe_gates(probs, cfg)                    # [N, k]
+    density = F.one_hot(expert[:, 0], e).float().mean(dim=0)
+    aux = (density * probs.mean(dim=0)).sum() * e * cfg.aux_loss_coef
+    # Choice-major: assignment c * N + t is token t's choice c.  The
+    # running count scans the contiguous axis of [E, kN] (a scan over the
+    # outer axis of [kN, E] is a slow kernel on the card).
+    e_cm = expert.t().reshape(k_sel * n)
+    counts = F.one_hot(e_cm, e).t().contiguous().cumsum(dim=1)  # [E, kN]
+    slot = counts.gather(0, e_cm[None])[0] - 1                # 0-based
+    keep = slot < cap
+    if stats is not None:
+        stats["dropped"] = stats.get("dropped", 0) + (~keep).sum()
+        stats["assigned"] = stats.get("assigned", 0) + keep.numel()
+    # Slot e * C + c of the flat [E * C] layout; dropped -> the dump slot.
+    dest = torch.where(keep, e_cm * cap + slot, e * cap)
+    tok = torch.arange(n, device=x.device).repeat(k_sel)
+    src = torch.full((e * cap + 1,), n, dtype=torch.long, device=x.device)
+    src[dest] = tok                                           # slot -> token
+    padded = torch.cat([flat, flat.new_zeros((1, d))])        # row n: empty
+    xe = padded.index_select(0, src[:e * cap]).reshape(e, cap, d)
+    w1, w2 = lp["w1"].to(flat.dtype), lp["w2"].to(flat.dtype)
+    ye = torch.bmm(_gelu(torch.bmm(xe, w1)), w2).reshape(e * cap, d)
+    ye = torch.cat([ye, ye.new_zeros((1, d))])                # dump slot
+    w = (gates.t().reshape(k_sel * n) * keep)[:, None]
+    out = (ye.index_select(0, dest) * w).reshape(k_sel, n, d).sum(dim=0)
+    return out.to(x.dtype).reshape(b, s, d), aux
+
+
+def _moe_dense_block(lp, x, cfg: TransformerConfig):
+    """Capacity-free top-k MoE over ``[B, S, D]``: every expert runs on
+    every token and the router's picks are combined, unselected experts
+    masked with ``where`` before the combine (a non-finite value there
+    cannot reach the token).  Prefill, ``moe_dense_routing`` and the
+    decode chunks run it; training keeps :func:`_moe_block`."""
+    dtype = x.dtype
+    probs = torch.softmax(_dot(x.float(), lp["wg"]), dim=-1)
+    gates, expert = _moe_gates(probs, cfg)                    # [B, S, k]
+    sel = (F.one_hot(expert, cfg.num_experts).float()
+           * gates[..., None]).sum(dim=-2)                    # [B, S, E]
+    h1 = _gelu(_einsum("bsd,edf->bsef", x, lp["w1"].to(dtype)))
+    y_all = _einsum("bsef,efd->bsed", h1, lp["w2"].to(dtype))
+    y_all = torch.where(sel[..., None] > 0, y_all, 0.0)
+    return _einsum("bsed,bse->bsd", y_all,
+                   sel.to(y_all.dtype)).to(dtype)
+
+
 def block_apply(layer_params, x, cfg: TransformerConfig,
                 attention_fn: Callable, rope_ang=None, drop_rng=None,
-                return_kv=False):
-    """One pre-norm dense block.  Returns (x, aux_loss), or
+                return_kv=False, moe_dense_routing=False):
+    """One pre-norm block.  Returns (x, aux_loss), or
     (x, aux_loss, (k, v)) with ``return_kv`` (post-rope, kv-heads-only —
     the decode-cache layout that ``generate.prefill`` consumes).
     ``drop_rng`` (a ``torch.Generator``) enables residual dropout on the
-    attention and FFN outputs."""
+    attention and FFN outputs.  MoE configs run the capacity dispatch
+    (:func:`_moe_block`, with its aux loss), or with
+    ``moe_dense_routing`` the capacity-free :func:`_moe_dense_block`
+    (aux 0)."""
     h = _rms_norm(x, layer_params["ln1_scale"])
     a = _attention_block(layer_params["attn"], h, attention_fn, rope_ang,
                          kv_groups=cfg.n_heads // cfg.kv_heads,
@@ -353,20 +468,27 @@ def block_apply(layer_params, x, cfg: TransformerConfig,
     if drop_rng is not None:
         a = _dropout(a, cfg.dropout, drop_rng)
     x = x + a
-    y = _ffn(layer_params["ffn"], _rms_norm(x, layer_params["ln2_scale"]))
+    h = _rms_norm(x, layer_params["ln2_scale"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.num_experts and moe_dense_routing:
+        y = _moe_dense_block(layer_params["moe"], h, cfg)
+    elif cfg.num_experts:
+        y, aux = _moe_block(layer_params["moe"], h, cfg)
+    else:
+        y = _ffn(layer_params["ffn"], h)
     if drop_rng is not None:
         y = _dropout(y, cfg.dropout, drop_rng)
     out = x + y
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return (out, aux, kv) if return_kv else (out, aux)
 
 
-def _remat_block(cfg: TransformerConfig):
+def _remat_block(cfg: TransformerConfig, moe_dense_routing: bool = False):
     """``block_apply`` wrapped per ``cfg.remat`` / ``cfg.remat_policy``:
     under autograd each block runs inside a non-reentrant
     ``torch.utils.checkpoint``, which keeps only the block's inputs (and,
     with a policy, the outputs of the policy's matmuls) and recomputes
     the rest in the backward.  Without grad it is ``block_apply``.
+    ``moe_dense_routing`` is bound outside the checkpoint wrapper.
 
     Dropout: the checkpoint restores the default generators only, not
     the explicit one the masks come from.  So the forward draws from
@@ -375,15 +497,17 @@ def _remat_block(cfg: TransformerConfig):
     leaves the caller's stream where the forward left it.
     """
     _validate_remat_policy(cfg, require_remat=False)
+    fn = (functools.partial(block_apply, moe_dense_routing=True)
+          if moe_dense_routing else block_apply)
     if not cfg.remat:
-        return block_apply
+        return fn
     ops = _REMAT_POLICIES[cfg.remat_policy]
     kw = {} if ops is None else {"context_fn": functools.partial(
         create_selective_checkpoint_contexts, ops)}
 
     def block(lp, x, cfg, attention_fn, rope_ang=None, drop_rng=None):
         if not torch.is_grad_enabled():
-            return block_apply(lp, x, cfg, attention_fn, rope_ang, drop_rng)
+            return fn(lp, x, cfg, attention_fn, rope_ang, drop_rng)
         state = None if drop_rng is None else drop_rng.get_state()
         calls = []
 
@@ -393,7 +517,7 @@ def _remat_block(cfg: TransformerConfig):
                 gen = torch.Generator(drop_rng.device)
                 gen.set_state(state)
             calls.append(True)
-            return block_apply(lp, x, cfg, attention_fn, rope_ang, gen)
+            return fn(lp, x, cfg, attention_fn, rope_ang, gen)
 
         return checkpoint(run, lp, x, rope_ang, use_reentrant=False, **kw)
 
@@ -417,7 +541,7 @@ def _embed(params, tokens, cfg: TransformerConfig):
 
 def apply_hidden(params, tokens, cfg: TransformerConfig,
                  attention_fn: Callable | None = None, dropout_rng=None,
-                 segment_ids=None):
+                 moe_dense_routing: bool = False, segment_ids=None):
     """Trunk forward: tokens [B, S] -> final-norm hidden [B, S, D];
     returns (hidden, aux).
 
@@ -427,9 +551,10 @@ def apply_hidden(params, tokens, cfg: TransformerConfig,
     masks from it.  ``segment_ids [B, S]`` (packed sequences,
     data/packing.py) masks attention to within-segment pairs.  With
     ``cfg.remat`` each block is recomputed in the backward
-    (:func:`_remat_block`).
+    (:func:`_remat_block`).  ``moe_dense_routing=True`` scores MoE
+    configs with the capacity-free routing of ``prefill`` and the decode
+    (the inference semantics; aux comes back 0).
     """
-    _check_supported(cfg)
     _check_generator(dropout_rng)
     attention_fn = _resolve_attention_fn(cfg, attention_fn, segment_ids)
     _check_len(tokens.shape[1], cfg)
@@ -438,7 +563,7 @@ def apply_hidden(params, tokens, cfg: TransformerConfig,
     if drop is not None:
         x = _dropout(x, cfg.dropout, drop)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = _remat_block(cfg)
+    block = _remat_block(cfg, moe_dense_routing)
     for lp in _layers(params["layers"], cfg.n_layers):
         x, aux = block(lp, x, cfg, attention_fn, rope_ang, drop)
         aux_total = aux_total + aux
@@ -453,9 +578,10 @@ def _unembed(hidden, params, cfg: TransformerConfig):
 
 def apply(params, tokens, cfg: TransformerConfig,
           attention_fn: Callable | None = None, dropout_rng=None,
-          device=None):
+          moe_dense_routing: bool = False, device=None):
     """Forward pass: tokens [B, S] int -> (f32 logits [B, S, V], aux),
     without gradients (training goes through :func:`lm_loss`).
+    ``moe_dense_routing``: see :func:`apply_hidden`.
 
     ``attention_fn(q, k, v) -> out`` defaults to causal flash attention
     (the Hopper kernel on the card).  Runs on ``device`` — the card
@@ -466,7 +592,7 @@ def apply(params, tokens, cfg: TransformerConfig,
     tokens = _as_ids(tokens, device, torch.long)
     with torch.no_grad():
         x, aux_total = apply_hidden(params, tokens, cfg, attention_fn,
-                                    dropout_rng)
+                                    dropout_rng, moe_dense_routing)
         return _unembed(x, params, cfg), aux_total
 
 
@@ -525,7 +651,7 @@ def chunked_softmax_xent(hidden, emb, targets, n_chunks: int):
 def _forward_nll(params, tokens, cfg: TransformerConfig,
                  attention_fn: Callable | None, apply_fn: Callable | None,
                  dropout_rng=None, hidden_fn: Callable | None = None,
-                 segment_ids=None):
+                 moe_dense_routing: bool = False, segment_ids=None):
     """(mean next-token NLL, aux) — shared by train loss and eval.
 
     Three forward routes, as in the reference:
@@ -585,7 +711,8 @@ def _forward_nll(params, tokens, cfg: TransformerConfig,
         return full_head(*call_custom(apply_fn, params, tokens[:, :-1]))
     if hidden_fn is None:
         hidden_fn = lambda p, t: apply_hidden(p, t, cfg, attention_fn,
-                                              dropout_rng, seg_in)
+                                              dropout_rng, moe_dense_routing,
+                                              seg_in)
     hidden, aux = call_custom(hidden_fn, params, tokens[:, :-1])
     if cfg.ce_chunks > 1:
         nll, z_mean = chunked_softmax_xent(hidden, params["tok_emb"],
@@ -610,18 +737,23 @@ def lm_loss(params, tokens, cfg: TransformerConfig,
             "dropout_rng only threads through the default trunk; a "
             "custom apply_fn/hidden_fn must draw its own masks")
     nll, aux = _forward_nll(params, tokens, cfg, attention_fn, apply_fn,
-                            dropout_rng, hidden_fn, segment_ids)
+                            dropout_rng, hidden_fn, segment_ids=segment_ids)
     return nll + aux
 
 
 def lm_nll(params, tokens, cfg: TransformerConfig,
            attention_fn: Callable | None = None,
            apply_fn: Callable | None = None,
-           hidden_fn: Callable | None = None, segment_ids=None):
-    """Mean next-token NLL without the z-loss regularizer — the
-    evaluation quantity (``exp`` of it is perplexity)."""
+           hidden_fn: Callable | None = None,
+           moe_dense_routing: bool = False, segment_ids=None):
+    """Mean next-token NLL without the z-loss and MoE aux regularizers —
+    the evaluation quantity (``exp`` of it is perplexity).
+    ``moe_dense_routing=True`` evaluates an MoE config as the KV-cached
+    decode routes it (default trunk only)."""
     return _forward_nll(params, tokens, cfg, attention_fn, apply_fn,
-                        hidden_fn=hidden_fn, segment_ids=segment_ids)[0]
+                        hidden_fn=hidden_fn,
+                        moe_dense_routing=moe_dense_routing,
+                        segment_ids=segment_ids)[0]
 
 
 # -------------------------------------------------------------- train step
@@ -652,8 +784,11 @@ def make_train_step(cfg: TransformerConfig, optimizer,
     microbatches are summed, then divided by ``grad_accum``, and one
     update applies their mean; the loss is the mean of the microbatch
     losses.  ``loss_fn`` (default :func:`lm_loss`) shares lm_loss's
-    signature.  ``probe=True`` returns ``(carry, (loss, {"grad_norm":
-    ...}))`` with the global norm of the (averaged) gradients.
+    signature; a custom one may differentiate another tree (the packed
+    ``(adapters, base)`` of ``models.lora.make_lora_loss``), and only the
+    leaves the optimizer holds are updated.  ``probe=True`` returns
+    ``(carry, (loss, {"grad_norm": ...}))`` with the global norm of the
+    (averaged) gradients.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -668,11 +803,11 @@ def make_train_step(cfg: TransformerConfig, optimizer,
                 "torch.Generator, or training silently runs "
                 "unregularized (LMTrainer threads one automatically)")
         rng = dropout_rng if cfg.dropout > 0 else None
-        device = params["tok_emb"].device
+        leaves = _leaves(params)
+        device = leaves[0].device
         tokens = _as_ids(tokens, device, torch.long)
         if segment_ids is not None:
             segment_ids = _as_ids(segment_ids, device, torch.int32)
-        leaves = _leaves(params)
         for p in leaves:
             p.grad = None
         if grad_accum == 1:

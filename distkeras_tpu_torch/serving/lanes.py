@@ -38,9 +38,7 @@ from distkeras_tpu_torch.models.generate import (_decode_chunk, _min_p_mask,
                                                  _top_p_mask, init_cache,
                                                  rolling_eligible,
                                                  top_k_mask)
-from distkeras_tpu_torch.models.quant import is_quantized
-from distkeras_tpu_torch.models.transformer import (TransformerConfig,
-                                                    _check_supported)
+from distkeras_tpu_torch.models.transformer import TransformerConfig
 from distkeras_tpu_torch.resilience import chaos
 from distkeras_tpu_torch.serving.elastic import _ElasticLanesMixin
 from distkeras_tpu_torch.serving.engine import (_Lane, _LaneEngine,
@@ -97,10 +95,16 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
     ``step_windows``: the ``step(n)`` window sizes an elastic engine
     accepts (the reference compiles exactly those).
 
-    Not ported yet: ``kv_int8`` and int8 weights (ROADMAP A9), ``plan=`` /
-    ``mesh=`` (A7) and ``hot_swap`` (A10); each raises naming its item.
-    Runs on ``device`` (the card unless ``device="cpu"``), where the
-    params must already live.
+    ``kv_int8=True``: the cache holds int8 K/V with f32 scales (rolling
+    rings included), and every request matches its solo
+    ``generate(kv_int8=True, use_prefill=False)`` run (admission and the
+    sequential path both attend the already-quantized cache; only a K/V
+    value that two products round to either side of a .5 boundary can
+    part them).  An int8 tree (``quantize_params``) serves as is.
+
+    Not ported yet: ``plan=`` / ``mesh=`` (ROADMAP A7) and ``hot_swap``
+    (A10); each raises naming its item.  Runs on ``device`` (the card
+    unless ``device="cpu"``), where the params must already live.
     """
 
     def __init__(self, params, cfg: TransformerConfig, lanes: int = 8,
@@ -115,17 +119,16 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
                  prefill_chunk: int | None = None, prefix_pool=None,
                  plan=None, mesh=None, hot_swap: bool = False,
                  device=None):
-        if kv_int8:
-            raise _not_ported("kv_int8", "A9")
         if plan is not None or mesh is not None:
             raise _not_ported("pod-sharded serving (plan= / mesh=)", "A7")
         if hot_swap:
             raise _not_ported("hot_swap", "A10")
-        if is_quantized(params):
-            raise _not_ported("int8 weights", "A9")
+        if not isinstance(kv_int8, bool):
+            raise ValueError(
+                f"kv_int8 must be a bool here (got {kv_int8!r}); "
+                'kv_int8="prefill" is a PagedBatcher admission mode')
         self.device = resolve_device(device)
         check_on_device(params, self.device)
-        _check_supported(cfg)
         self._rolling = False
         if cfg.attention_window is not None:
             if not rolling_eligible(cfg):
@@ -211,20 +214,26 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
         self.params = params
         self.cfg = cfg
         self.lanes = lanes
+        self.kv_int8 = kv_int8
         # Shared prefix: admission seeds the lane from it instead of
         # zeros, and every position shifts by its length.
         self._off = 0
         self._prefix_lane = None
         if prompt_cache is not None:
             self._prefix_lane, self._off = _resolve_prompt_cache(
-                prompt_cache, cfg, 1, 1, 1, None, self.device)
+                prompt_cache, cfg, 1, 1, 1, None, self.device, kv_int8)
         if prefix_pool is not None:
             if prefix_pool.draft_cfg is not None:
                 raise ValueError(
                     "this pool holds (target, draft) speculative "
                     "pairs; build a plain PrefixPool(cfg, ...) for "
                     "ContinuousBatcher")
-            want = _spec(init_cache(cfg, 1, device=self.device))
+            if prefix_pool.kv_int8 != kv_int8:
+                raise ValueError(
+                    "prefix_pool quantization must match kv_int8= "
+                    "(build the pool with the engine's kv_int8)")
+            want = _spec(init_cache(cfg, 1, kv_int8=kv_int8,
+                                    device=self.device))
             got = {n: (tuple(a.shape[1:]), a.dtype)
                    for n, a in prefix_pool.slab.items()}
             if want != got or prefix_pool.device != self.device:
@@ -287,7 +296,8 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
         next step processes) and per-lane sampling values on the device;
         host mirrors of the positions, temperatures and seeds."""
         dev = self.device
-        self.cache = init_cache(self.cfg, lanes, device=dev)
+        self.cache = init_cache(self.cfg, lanes, kv_int8=self.kv_int8,
+                                device=dev)
         self.pos = torch.zeros((lanes,), dtype=torch.long, device=dev)
         self.cur = torch.zeros((lanes,), dtype=torch.long, device=dev)
         t0 = float(self.temperature)

@@ -29,9 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
-
-from distkeras_tpu_torch.models.generate import _not_ported, init_cache
+from distkeras_tpu_torch.models.generate import init_cache
 from distkeras_tpu_torch.models.transformer import TransformerConfig
 from distkeras_tpu_torch.utils.device import resolve_device
 from distkeras_tpu_torch.utils.locks import TracedRLock
@@ -63,7 +61,9 @@ class PrefixPool:
     one lane's cache bytes.  ``draft_cfg``: a speculative pool instead
     (segments are ``(target, draft)`` cache pairs).  ``device``: where
     the slab lives — the card unless ``device="cpu"``; it must be the
-    engine's.  ``kv_int8`` pools are ROADMAP A9.
+    engine's.  ``kv_int8``: int8 segments (``prefill(..., kv_int8=True)``)
+    for a ``ContinuousBatcher(kv_int8=True)``; speculative pools hold
+    full-precision caches.
 
     Thread-safe: one leaf lock serializes ``put`` / ``acquire`` /
     ``release`` (engines call acquire/release under their own admission
@@ -73,8 +73,6 @@ class PrefixPool:
     def __init__(self, cfg: TransformerConfig, slots: int = 4,
                  kv_int8: bool = False,
                  draft_cfg: TransformerConfig | None = None, device=None):
-        if kv_int8:
-            raise _not_ported("kv_int8 prefix pools", "A9")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if cfg.attention_window is not None or (
@@ -84,12 +82,17 @@ class PrefixPool:
                 "prefix pools need full-cache configs (no "
                 "attention_window): a ring slot has no stable notion "
                 "of 'the first P positions' to seed from")
+        if draft_cfg is not None and kv_int8:
+            raise ValueError(
+                "speculative pools hold full-precision caches "
+                "(SpeculativeBatcher has no kv_int8 mode)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.draft_cfg = draft_cfg
+        self.kv_int8 = kv_int8
         self.slots = slots
         if draft_cfg is None:
-            seg = init_cache(cfg, 1, device=self.device)
+            seg = init_cache(cfg, 1, kv_int8=kv_int8, device=self.device)
             self.slab = {n: a.new_zeros((slots,) + a.shape)
                          for n, a in seg.items()}
         else:
@@ -129,7 +132,7 @@ class PrefixPool:
             raise ValueError(
                 f"segment does not match the pool's spec "
                 f"{self._seg_spec} (build it with prefill() on the "
-                "pool's config)")
+                "pool's config, kv_int8 matching)")
         with self._lock:
             used = {e.slot for e in self._entries.values()}
             free = [s for s in range(self.slots) if s not in used]

@@ -18,12 +18,10 @@ from distkeras_tpu_torch.models.generate import (_decode_chunk, _not_ported,
                                                  _position_generator,
                                                  init_cache,
                                                  rolling_eligible)
-from distkeras_tpu_torch.models.speculative import (_check_plain,
-                                                    _draw_generator,
+from distkeras_tpu_torch.models.speculative import (_draw_generator,
                                                     _gumbel_pick,
                                                     speculative_accept)
-from distkeras_tpu_torch.models.transformer import (TransformerConfig,
-                                                    _check_supported)
+from distkeras_tpu_torch.models.transformer import TransformerConfig
 from distkeras_tpu_torch.resilience import chaos
 from distkeras_tpu_torch.serving.engine import (_Lane, _LaneEngine,
                                                 _make_lane_admit,
@@ -65,8 +63,9 @@ class SpeculativeBatcher(_LaneEngine):
 
     A fault in the draft half of a step (``serving.draft`` chaos probe)
     degrades the engine for good to a target-only decode step: requests
-    still complete, and greedy ones keep their tokens.  ``plan=`` /
-    ``mesh=`` raise (ROADMAP A7).
+    still complete, and greedy ones keep their tokens.  Either tree may be
+    int8 (``quantize_params``); the engine has no ``kv_int8`` mode, as in
+    the reference.  ``plan=`` / ``mesh=`` raise (ROADMAP A7).
     """
 
     def __init__(self, params, draft_params, cfg: TransformerConfig,
@@ -77,13 +76,9 @@ class SpeculativeBatcher(_LaneEngine):
                  plan=None, mesh=None, device=None):
         if plan is not None or mesh is not None:
             raise _not_ported("pod-sharded serving (plan= / mesh=)", "A7")
-        _check_plain(params, "target")
-        _check_plain(draft_params, "draft")
         self.device = resolve_device(device)
         check_on_device(params, self.device)
         check_on_device(draft_params, self.device)
-        _check_supported(cfg)
-        _check_supported(draft_cfg)
         self._rolling = False
         if (cfg.attention_window is None) != (draft_cfg.attention_window
                                               is None):

@@ -19,6 +19,9 @@ step's batch there by index; ``profile_dir`` writes a ``torch.profiler``
 chrome trace of a few steady steps.  Runs on the card unless
 ``device="cpu"``.  The parallel and checkpoint knobs of the reference
 raise ``NotImplementedError``.
+
+``LoRATrainer`` fine-tunes LoRA adapters over a frozen base under the
+same contract (``distkeras_tpu/trainers/lm.py::LoRATrainer``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ import torch
 
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.models import transformer as tfm
+from distkeras_tpu_torch.models.lora import (LoRAConfig, _validate,
+                                             lora_init, lora_mask,
+                                             lora_merge, make_lora_loss)
 from distkeras_tpu_torch.native import gather_rows
 from distkeras_tpu_torch.trainers.optim import LM_NAMES, Optimizer
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
@@ -151,6 +157,10 @@ class LMTrainer:
         self.probe_history: list[dict] = []
         self.training_time = 0.0
         self._ema_params = None
+        # The optimizer state of the last train() call.
+        self.opt_state = None
+        # The train step's loss (None: lm_loss); LoRATrainer's merges.
+        self._loss_fn = None
 
     @property
     def ema_params(self):
@@ -163,6 +173,10 @@ class LMTrainer:
 
     def init_params(self):
         return tfm.init_params(self.seed, self.cfg, device=self.device)
+
+    def _nll(self, params, tokens, segment_ids=None):
+        """The evaluation NLL of the trained state."""
+        return tfm.lm_nll(params, tokens, self.cfg, segment_ids=segment_ids)
 
     def _rows(self, a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
@@ -254,6 +268,7 @@ class LMTrainer:
                 f"{rows_per_step} (batch_size x grad_accum)")
 
         t0 = time.perf_counter()
+        self.opt_state = None  # free the last run's state first
         if params is None:
             params = self.init_params()
         else:
@@ -262,6 +277,7 @@ class LMTrainer:
         opt_state = self.optimizer.init(params)
         step = tfm.make_train_step(self.cfg, self.optimizer,
                                    grad_accum=self.grad_accum,
+                                   loss_fn=self._loss_fn,
                                    probe=self.probe_metrics)
         drop = None
         if self.cfg.dropout > 0:
@@ -287,11 +303,10 @@ class LMTrainer:
             @torch.no_grad()
             def eval_fn(rnd):
                 if seg_chunks is None:
-                    mean = sum(float(tfm.lm_nll(params, c, self.cfg))
+                    mean = sum(float(self._nll(params, c))
                                for c in chunks) / len(chunks)
                 else:
-                    tot = sum(w * float(tfm.lm_nll(params, c, self.cfg,
-                                                   segment_ids=sc))
+                    tot = sum(w * float(self._nll(params, c, sc))
                               for c, sc, w in zip(chunks, seg_chunks,
                                                   weights))
                     mean = tot / max(sum(weights), 1)
@@ -303,9 +318,8 @@ class LMTrainer:
                 # Warm the eval call, so an eval round inside the capture
                 # records its steady run, not its first-call set-up.
                 with torch.no_grad():
-                    tfm.lm_nll(params, chunks[0], self.cfg,
-                               segment_ids=None if seg_chunks is None
-                               else seg_chunks[0])
+                    self._nll(params, chunks[0],
+                              None if seg_chunks is None else seg_chunks[0])
 
         X_dev = seg_dev = None
         if self.device_data:
@@ -382,6 +396,7 @@ class LMTrainer:
                                for g in torch.stack(probes).tolist()]
                               if probes else [])
         self._ema_params = opt_state.ema
+        self.opt_state = opt_state
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.training_time = time.perf_counter() - t0
@@ -408,3 +423,88 @@ class LMTrainer:
                             f"lm_trainer_rounds_{first}-{last}.trace.json")
         prof.export_chrome_trace(path)
         self.profile_path = path
+
+
+class LoRATrainer(LMTrainer):
+    """Fine-tune a frozen pretrained base with LoRA adapters under the
+    ``LMTrainer`` contract (history, eval, shuffle, packing, device data,
+    profiling).
+
+    ``base_params``: the pretrained tree (``init_params`` layout, e.g.
+    from ``load_lm``), on the trainer's device.  The trained state is the
+    packed ``(adapters, base)`` pair, with the base copied at
+    ``init_params``; the optimizer holds state for the adapter leaves only
+    (``Optimizer.masked(lora_mask)``) and the loss merges a detached base
+    inside the step, so the base copy comes out bit-identical.  ``train``
+    returns the merged servable params; ``self.adapters`` keeps the raw
+    adapters.  Checkpoint knobs raise naming ROADMAP A8, as
+    ``LMTrainer``'s do.
+    """
+
+    def __init__(self, cfg: tfm.TransformerConfig, base_params,
+                 lora_rank: int = 8, lora_alpha: float = 16.0,
+                 lora_targets=("wq", "wv"), **kw):
+        if base_params is None:
+            raise ValueError(
+                "LoRATrainer needs the pretrained base_params (load_lm "
+                "or a trained LMTrainer tree) — LoRA over a random base "
+                "is a sign the wrong trainer was picked")
+        self.lora = LoRAConfig(rank=lora_rank, alpha=lora_alpha,
+                               targets=tuple(lora_targets))
+        _validate(cfg, self.lora)
+        if kw.get("ema_decay") is not None:
+            raise ValueError(
+                "ema_decay is not supported on LoRATrainer: the "
+                "adapter-masked optimizer state cannot shadow the "
+                "frozen base; serve the merged tree train() returns "
+                "(or EMA-average adapters outside the trainer)")
+        if kw.get("zero1") or kw.get("zero"):
+            raise ValueError(
+                "zero1/zero= is not supported on LoRATrainer: the "
+                "masked packed (adapters, base) state keeps moments "
+                "only for the small adapter leaves, so there is nothing "
+                "worth sharding")
+        if (kw.get("merge_rule", "mean") != "mean"
+                or kw.get("sync_every", 1) != 1
+                or kw.get("compress") is not None
+                or kw.get("probe_metrics")):
+            raise ValueError(
+                "merge_rule/sync_every/compress/probe_metrics are not "
+                "supported on LoRATrainer: the packed (adapters, base) "
+                "gradient is small next to the base, so the exchange is "
+                "never the bottleneck")
+        super().__init__(cfg, **kw)
+        check_on_device(base_params, self.device)
+        self.optimizer = self.optimizer.masked(lora_mask)
+        self._base = base_params
+        self._loss_fn = make_lora_loss(cfg, self.lora)
+        self.adapters = None
+
+    def _merged(self, packed):
+        adapters, base = packed
+        with torch.no_grad():
+            return lora_merge(base, adapters, self.cfg, self.lora)
+
+    def _nll(self, packed, tokens, segment_ids=None):
+        return tfm.lm_nll(self._merged(packed), tokens, self.cfg,
+                          segment_ids=segment_ids)
+
+    def init_params(self):
+        adapters = lora_init(self.seed + 1, self.cfg, self.lora,
+                             device=self.device)
+        # A copy: the step updates the packed state in place, and the
+        # caller's base must serve (or train again) untouched.
+        base = tfm._map_leaves(lambda t: t.detach().clone(), self._base)
+        return adapters, base
+
+    def train(self, dataset, params=None, **kw):
+        """Fine-tune over the token rows; returns the merged params
+        (``lora_merge(base, self.adapters)``)."""
+        if params is not None:
+            raise ValueError(
+                "LoRATrainer builds its own (adapters, base) state from "
+                "the constructor's base_params; resuming needs "
+                "checkpoint_dir/resume (ROADMAP A8)")
+        packed = super().train(dataset, **kw)
+        self.adapters = packed[0]
+        return self._merged(packed)

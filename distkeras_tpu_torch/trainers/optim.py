@@ -29,10 +29,14 @@ names to this class):
   (0 for the first update), as optax's schedules are.
 - ``ema_decay`` keeps a shadow ``decay * s + (1 - decay) * p`` of the
   post-step params (the reference's ``_with_ema``).
+- ``masked(mask_fn)`` is ``optax.masked``: the optimizer is built over
+  the leaves ``mask_fn(params)`` marks True only, so moments exist for
+  them alone and no update touches the rest (LoRA's frozen base).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable
 
@@ -54,21 +58,24 @@ _ADAMW_DECAY = 1e-4
 @dataclasses.dataclass
 class OptState:
     """What ``Optimizer.init`` builds: the torch optimizer over the
-    params' leaves, the number of updates applied, and the EMA shadow
-    (a params-like dict, or None)."""
+    trained leaves, the number of updates applied, the EMA shadow (a
+    params-like dict, or None) and the trained leaves themselves."""
     torch_opt: torch.optim.Optimizer
     count: int = 0
     ema: dict | None = None
+    leaves: list = dataclasses.field(default_factory=list)
 
 
 class Optimizer:
     """One of :data:`NAMES` with the reference's clip and EMA wrappers.
 
-    ``init(params)`` makes every leaf of ``params`` (a nested dict, or a
-    list of tensors) require grad and returns an :class:`OptState`;
-    ``update(params, state)`` applies one step in place from the leaves'
-    ``.grad``.
+    ``init(params)`` makes every trained leaf of ``params`` (a nested
+    dict, a tuple of them, or a list of tensors) require grad and returns
+    an :class:`OptState`; ``update(params, state)`` applies one step in
+    place from the trained leaves' ``.grad``.
     """
+
+    mask = None
 
     def __init__(self, name: str = "adamw",
                  learning_rate: float | Callable = 3e-4,
@@ -109,8 +116,22 @@ class Optimizer:
             return float(self.learning_rate(count))
         return float(self.learning_rate)
 
+    def masked(self, mask_fn: Callable) -> "Optimizer":
+        """A copy that trains only the leaves ``mask_fn(params)`` marks
+        True (a tree of bools shaped like the params), as
+        ``optax.masked`` does; it cannot keep an EMA of a masked tree."""
+        if self.ema_decay is not None:
+            raise ValueError("ema_decay does not compose with a mask: the "
+                             "shadow would cover the frozen leaves too")
+        out = copy.copy(self)
+        out.mask = mask_fn
+        return out
+
     def init(self, params) -> OptState:
         named = _named(params)
+        if self.mask is not None:
+            keep = [bool(m) for _, m in named_leaves(self.mask(params))]
+            named = [leaf for leaf, k in zip(named, keep) if k]
         for _, p in named:
             p.requires_grad_(True)
         leaves = [p for _, p in named]
@@ -135,14 +156,14 @@ class Optimizer:
         ema = None
         if self.ema_decay is not None:
             ema = _map_leaves(lambda p: p.detach().clone(), params)
-        return OptState(opt, 0, ema)
+        return OptState(opt, 0, ema, leaves)
 
     @torch.no_grad()
     def update(self, params, state: OptState) -> None:
         """One step, in place: clip, set the scheduled rate, step the
         torch optimizer, then move the EMA shadow toward the new
         params."""
-        leaves = [p for _, p in _named(params)]
+        leaves = state.leaves
         grads = [p.grad for p in leaves if p.grad is not None]
         if self.grad_clip_norm is not None and grads:
             norm = global_norm(grads)
@@ -161,11 +182,9 @@ class Optimizer:
 
 
 def _named(params):
-    """``[(name, tensor)]`` of a nested params dict (key paths) or of a
-    list of tensors (their indices)."""
-    if isinstance(params, dict):
-        return named_leaves(params)
-    return [(str(i), p) for i, p in enumerate(params)]
+    """``[(name, tensor)]`` of a params tree: key paths of nested dicts,
+    indices of tuples and lists."""
+    return named_leaves(params)
 
 
 class _Elementwise(torch.optim.Optimizer):

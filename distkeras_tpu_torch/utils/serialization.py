@@ -9,7 +9,9 @@ The LM: ``save_lm`` writes, and ``load_lm`` reads, the ``.npz`` of
 ``distkeras_tpu.utils.serialization.save_lm`` (a ``__config__`` JSON
 entry plus one array per ``/``-joined key path), so an artefact of
 either package loads in the other; ``params_from_numpy`` carries a
-nested dict of arrays across as tensors, and ``params_to_numpy`` back.
+nested dict of arrays across as tensors (MoE leaves and int8
+``QTensor`` leaves included), ``lora_from_numpy`` an adapter tree, and
+``params_to_numpy`` back.
 """
 
 from __future__ import annotations
@@ -20,21 +22,33 @@ import json
 import numpy as np
 import torch
 
+from distkeras_tpu_torch.models.quant import QTensor
 from distkeras_tpu_torch.models.transformer import (TransformerConfig,
                                                     named_leaves)
 from distkeras_tpu_torch.utils.device import resolve_device
 
 
+def _host(node):
+    return torch.from_numpy(np.array(node))  # a writable host copy
+
+
 def params_from_numpy(tree, device, dtype=None):
     """Nested dict of arrays (numpy, or anything ``np.asarray`` takes)
     -> the same dict of tensors on ``device`` (``None``: the card).
-    Floating leaves are cast to ``dtype`` when given."""
+    Floating leaves are cast to ``dtype`` when given.  A quantized leaf —
+    a ``(q, s)`` pair, or an object with ``.q`` / ``.s`` (the reference's
+    ``QTensor`` with numpy children) — becomes a :class:`QTensor` with
+    ``q`` int8 and ``s`` f32 whatever ``dtype`` says."""
     device = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
-        t = torch.from_numpy(np.array(node))  # a writable host copy
+        if isinstance(node, tuple) or hasattr(node, "q"):
+            q, s = node if isinstance(node, tuple) else (node.q, node.s)
+            return QTensor(q=_host(q).to(device, torch.int8),
+                           s=_host(s).to(device, torch.float32))
+        t = _host(node)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t.to(device)
@@ -42,13 +56,27 @@ def params_from_numpy(tree, device, dtype=None):
     return conv(tree)
 
 
+def lora_from_numpy(tree, device):
+    """An adapter tree ``{"attn" / "ffn": {name: {"a", "b"}}}`` of arrays
+    (e.g. the reference's ``lora_init``) -> f32 tensors on ``device``."""
+    for group, sub in tree.items():
+        if group not in ("attn", "ffn") or any(
+                set(ab) != {"a", "b"} for ab in sub.values()):
+            raise ValueError(
+                "an adapter tree is {'attn' / 'ffn': {target: {'a', "
+                f"'b'}}}}, got group {group!r} with {sub.keys()}")
+    return params_from_numpy(tree, device, torch.float32)
+
+
 def params_to_numpy(tree):
     """The inverse of :func:`params_from_numpy`: a nested dict of
     tensors (any device, with or without grad) -> the same dict of numpy
     arrays on the host, dtypes kept (bf16 leaves become f32, which numpy
-    lacks)."""
+    lacks); a :class:`QTensor` becomes its ``(q, s)`` pair."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return params_to_numpy(tree.q), params_to_numpy(tree.s)
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()

@@ -2,8 +2,10 @@
 the flash forward (inference and training launches), the FA2 dQ and
 dK/dV kernels, and ``flash_attention`` under autograd; the Keras
 family's CIFAR CNN path on the card against the same path on the CPU;
-and the serving engines on the card (an f32 schedule against the CPU's,
-prefix-pool segments and speculative warm-ups through the kernel).
+the serving engines on the card (an f32 schedule against the CPU's,
+prefix-pool segments and speculative warm-ups through the kernel); and
+the model surface (an MoE train step, ``quantize_params`` and a
+``kv_int8`` engine schedule against the CPU's).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports no JAX, so on a machine with
@@ -579,3 +581,93 @@ def test_prefix_pool_segment_on_card_launches_the_forward_kernel(cuda):
     assert float(stats["acceptance_rate"]) == 1.0
     torch.testing.assert_close(out, generate(params, prompts, cfg, 16),
                                rtol=0, atol=0)
+
+
+# ------------------------------------------------ MoE, int8, the int8 cache
+
+def test_moe_train_step_on_card_matches_cpu(cuda):
+    """An f32 top-2 MoE lm_loss on the card (flash kernels, index
+    dispatch) against the CPU (plain attention): the loss within 1e-5
+    and every leaf's gradient within 1e-3 * max|g| (the card's gradient
+    bound); the kernels launch once a layer each."""
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models.transformer import named_leaves
+
+    cfg = dkt.TransformerConfig(vocab_size=256, d_model=128, n_heads=2,
+                                n_layers=2, d_ff=256, max_len=130,
+                                num_experts=4, moe_top_k=2,
+                                capacity_factor=1.0)
+    tokens = np.random.default_rng(5).integers(0, 256, (2, 129))
+    host = dkt.init_params(0, cfg, device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = dkt.params_from_numpy(dkt.params_to_numpy(host), dev)
+        for _, leaf in named_leaves(params):
+            leaf.requires_grad_()
+        before = dict(tattn.LAUNCHES)
+        loss = dkt.lm_loss(params, tokens, cfg)
+        loss.backward()
+        went = {k: tattn.LAUNCHES[k] - before[k] for k in before}
+        out[dev] = (float(loss.detach()), {n: t.grad.cpu() for n, t in
+                                  named_leaves(params)}, went)
+    assert out["cuda"][2] == {"flash_fwd": 2, "flash_bwd_dq": 2,
+                              "flash_bwd_dkv": 2}
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5
+    for name, g in out["cpu"][1].items():
+        err = (out["cuda"][1][name] - g).abs().max()
+        assert err <= 1e-3 * g.abs().max(), name
+
+
+def test_quantize_params_on_card_is_bit_identical_to_cpu(cuda):
+    from distkeras_tpu_torch.models.quant import quantize_kv, quantize_params
+
+    _, _, cpu_p = _serving_model("cpu")
+    _, _, card_p = _serving_model("cuda")
+    cpu_q, card_q = quantize_params(cpu_p), quantize_params(card_p)
+    pairs = [(card_q["tok_emb"], cpu_q["tok_emb"])]
+    for group in ("attn", "ffn"):
+        pairs += [(card_q["layers"][group][k], v)
+                  for k, v in cpu_q["layers"][group].items()]
+    for got, want in pairs:
+        assert torch.equal(got.q.cpu(), want.q)
+        assert torch.equal(got.s.cpu(), want.s)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(4, 9, 2, 64)).astype(np.float32))
+    for got, want in zip(quantize_kv(x.cuda()), quantize_kv(x)):
+        assert torch.equal(got.cpu(), want)
+
+
+def test_kv_int8_engine_schedule_on_card_matches_cpu(cuda):
+    """An f32 greedy kv_int8 engine schedule (staggered admissions, a
+    1-token prompt, a reused lane) gives the same tokens on the card as
+    on the CPU, and on the card each request equals its solo
+    generate(kv_int8=True, use_prefill=False)."""
+    from distkeras_tpu_torch.models.generate import generate
+    from distkeras_tpu_torch.serving import ContinuousBatcher
+
+    cfg, _, card_p = _serving_model("cuda")
+    _, _, cpu_p = _serving_model("cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 1, 11, 6)]
+    outs = {}
+    for dev, params in (("cuda", card_p), ("cpu", cpu_p)):
+        eng = ContinuousBatcher(params, cfg, lanes=2, kv_int8=True,
+                                device=dev)
+        lanes = [eng.submit(prompts[0], 30), eng.submit(prompts[1], 20)]
+        got = []
+        for i, p in enumerate(prompts[2:]):
+            while lanes[i] in eng.running():
+                eng.step(3)
+            got.append(eng.drain(lanes[i]))
+            lanes.append(eng.submit(p, 16))   # a reused lane
+        for lane in lanes[2:]:
+            while lane in eng.running():
+                eng.step(2)
+            got.append(eng.drain(lane))
+        outs[dev] = got
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    for p, got in zip(prompts, outs["cuda"]):
+        solo = generate(card_p, p[None], cfg, len(got) - len(p),
+                        kv_int8=True, use_prefill=False)
+        np.testing.assert_array_equal(got, solo[0].cpu().numpy())

@@ -184,8 +184,10 @@ def test_sampled_generate_deterministic_and_topk1_is_greedy(rng):
         tgen.generate(tp, prompt, tcfg, temperature=1.0, **kw)
     with pytest.raises(ValueError, match="need temperature"):
         tgen.generate(tp, prompt, tcfg, top_k=3, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.generate(tp, prompt, tcfg, kv_int8=True, **kw)
+    q8 = tgen.generate(tp, prompt, tcfg, temperature=1.0, seed=3,
+                       kv_int8=True, **kw)
+    assert torch.equal(q8, tgen.generate(tp, prompt, tcfg, temperature=1.0,
+                                         seed=3, kv_int8=True, **kw))
     with pytest.raises(ValueError, match="prompt_cache"):
         tgen.generate(tp, prompt, tcfg, prompt_cache=({}, 1), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -231,8 +233,9 @@ def test_port_imports_neither_jax_nor_reference_package():
         "for name in ('trainers.elastic', 'native', 'data.tokenizer',\n"
         "             'data.prefetch', 'serving.lanes',\n"
         "             'serving.speculative', 'models.speculative', 'obs',\n"
-        "             'utils.locks'):\n"
+        "             'utils.locks', 'models.quant', 'models.lora'):\n"
         "    assert 'distkeras_tpu_torch.' + name in names, names\n"
+        "from distkeras_tpu_torch.trainers.lm import LoRATrainer\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'distkeras_tpu',\n"
         "                                    'keras', 'optax', 'flax'))\n"

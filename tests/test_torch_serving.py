@@ -145,10 +145,12 @@ def test_capacity_and_validation(m, rng):
 
 
 def test_unported_knobs_raise_naming_their_item(m):
-    for kw, item in ((dict(kv_int8=True), "A9"), (dict(plan=object()), "A7"),
+    for kw, item in ((dict(plan=object()), "A7"),
                      (dict(hot_swap=True), "A10")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             engine(m, **kw)
+    with pytest.raises(ValueError, match="PagedBatcher"):
+        engine(m, kv_int8="prefill")
 
 
 def test_engine_defaults_to_the_card(m, monkeypatch):
@@ -253,8 +255,8 @@ class _ScalarReads(torch.utils._python_dispatch.TorchDispatchMode):
 
 @pytest.mark.parametrize("kw,seed", [
     ({}, None), (dict(temperature=0.9, top_p=0.9, min_p=0.05), 4),
-    (dict(per_request_sampling=True), None)],
-    ids=["greedy", "sampled", "per-request"])
+    (dict(per_request_sampling=True), None), (dict(kv_int8=True), None)],
+    ids=["greedy", "sampled", "per-request", "kv_int8"])
 def test_decode_window_reads_no_device_value(m, rng, kw, seed):
     """The per-token body keeps cur, pos and the sampling values on the
     device: a step(4) window reads no device scalar on the host (its one

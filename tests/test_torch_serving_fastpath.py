@@ -172,8 +172,12 @@ def test_prefix_pool_refcount_lru_and_errors(m, rng):
         pool.put({k: v[:1] for k, v in segs["a"].items()}, 4)
     with pytest.raises(ValueError, match="length"):
         pool.put(segs["a"], 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        PrefixPool(m["cfg"], slots=1, kv_int8=True, device="cpu")
+    q8 = PrefixPool(m["cfg"], slots=1, kv_int8=True, device="cpu")
+    with pytest.raises(ValueError, match="spec"):
+        q8.put(segs["a"], 4)
+    with pytest.raises(ValueError, match="full-precision"):
+        PrefixPool(m["cfg"], slots=1, kv_int8=True, draft_cfg=m["cfg"],
+                   device="cpu")
 
 
 def test_prefix_pool_parity_with_prompt_cache_and_zero_prefix_work(

@@ -95,10 +95,15 @@ def test_init_params_layout_matches_jax_and_unported_configs_raise():
                for a in jax.tree.leaves(tp))
     again = ttfm.init_params(0, tcfg, device="cpu")
     assert torch.equal(tp["tok_emb"], again["tok_emb"])
-    for bad in [dict(num_experts=2)]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttfm.init_params(0, ttfm.TransformerConfig(**BASE, **bad),
-                             device="cpu")
+    moe = {**BASE, "num_experts": 2, "moe_top_k": 2}
+    jmoe = jax.tree.map(np.asarray, jtfm.init_params(
+        jax.random.key(0), jtfm.TransformerConfig(**moe)))
+    assert shapes(ttfm.init_params(0, ttfm.TransformerConfig(**moe),
+                                   device="cpu")) == shapes(jmoe)
+    with pytest.raises(ValueError, match="moe_top_k"):
+        ttfm.init_params(0, ttfm.TransformerConfig(**{**moe,
+                                                      "moe_top_k": 3}),
+                         device="cpu")
     with pytest.raises(ValueError, match="even head_dim"):
         ttfm.init_params(0, ttfm.TransformerConfig(
             **{**BASE, "n_heads": 32}, rope=True), device="cpu")
