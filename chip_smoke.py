@@ -61,7 +61,20 @@ each went through its kernels:
   one layer at full width; the f32 gradient parity) and phase
   ``lora_train`` (``LoRATrainer`` rank 8 on wq / wv: the base
   bit-identical, the optimizer holding the adapters only, ``train`` ==
-  ``lora_merge(base, adapters)``).
+  ``lora_merge(base, adapters)``);
+- data parallelism: phase ``dp_lm`` (``LMTrainer`` at the training
+  width in a world-1 NCCL group — the card's machine has one card — with
+  the plain exchange, ``zero=1``, ``zero=3``, ``merge_rule="adasum"``
+  and ``compress="int8"``: step ms against phase ``train``'s, the ZeRO
+  stages' losses and gradients against ``zero=None``, the int8 first
+  update against the codec, the kernels' launches under ``"dp"``),
+  phase ``dp_keras`` (two ranks sharing the card through
+  ``deploy.Job.run_local()``: NCCL's refusal of two ranks on one
+  device, then gloo over CUDA tensors — ADAG and AEASGD at
+  ``num_workers=2`` on the CIFAR CNN, world-2 ADAG against world-1 at
+  twice the batch) and phase ``async_dp`` (``AsyncDP(hosts=4)`` on the
+  card against the CPU: event log, report and weights).  ``python3
+  chip_smoke.py --dp-rank MODE DIR`` is one rank of ``dp_keras``.
 
 Usage: python3 chip_smoke.py [--profile]     (needs one CUDA device)
 
@@ -79,11 +92,11 @@ it under ``"f32_lse_causal"`` and the engine's prefill shapes under
 ``"bf16_causal_pool256"``, ``"bf16_causal_pool128"`` and
 ``"bf16_causal_spec_warm"`` and the f32 speculative warm-up of
 ``int8_serve`` under ``"f32_causal_spec_int8_warm"``, and its launches
-those of every main-path run: serve, engine, train, long_train and the
-four model-surface phases (``launches_by_path``; a run that only
+those of every main-path run: serve, engine, train, long_train, the
+four model-surface phases and ``dp`` (``launches_by_path``; a run that only
 serves a comparison is not counted); the backward kernels'
 times are the training case (f32, causal) and their launches those of
-the training runs (train, long_train, moe_train, lora_train), with the
+the training runs (train, long_train, moe_train, lora_train, dp), with the
 bf16 causal case beside it under ``"bf16_causal"``; each kernel also
 carries its seq-4096 f32 readings (causal, and window 1024).
 """
@@ -2040,6 +2053,336 @@ def profile_surface(np_params, np_moe):
         pb, prompt64, cfg, 8, kv_int8=True))
 
 
+# ------------------------------------------------------ data parallelism
+
+DP_STEPS = 4
+DP_VARIANTS = {"dp": {}, "zero1": dict(zero=1), "zero3": dict(zero=3),
+               "adasum": dict(merge_rule="adasum"),
+               "int8": dict(compress="int8")}
+# The CIFAR CNN at keras_train's bench config over two ranks sharing the
+# card: 16 global microbatches of 2 x 1024 rows.
+DP_KERAS_ROWS = 16 * 2 * KERAS_BATCH
+
+
+def leaf_grads(trainer, np_params, batch):
+    """``p0 - p1`` of one sgd step at rate 1: the step's gradient, per
+    leaf, on the host."""
+    params = dkt.params_from_numpy(np_params, "cuda")
+    start = {k: v.detach().cpu() for k, v in named_leaves(params)}
+    out = trainer.train(batch, params=params)
+    return {k: start[k] - v.detach().cpu() for k, v in named_leaves(out)}
+
+
+def int8_first_update(np_params, batch):
+    """The int8 exchange's first update on the card: its merged gradient
+    equals ``decode(encode(.))`` of the plain gradient per fusion bucket,
+    twice (the reduce-scatter leg, then the re-quantized chunk; at world
+    1 the chunk is the bucket), bit for bit, and the sgd update applies
+    exactly that."""
+    from distkeras_tpu_torch.parallel import exchange as ex
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = FLAGSHIP_TRAIN
+    params = dkt.params_from_numpy(np_params, "cuda")
+    inner = dkt.Optimizer("sgd", 1.0)
+    opt = ex.ExchangeOptimizer(inner, make_mesh(),
+                               ex.ExchangeConfig(compress="int8"))
+    state = opt.init(params)
+    loss = dkt.lm_loss(params, torch.from_numpy(batch).to("cuda"), cfg)
+    loss.backward()
+    from distkeras_tpu_torch.parallel.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    plain = [p.grad.clone() for p in leaves]
+    layout = state.layout
+    want = []
+    for b in layout.pack(plain):
+        q, sc = ex.int8_encode(b)
+        q2, s2 = ex.int8_encode(ex.int8_decode(q, sc))
+        want.append(ex.int8_decode(q2, s2))
+    want = layout.unpack(want)
+    before = [p.detach().clone() for p in leaves]
+    opt.exchange(params, state)
+    exact = all(torch.equal(p.grad, w) for p, w in zip(leaves, want))
+    opt.update(params, state)
+    applied = all(torch.equal(p.detach(), b - w) for p, b, w in
+                  zip(leaves, before, want))
+    quant_err = max(float((w - g).abs().max() / g.abs().max().clamp(
+        min=1e-30)) for w, g in zip(want, plain))
+    if not (exact and applied):
+        raise AssertionError(f"int8 first update: merged == codec(g) "
+                             f"{exact}, update applied {applied}")
+    return {"buckets": len(layout.bucket_cols), "merged_equals_codec": exact,
+            "update_equals_sgd_of_codec": applied,
+            "max_rel_quant_err": quant_err}
+
+
+def dp_lm_phase(np_params, train_step_ms):
+    """LMTrainer in a world-1 NCCL group at full width (phase train's
+    config: adamw 3e-4, 8 x 1024): the plain exchange, zero=1, zero=3,
+    adasum and int8, DP_STEPS steps each, every step through the three
+    kernels.  zero=1 / zero=3 hold zero=None's losses within 1e-6
+    relative and its gradient (one sgd step at rate 1) within 1e-3 x
+    max|g|; the int8 first update is the codec's, bit for bit.  Each
+    variant's step ms beside phase train's: the cost of the bucket
+    packing and the collectives at world 1."""
+    import torch.distributed as dist
+
+    cfg = FLAGSHIP_TRAIN
+    rdv = tempfile.mkdtemp()
+    device = dkt.initialize_multihost(init_method=f"file://{rdv}/rdv",
+                                      world_size=1, rank=0, timeout=120)
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"dp_lm joined a {backend} group")
+        rng = np.random.default_rng(12)
+        rows = rng.integers(0, cfg.vocab_size, (8 * DP_STEPS,
+                                                TRAIN_SHAPE[1] + 1)
+                            ).astype(np.int32)
+        runs, launches_total = {}, {k: 0 for k in attn.LAUNCHES}
+        for name, kw in DP_VARIANTS.items():
+            trainer = dkt.LMTrainer(cfg, optimizer="adamw",
+                                    learning_rate=3e-4, batch_size=8, **kw)
+            for _ in range(2):  # a warm-up, then one timed step
+                trainer.train(rows[:8], params=dkt.params_from_numpy(
+                    np_params, "cuda"))
+            one = trainer.training_time
+            zero_launches()
+            trainer.train(rows, params=dkt.params_from_numpy(np_params,
+                                                             "cuda"))
+            launches = dict(attn.LAUNCHES)
+            expect_launches(launches, cfg.n_layers * DP_STEPS,
+                            f"dp_lm {name}")
+            for k in launches_total:
+                launches_total[k] += launches[k]
+            hist = trainer.history
+            if len(hist) != DP_STEPS or not all(np.isfinite(hist)):
+                raise AssertionError(f"dp_lm {name}: bad losses {hist}")
+            step_ms = 1e3 * (trainer.training_time - one) / (DP_STEPS - 1)
+            runs[name] = dict(losses=hist, step_ms=step_ms,
+                              step_ms_over_train=step_ms / train_step_ms,
+                              residual_norm=trainer.residual_norm)
+        base = np.array(runs["dp"]["losses"])
+        loss_rel = {}
+        for name in ("zero1", "zero3"):
+            rel = float(np.abs(np.array(runs[name]["losses"]) - base).max()
+                        / np.abs(base).max())
+            loss_rel[name] = rel
+            if not rel <= 1e-6:
+                raise AssertionError(f"dp_lm {name} losses differ from "
+                                     f"zero=None by {rel} (relative)")
+        grads = {}
+        for name in ("dp", "zero1", "zero3"):
+            t = dkt.LMTrainer(cfg, optimizer="sgd", learning_rate=1.0,
+                              batch_size=8, **DP_VARIANTS[name])
+            grads[name] = leaf_grads(t, np_params, rows[:8])
+        grad_rel = {}
+        for name in ("zero1", "zero3"):
+            worst = 0.0
+            for k, g in grads["dp"].items():
+                worst = max(worst, float((grads[name][k] - g).abs().max()
+                                         / g.abs().max().clamp(min=1e-30)))
+            grad_rel[name] = worst
+            if not worst <= 1e-3:
+                raise AssertionError(f"dp_lm {name} gradient differs by "
+                                     f"{worst} x max|g|")
+        del grads
+        int8 = int8_first_update(np_params, rows[:8])
+    finally:
+        dist.destroy_process_group()
+    log("dp_lm", config="transformer_d1024", backend=backend, world=1,
+        device=str(device), batch=8, seq=TRAIN_SHAPE[1], steps=DP_STEPS,
+        optimizer="adamw", learning_rate=3e-4, runs=runs,
+        train_step_ms=train_step_ms, zero_loss_max_rel_diff=loss_rel,
+        zero_grad_max_rel_diff=grad_rel, grad_tol=1e-3, loss_tol=1e-6,
+        int8_first_update=int8, launches=launches_total)
+    return launches_total
+
+
+def nccl_two_ranks_on_one_card(tmp):
+    """What NCCL does with two ranks on one device (it is expected to
+    refuse them): the ranks' first error line, or what happened
+    instead.  Informational: the phase then runs gloo either way."""
+    job = dkt.deploy.Job("chip_smoke.py", world=2,
+                         init_method=f"file://{tmp}/rdv_nccl",
+                         args=("--dp-rank", "nccl", tmp),
+                         env={"NCCL_DEBUG": "WARN"})
+    try:
+        done = job.run_local(check=False, timeout=90, capture=True)
+    except TimeoutError:
+        return "no error: the ranks hung (killed after 90 s)"
+    errs = [open(p).read() for p in (os.path.join(tmp, f"nccl_r{r}.txt")
+                                     for r in range(2)) if os.path.exists(p)]
+    if not errs:
+        return (f"no error: returncodes {[c.returncode for c in done]}, "
+                f"stderr {(done[0].stderr or '')[-300:]!r}")
+    # NCCL's own reason (NCCL_DEBUG=WARN) is in the ranks' output.
+    why = [line.strip() for c in done for line in
+           (c.stdout or "").splitlines() + (c.stderr or "").splitlines()
+           if "NCCL WARN" in line]
+    return "; ".join([errs[0].strip().splitlines()[0][:300]] + why[:2])
+
+
+def dp_rank_main(mode, tmp):
+    """One rank of phase dp_keras (started by ``deploy.Job``).  ``nccl``:
+    join NCCL on cuda:0 and all-reduce (the second rank on the same card
+    must fail; the error is written for the parent).  ``gloo``: join
+    gloo over CUDA tensors, then ADAG(num_workers=2) and
+    AEASGD(num_workers=2) at the bench config and the f32 parity ADAG;
+    rank 0 writes the results."""
+    import torch.distributed as dist
+
+    rank = int(os.environ["RANK"])
+    if mode == "nccl":
+        try:
+            dkt.deploy.init_from_env(device="cuda:0", backend="nccl",
+                                     timeout=120)
+            t = torch.ones(4, device="cuda:0")
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            dist.destroy_process_group()
+            return 0
+        except Exception as e:  # the refusal being confirmed
+            with open(os.path.join(tmp, f"nccl_r{rank}.txt"), "w") as f:
+                f.write(f"{type(e).__name__}: {e}")
+            return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dkt.deploy.init_from_env(device="cuda:0", backend="gloo", timeout=300)
+    import warnings
+
+    warnings.filterwarnings("ignore", message="export_model")
+    x, y = cifar_data(DP_KERAS_ROWS)
+    ds = dkt.Dataset.from_arrays(x, y)
+    out = {}
+    for name, cls, kw in (
+            ("ADAG", dkt.ADAG, dict(worker_optimizer="adam",
+                                    learning_rate=1e-3,
+                                    communication_window=4)),
+            ("AEASGD", dkt.AEASGD, dict(learning_rate=0.05, rho=5.0,
+                                        communication_window=4))):
+        t = keras_trainer(cls, "cuda:0", KERAS_BATCH, 1, num_workers=2, **kw)
+        t.train(ds)
+        out[name] = dict(losses=t.history, train_s=t.training_time,
+                         world=t.num_workers, backend=t.mesh.backend)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        n = 8 * 256 * 2
+        t = keras_trainer(dkt.ADAG, "cuda:0", 256, 1, policy="float32",
+                          seed=9, num_workers=2, worker_optimizer="sgd",
+                          learning_rate=0.01, communication_window=2)
+        m = t.train(dkt.Dataset.from_arrays(x[:n], y[:n]))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    if rank == 0:
+        w = dkt.keras_numpy_from_module(m)[0]
+        np.savez(os.path.join(tmp, "gloo_parity.npz"), history=t.history,
+                 **{f"w{i}": a for i, a in enumerate(w)})
+        with open(os.path.join(tmp, "gloo.json"), "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_keras_phase():
+    """Two ranks on the one card through ``deploy.Job.run_local()``:
+    NCCL's refusal of two ranks on one device (its error logged), then
+    gloo over CUDA tensors: ADAG and AEASGD at num_workers=2 on the CIFAR
+    CNN at keras_train's bench config (the losses falling), and an f32
+    ADAG at world 2 held against world-1 ADAG at twice the batch on the
+    same rows (weights atol 1e-4, PERF §2's Keras tolerance)."""
+    tmp = tempfile.mkdtemp()
+    nccl_err = nccl_two_ranks_on_one_card(tmp)
+    t0 = time.perf_counter()
+    dkt.deploy.Job("chip_smoke.py", world=2,
+                   init_method=f"file://{tmp}/rdv_gloo",
+                   args=("--dp-rank", "gloo", tmp)).run_local(
+        timeout=600, capture=True)
+    wall = time.perf_counter() - t0
+    runs = json.load(open(os.path.join(tmp, "gloo.json")))
+    for name, r in runs.items():
+        hist = r["losses"]
+        if not (hist and np.all(np.isfinite(hist))):
+            raise AssertionError(f"dp_keras {name}: losses {hist}")
+        # AEASGD's elastic pull holds it on the loss plateau for its
+        # first rounds (phase keras_train gives it twice the epochs).
+        if name == "ADAG" and not hist[-1] < hist[0]:
+            raise AssertionError(f"dp_keras {name}: losses {hist}")
+        if r["world"] != 2 or r["backend"] != "gloo":
+            raise AssertionError(f"dp_keras {name}: {r}")
+    got = np.load(os.path.join(tmp, "gloo_parity.npz"))
+    x, y = cifar_data(DP_KERAS_ROWS)
+    n = 8 * 256 * 2
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t = keras_trainer(dkt.ADAG, "cuda", 512, 1, policy="float32", seed=9,
+                          worker_optimizer="sgd", learning_rate=0.01,
+                          communication_window=2)
+        m = t.train(dkt.Dataset.from_arrays(x[:n], y[:n]))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    want = dkt.keras_numpy_from_module(m)[0]
+    w_err = max(float(np.abs(got[f"w{i}"] - a).max())
+                for i, a in enumerate(want))
+    h_err = float(np.abs(got["history"] - np.array(t.history)).max())
+    if not (w_err <= 1e-4 and h_err <= 1e-4):
+        raise AssertionError(f"dp_keras: world-2 ADAG differs from world 1 "
+                             f"at twice the batch: weights {w_err}, losses "
+                             f"{h_err}")
+    log("dp_keras", ranks=2, backend="gloo", tensors="cuda",
+        nccl_two_ranks_one_card_error=nccl_err, runs={
+            k: dict(losses_first_last=[v["losses"][0], v["losses"][-1]],
+                    n_losses=len(v["losses"]), train_s=v["train_s"])
+            for k, v in runs.items()},
+        job_wall_s=wall, parity_steps=len(t.history),
+        parity_weight_max_abs_err=w_err, parity_loss_max_abs_err=h_err,
+        tol=1e-4)
+
+
+def async_dp_phase():
+    """AsyncDP(hosts=4) in one process on the card against the same
+    seed and schedule on the CPU: the async.* event log and the audit
+    report equal, the center's weights within 1e-4."""
+    from distkeras_tpu_torch import obs
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0, 4.0, (4, 16))
+    labels = rng.integers(0, 4, 512)
+    x = (centers[labels] + rng.normal(0, 0.5, (512, 16))).astype(np.float32)
+    ds = dkt.Dataset.from_arrays(x, labels.astype(np.int64))
+    tmp = tempfile.mkdtemp()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sched = dkt.AsyncSchedule(seed=3).stall(1, 2, 50.0).join(
+            5, at_time=2.0)
+        t = dkt.AsyncDP(dkt.zoo.MLP(16, (32,), 4, seed=0), hosts=4, tau=2,
+                        beat_window=1.5, schedule=sched,
+                        loss="sparse_categorical_crossentropy",
+                        worker_optimizer="sgd", learning_rate=0.05,
+                        batch_size=4, num_epoch=2, communication_window=2,
+                        device=dev)
+        path = os.path.join(tmp, f"{dev}.jsonl")
+        with obs.session(path):
+            m = t.train(ds)
+        ev = [(r["name"], r["fields"]) for r in obs.read_trace(path)
+              if r.get("kind") == "event" and r["name"].startswith("async.")]
+        res[dev] = (t, ev, dkt.keras_numpy_from_module(m)[0])
+    (tc, evc, wc), (tp, evp, wp) = res["cuda"], res["cpu"]
+    w_err = max(float(np.abs(a - b).max()) for a, b in zip(wc, wp))
+    if evc != evp or tc.async_report != tp.async_report:
+        raise AssertionError("AsyncDP's event log on the card differs from "
+                             "the CPU run's")
+    if not w_err <= 1e-4:
+        raise AssertionError(f"AsyncDP center weights differ by {w_err}")
+    log("async_dp", hosts=4, events=len(evc), report=tc.async_report,
+        event_log_equal=True, weight_max_abs_err=w_err, tol=1e-4,
+        train_s=tc.training_time)
+
+
+
 def main(profile=False):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2198,6 +2541,14 @@ def main(profile=False):
     torch.cuda.empty_cache()
     long_launches, long_cases = long_phase()
 
+    # 8b. Data parallelism: the LM in a world-1 NCCL group, two Keras
+    # ranks sharing the card over gloo, and the async tier.
+    torch.cuda.empty_cache()
+    dp_launches = dp_lm_phase(train_np, dense_step_ms)
+    torch.cuda.empty_cache()
+    dp_keras_phase()
+    async_dp_phase()
+
     # 9. The engine's profiled window.
     torch.cuda.empty_cache()
     log("engine_idle", idle_share_4x_step4=engine_idle_share(
@@ -2229,14 +2580,15 @@ def main(profile=False):
     lcausal, lwindow = long_cases  # f32 [8, 4096, 8, 128]: causal, 1024
 
     surface = (moe_train_launches, lora_launches, moe_serve_launches,
-               int8_launches)
+               int8_launches, dp_launches)
 
     def launch_counts(name, *paths):
         paths = paths + surface
         return {"launches": sum(p[name] for p in paths),
                 "launches_by_path": {k: p[name] for k, p in zip(
                     ("serve", "engine", "train", "long_train", "moe_train",
-                     "lora_train", "moe_serve", "int8_serve"), paths)}}
+                     "lora_train", "moe_serve", "int8_serve", "dp"),
+                    paths)}}
 
     print(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
@@ -2283,4 +2635,6 @@ def main(profile=False):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2], sys.argv[3]))
     sys.exit(main(profile="--profile" in sys.argv[1:]))

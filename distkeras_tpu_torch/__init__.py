@@ -35,6 +35,14 @@ in training, dense routing at inference), int8 weights
 through ``generate`` and the engines, and LoRA fine-tuning
 (``LoRAConfig``, ``lora_init``, ``lora_merge``, ``LoRATrainer``).
 
+Data parallelism: one process per device in a ``torch.distributed``
+group (``deploy.Job`` starts the ranks, ``deploy.init_from_env`` joins
+them: NCCL on the cards, gloo with ``device="cpu"``); ADAG, DynSGD, the
+replica family and ``LMTrainer`` then run ``num_workers`` = world size
+replicas, with the ZeRO stages and the gradient-exchange policies of
+``parallel/``, and ``AsyncDP`` simulates a bounded-staleness async fleet
+in one process.
+
 Device rule: entry points run on CUDA by default; with no card they
 raise unless called with ``device="cpu"`` (as the tests do).  The port
 imports ``torch`` and numpy, never ``jax`` or ``distkeras_tpu``.
@@ -88,6 +96,11 @@ from distkeras_tpu_torch.predictors import ModelPredictor, Predictor
 from distkeras_tpu_torch.serving import (ContinuousBatcher, EngineClosed,
                                          PrefixPool, QueueFull, RequestResult,
                                          SpeculativeBatcher, TraceReplay)
+from distkeras_tpu_torch import deploy, parallel
+from distkeras_tpu_torch.parallel import (AsyncConfig, AsyncSchedule,
+                                          MeshSpec, initialize_multihost,
+                                          make_mesh)
+from distkeras_tpu_torch.trainers.async_dp import AsyncDP
 from distkeras_tpu_torch.trainers.base import SingleTrainer, Trainer
 from distkeras_tpu_torch.trainers.distributed import ADAG, DynSGD
 from distkeras_tpu_torch.trainers.elastic import (AEASGD, DOWNPOUR, EAMSGD,
@@ -107,6 +120,14 @@ from distkeras_tpu_torch.utils.serialization import (
 
 __all__ = [
     "ADAG",
+    "AsyncConfig",
+    "AsyncDP",
+    "AsyncSchedule",
+    "MeshSpec",
+    "deploy",
+    "initialize_multihost",
+    "make_mesh",
+    "parallel",
     "ContinuousBatcher",
     "EngineClosed",
     "PrefixPool",

@@ -30,7 +30,6 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from distkeras_tpu_torch.models.transformer import global_norm
 from distkeras_tpu_torch.ops.losses import resolve_loss
 from distkeras_tpu_torch.ops.optimizers import resolve_optimizer
 from distkeras_tpu_torch.utils.device import resolve_device
@@ -153,14 +152,43 @@ class ModelAdapter:
 
         return vag
 
-    def _apply_update(self, state: TrainState, grads, ntv) -> None:
+    def _apply_update(self, state: TrainState, grads, ntv,
+                      probe: bool = False):
+        """One optimizer update from ``grads``: the optimizer's exchange
+        over the data-parallel group first (a no-op for one replica),
+        then the update; returns the probe's global gradient norm (of
+        the exchanged gradient) when ``probe``."""
         for p, g in zip(state.tv, grads):
             p.grad = g
-        self.optimizer.update(state.tv, state.opt_state)
+        opt = self.optimizer
+        opt.exchange(state.tv, state.opt_state)
+        norm = opt.grad_norm(state.tv, state.opt_state) if probe else None
+        opt.update(state.tv, state.opt_state)
         for p in state.tv:
             p.grad = None
         state.ntv = list(ntv)
         state.step += 1
+        return norm
+
+    def ref_perms(self) -> list:
+        """Per trainable variable, the permutation of its torch layout
+        into Keras' (Conv2D OIHW -> HWIO, Dense ``[out, in]`` -> ``[in,
+        out]``), or None: the fusion buckets chunk leaves in the
+        reference's layout."""
+        return [(2, 3, 1, 0) if p.dim() == 4 else (1, 0) if p.dim() == 2
+                else None for p in self.model.parameters()]
+
+    def zero_layout(self, n: int, bucket_mb: float | None = None):
+        """The ZeRO fusion-bucket layout of the trainable variables
+        (shapes only): one geometry for the stage-2/3 steps, the view
+        conversion and the optimizer state."""
+        from distkeras_tpu_torch.parallel.collectives import (
+            DEFAULT_BUCKET_MB, Zero1Layout)
+
+        return Zero1Layout.for_tree(
+            list(self.model.parameters()), n,
+            DEFAULT_BUCKET_MB if bucket_mb is None else bucket_mb,
+            perms=self.ref_perms())
 
     def make_train_step(self) -> Callable:
         """``step(state, x, y) -> (state, loss)``: one optimizer update."""
@@ -191,12 +219,119 @@ class ModelAdapter:
                          else [a + b for a, b in zip(g_sum, grads)])
                 loss_sum = loss_sum + loss
             grads = [g / window for g in g_sum]
-            norm = global_norm(grads) if probe else None
-            self._apply_update(state, grads, ntv)
+            norm = self._apply_update(state, grads, ntv, probe)
             loss = loss_sum / window
             if probe:
                 return state, (loss, {"grad_norm": norm})
             return state, loss
+
+        return train_step
+
+    def make_zero_accum_step(self, window: int, mesh, zopt, stage: int,
+                             probe: bool = False) -> Callable:
+        """The accumulation step of ZeRO stages 2 and 3: each
+        microbatch's gradient buckets are reduce-scattered into this
+        rank's accumulated rows as they are made, so a rank only keeps
+        its ``1/n`` gradient shard; the update runs on the shards
+        (``zopt``, a :class:`~distkeras_tpu_torch.parallel.collectives.
+        ZeroOptimizer`, its state ``state.opt_state``).  Stage 2 keeps
+        ``state.tv`` whole and all-gathers the new parameters; stage 3
+        holds ``state.tv`` as the shards themselves, gathers each bucket
+        on use inside the loss (``gather_bucket``: all-gather forward,
+        reduce-scatter backward) and has no parameter gather after the
+        update."""
+        from distkeras_tpu_torch.parallel.collectives import (
+            gather_bucket, scatter, true_div)
+
+        if stage not in (2, 3):
+            raise ValueError(f"stage must be 2 or 3, got {stage}")
+        compute_loss = self.make_loss_fn()
+        n = mesh.size
+
+        def vag(tv, ntv, x, y, layout):
+            with torch.enable_grad():
+                if stage >= 3:
+                    full = layout.unpack([gather_bucket(r, mesh)
+                                          for r in layout.pack_rows(tv)])
+                    loss, ntv2 = compute_loss(full, ntv, x, y)
+                    rows = layout.pack_rows(torch.autograd.grad(loss, tv))
+                else:
+                    loss, ntv2 = compute_loss(tv, ntv, x, y)
+                    grads = torch.autograd.grad(loss, tv)
+                    rows = [scatter(b, mesh) for b in layout.pack(grads)]
+            return loss.detach(), ntv2, rows
+
+        def train_step(state: TrainState, xs, ys):
+            zs = state.opt_state
+            layout = zs.layout
+            ntv, acc = state.ntv, None
+            loss_sum = torch.zeros((), dtype=torch.float32, device=xs.device)
+            for i in range(window):
+                loss, ntv, rows = vag(state.tv, ntv, xs[i], ys[i], layout)
+                acc = rows if acc is None else [a + r for a, r in
+                                                zip(acc, rows)]
+                loss_sum = loss_sum + loss
+            zopt.set_shard_grads(zs, [true_div(a, n * window) for a in acc])
+            norm = zopt.grad_norm(None, zs) if probe else None
+            if stage >= 3:
+                zopt.step_shards(zs)
+            else:
+                zopt.update(state.tv, zs)
+            for s in zs.shards:
+                s.grad = None
+            state.ntv = list(ntv)
+            state.step += 1
+            loss = loss_sum / window
+            if probe:
+                return state, (loss, {"grad_norm": norm})
+            return state, loss
+
+        return train_step
+
+    def make_localsgd_accum_step(self, window: int, sync_every: int, mesh,
+                                 config) -> Callable:
+        """Local SGD over the accumulation step: ``step(state, xs, ys)``
+        with ``xs: [sync_every, window, B, ...]`` (this rank's rows) runs
+        ``sync_every`` local rounds (a ``window``-microbatch accumulation
+        and a local update each), then one merge over the group: the
+        parameter deltas by the configured rule and the floating
+        optimizer state averaged (``parallel/exchange.py``).  The loss
+        is this rank's mean over the period."""
+        from distkeras_tpu_torch.parallel.exchange import (
+            merge_local_params, sync_local_tree)
+
+        vag = self._value_and_grad()
+        opt = self.optimizer
+
+        def train_step(state: TrainState, xs, ys):
+            start = [p.detach().clone() for p in state.tv]
+            losses = []
+            ntv = state.ntv
+            for h in range(sync_every):
+                g_sum = None
+                loss_sum = torch.zeros((), dtype=torch.float32,
+                                       device=xs.device)
+                for i in range(window):
+                    loss, ntv, grads = vag(state.tv, ntv, xs[h, i], ys[h, i])
+                    g_sum = (list(grads) if g_sum is None
+                             else [a + b for a, b in zip(g_sum, grads)])
+                    loss_sum = loss_sum + loss
+                for p, g in zip(state.tv, g_sum):
+                    p.grad = g / window
+                opt.update(state.tv, state.opt_state)
+                for p in state.tv:
+                    p.grad = None
+                losses.append(loss_sum / window)
+            with torch.no_grad():
+                merged = merge_local_params(start, list(state.tv), config,
+                                            mesh)
+                for p, v in zip(state.tv, merged):
+                    p.copy_(v)
+                sync_optimizer_state(state.opt_state, config, mesh)
+                ntv = sync_local_tree(ntv, config, mesh)
+            state.ntv = list(ntv)
+            state.step += sync_every
+            return state, torch.stack(losses).mean()
 
         return train_step
 
@@ -231,10 +366,13 @@ class ModelAdapter:
 
         return window
 
-    def make_indexed_accum_train_step(self, window: int) -> Callable:
-        """:meth:`make_accum_train_step` over a dataset staged on the
-        device: ``idx: [window, B]``."""
-        accum = self.make_accum_train_step(window)
+    def make_indexed_accum_train_step(self, window: int,
+                                      accum: Callable | None = None
+                                      ) -> Callable:
+        """:meth:`make_accum_train_step` (or ``accum``, e.g. a ZeRO
+        stage's step) over a dataset staged on the device:
+        ``idx: [window, B]``."""
+        accum = accum or self.make_accum_train_step(window)
 
         def step(state: TrainState, X, Y, idx):
             if idx.shape[0] != window:
@@ -287,6 +425,26 @@ class ModelAdapter:
             return self.stateless_apply(tv, ntv, x, training=False)[0]
 
         return predict
+
+
+def sync_optimizer_state(opt_state, config, mesh) -> None:
+    """Average the floating optimizer state over the group in place
+    (the momentum-aware half of a local-SGD sync): each trained leaf's
+    torch-optimizer tensors but its ``step`` (a count, alike on every
+    rank), and the EMA shadow."""
+    from distkeras_tpu_torch.models.transformer import _leaves
+    from distkeras_tpu_torch.parallel.exchange import sync_local_tree
+
+    tensors = []
+    for p in opt_state.leaves:
+        st = opt_state.torch_opt.state.get(p, {})
+        tensors += [st[k] for k in sorted(st)
+                    if k != "step" and torch.is_tensor(st[k])
+                    and st[k].is_floating_point()]
+    if opt_state.ema is not None:
+        tensors += _leaves(opt_state.ema)
+    for t, v in zip(tensors, sync_local_tree(tensors, config, mesh)):
+        t.copy_(v)
 
 
 def _gather(X, idx):

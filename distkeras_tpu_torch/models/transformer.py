@@ -20,7 +20,7 @@ MoE (``num_experts > 0``): training runs the reference's top-k capacity
 dispatch (:func:`_moe_block`, computed by index instead of one-hot
 einsums, with the load-balancing aux loss); ``moe_dense_routing=True``
 and the KV-cached decode run the capacity-free :func:`_moe_dense_block`.
-Not ported yet: the pipelined trunk (ROADMAP A7).
+Not ported yet: the pipelined trunk (ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -788,7 +788,9 @@ def make_train_step(cfg: TransformerConfig, optimizer,
     ``(adapters, base)`` of ``models.lora.make_lora_loss``), and only the
     leaves the optimizer holds are updated.  ``probe=True`` returns
     ``(carry, (loss, {"grad_norm": ...}))`` with the global norm of the
-    (averaged) gradients.
+    (averaged) gradients.  A data-parallel ``optimizer``
+    (``parallel/collectives.py``, ``parallel/exchange.py``) merges the
+    local gradients over its group between the backward and the update.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -827,8 +829,10 @@ def make_train_step(cfg: TransformerConfig, optimizer,
                 if p.grad is not None:
                     p.grad.div_(grad_accum)
             loss = loss / grad_accum
-        norm = (global_norm([p.grad for p in leaves if p.grad is not None])
-                if probe else None)
+        # A data-parallel optimizer merges the gradients over the group
+        # here (a no-op for one replica); the probe reads the result.
+        optimizer.exchange(params, opt_state)
+        norm = optimizer.grad_norm(params, opt_state) if probe else None
         optimizer.update(params, opt_state)
         if probe:
             return (params, opt_state), (loss, {"grad_norm": norm})

@@ -25,6 +25,24 @@ DEFAULT_LEARNING_RATES = {
 }
 
 
+# The names whose update rule is per-leaf elementwise: all of them, as in
+# the reference (the ZeRO stages shard such an update exactly).
+ZERO1_ELEMENTWISE = frozenset(DEFAULT_LEARNING_RATES)
+
+
+def zero1_compatible(spec) -> bool | None:
+    """Whether ``spec`` is known-safe under the ZeRO sharded update: a
+    name of :data:`ZERO1_ELEMENTWISE` or an :class:`Optimizer` (every
+    one of the port's is elementwise; its clip sums its norm over the
+    group) is; an unknown name is not; anything else cannot be
+    inspected (None: the trainers warn)."""
+    if isinstance(spec, str):
+        return spec.lower() in ZERO1_ELEMENTWISE
+    if isinstance(spec, Optimizer):
+        return True
+    return None
+
+
 def resolve_optimizer(spec, learning_rate=None) -> Optimizer:
     """``spec``: a name of :data:`DEFAULT_LEARNING_RATES` or an
     :class:`Optimizer` (passed through).  ``learning_rate`` overrides

@@ -1,0 +1,216 @@
+"""The process group as a mesh: one process per device, one replica each.
+
+Counterpart of ``distkeras_tpu/parallel/mesh.py``.  The reference builds
+a ``jax.sharding.Mesh`` over every device the (multi-host) runtime sees
+and lets XLA insert the collectives; the port runs one process per
+device, joined by ``torch.distributed``, and the ``data`` axis of a
+:class:`Mesh` is the process group: its size is the world size and this
+process is replica ``rank``.  The collectives are explicit
+``torch.distributed`` calls (``parallel/collectives.py``).
+
+:func:`initialize_multihost` joins the group from the environment a
+launcher sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
+/ ``MASTER_PORT``, or a ``file://`` ``init_method``).  The backend
+follows the device: NCCL on ``cuda:LOCAL_RANK`` (the default), gloo when
+the caller passes ``device="cpu"``; there is no silent switch from one
+to the other, and no card without ``device="cpu"`` raises.  Only the
+``data`` axis may exceed 1: tensor, sequence, pipeline and expert
+parallelism are ROADMAP A7b.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+
+# Canonical axis names, in mesh order (the reference's).
+AXES = ("data", "model", "pipeline", "seq", "expert")
+
+_A7B = ("is not ported yet (ROADMAP A7b: tensor, sequence, pipeline and "
+        "expert parallelism); the port's mesh has the data axis only")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Logical mesh shape; ``-1`` on ``data`` means every process."""
+
+    data: int = -1
+    model: int = 1
+    pipeline: int = 1
+    seq: int = 1
+    expert: int = 1
+
+    def resolve(self, n_devices: int) -> tuple[int, ...]:
+        fixed = self.model * self.pipeline * self.seq * self.expert
+        if n_devices % fixed:
+            raise ValueError(
+                f"{n_devices} devices not divisible by "
+                f"model*pipeline*seq*expert={fixed}")
+        data = self.data if self.data != -1 else n_devices // fixed
+        total = data * fixed
+        if total != n_devices:
+            raise ValueError(
+                f"MeshSpec {self} needs {total} devices, have {n_devices}")
+        return (data, self.model, self.pipeline, self.seq, self.expert)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """The data-parallel mesh of this process: ``shape`` (every axis of
+    :data:`AXES`, only ``data`` above 1), the process ``group`` (None
+    for a single process outside any group), and this process's
+    ``rank`` on the data axis."""
+
+    shape: dict
+    group: object = None
+    rank: int = 0
+
+    @property
+    def size(self) -> int:
+        return int(self.shape["data"])
+
+    @property
+    def backend(self) -> str | None:
+        return None if self.group is None else dist.get_backend(self.group)
+
+
+def check_axes(shape) -> None:
+    """Raise for a non-data axis above 1 (ROADMAP A7b)."""
+    for ax in AXES[1:]:
+        if int(shape.get(ax, 1)) > 1:
+            raise NotImplementedError(f"a mesh with {ax}={shape[ax]} {_A7B}")
+
+
+def make_mesh(spec: MeshSpec | None = None, group=None) -> Mesh:
+    """The mesh over ``group`` (default: the initialized default group,
+    else this process alone)."""
+    spec = spec or MeshSpec()
+    if group is None and dist.is_available() and dist.is_initialized():
+        group = dist.group.WORLD
+    if group is None:
+        world, rank = 1, 0
+    else:
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+    shape = dict(zip(AXES, spec.resolve(world)))
+    check_axes(shape)
+    return Mesh(shape=shape, group=group, rank=rank)
+
+
+def local_device_count() -> int:
+    """Devices a process of the port trains on: one."""
+    return 1
+
+
+def initialize_multihost(init_method: str | None = None,
+                         world_size: int | None = None,
+                         rank: int | None = None,
+                         local_rank: int | None = None, device=None,
+                         backend: str | None = None,
+                         timeout: float = 600.0) -> torch.device:
+    """Join the process group; returns this process's device.
+
+    ``world_size`` / ``rank`` / ``local_rank`` default to ``WORLD_SIZE``
+    / ``RANK`` / ``LOCAL_RANK``; ``init_method`` to ``env://`` (which
+    reads ``MASTER_ADDR`` / ``MASTER_PORT``).  ``device`` defaults to
+    ``cuda:LOCAL_RANK`` (made the current device), with NCCL; with
+    ``device="cpu"`` the backend is gloo.  ``backend="gloo"`` with a
+    CUDA device is an explicit choice (ranks sharing one card, where
+    NCCL refuses them); ``backend="nccl"`` with the CPU raises.
+    """
+    env = os.environ
+    world_size = int(env.get("WORLD_SIZE", 1) if world_size is None
+                     else world_size)
+    rank = int(env.get("RANK", 0) if rank is None else rank)
+    local_rank = int(env.get("LOCAL_RANK", rank) if local_rank is None
+                     else local_rank)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available: the port's ranks run on the "
+                "GPU by default — pass device='cpu' (gloo) to run them on "
+                "the CPU")
+        device = torch.device("cuda", local_rank)
+    device = torch.device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("backend='nccl' needs a CUDA device; the CPU "
+                         "ranks take gloo")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        backend, init_method=init_method or "env://",
+        world_size=world_size, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout))
+    return device
+
+
+def _world() -> tuple[object, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD, dist.get_world_size()
+    return None, 1
+
+
+def _backend_device(group):
+    """Where a collective's host-side integers live for ``group``."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def equal_across_hosts(local_count: int, what: str) -> int:
+    """Assert every process computed the same ``local_count``; returns
+    it.  A process that would run more collective rounds than its peers
+    deadlocks the group, so the imbalance raises on every process,
+    before the loop.  No collective for a single process."""
+    group, world = _world()
+    if world == 1:
+        return local_count
+    dev = _backend_device(group)
+    mine = torch.tensor([int(local_count)], dtype=torch.int64, device=dev)
+    lo, hi = mine.clone(), mine.clone()
+    dist.all_reduce(lo, dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(hi, dist.ReduceOp.MAX, group=group)
+    if int(lo) != int(hi):
+        raise ValueError(
+            f"unequal {what} across processes: {int(lo)}..{int(hi)} — "
+            "every process must contribute the same count or the "
+            "collectives deadlock; pad or trim the per-process shards")
+    return local_count
+
+
+def per_host_rows(global_bs: int, what: str = "global batch") -> int:
+    """Rows each process feeds per global batch: ``global_bs /
+    world size``, validated to divide evenly."""
+    _, world = _world()
+    if global_bs % world:
+        raise ValueError(
+            f"{what} {global_bs} (batch_size x num_workers) must divide "
+            f"by the process count ({world})")
+    return global_bs // world
+
+
+def global_batch(arr, mesh: Mesh, axis: int = 0):
+    """This rank's rows of a global batch: ``arr`` split in order along
+    ``axis`` into ``mesh.size`` equal blocks, block ``rank`` — where
+    ``P("data")`` places the rows in the reference."""
+    n = mesh.size
+    if n == 1:
+        return arr
+    rows = arr.shape[axis]
+    if rows % n:
+        raise ValueError(f"global batch of {rows} rows does not split "
+                         f"over {n} data-parallel ranks")
+    b = rows // n
+    idx = [slice(None)] * arr.ndim
+    idx[axis] = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    return arr[tuple(idx)]
+
+
+__all__ = ["AXES", "MeshSpec", "Mesh", "make_mesh", "local_device_count",
+           "initialize_multihost", "equal_across_hosts", "per_host_rows",
+           "global_batch", "check_axes"]

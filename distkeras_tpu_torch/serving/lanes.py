@@ -102,7 +102,7 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
     value that two products round to either side of a .5 boundary can
     part them).  An int8 tree (``quantize_params``) serves as is.
 
-    Not ported yet: ``plan=`` / ``mesh=`` (ROADMAP A7) and ``hot_swap``
+    Not ported yet: ``plan=`` / ``mesh=`` (ROADMAP A7b) and ``hot_swap``
     (A10); each raises naming its item.  Runs on ``device`` (the card
     unless ``device="cpu"``), where the params must already live.
     """
@@ -120,7 +120,7 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
                  plan=None, mesh=None, hot_swap: bool = False,
                  device=None):
         if plan is not None or mesh is not None:
-            raise _not_ported("pod-sharded serving (plan= / mesh=)", "A7")
+            raise _not_ported("pod-sharded serving (plan= / mesh=)", "A7b")
         if hot_swap:
             raise _not_ported("hot_swap", "A10")
         if not isinstance(kv_int8, bool):

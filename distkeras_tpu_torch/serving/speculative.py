@@ -65,7 +65,7 @@ class SpeculativeBatcher(_LaneEngine):
     degrades the engine for good to a target-only decode step: requests
     still complete, and greedy ones keep their tokens.  Either tree may be
     int8 (``quantize_params``); the engine has no ``kv_int8`` mode, as in
-    the reference.  ``plan=`` / ``mesh=`` raise (ROADMAP A7).
+    the reference.  ``plan=`` / ``mesh=`` raise (ROADMAP A7b).
     """
 
     def __init__(self, params, draft_params, cfg: TransformerConfig,
@@ -75,7 +75,7 @@ class SpeculativeBatcher(_LaneEngine):
                  max_queue: int = 0, clock=None, prefix_pool=None,
                  plan=None, mesh=None, device=None):
         if plan is not None or mesh is not None:
-            raise _not_ported("pod-sharded serving (plan= / mesh=)", "A7")
+            raise _not_ported("pod-sharded serving (plan= / mesh=)", "A7b")
         self.device = resolve_device(device)
         check_on_device(params, self.device)
         check_on_device(draft_params, self.device)

@@ -10,7 +10,9 @@ the ``eval_every`` hook's ``(round, {"loss", metric...})`` records
 for bit (``Dataset.shuffle(seed)``, the same batch streams).
 
 Runs on the card unless ``device="cpu"``.  The checkpoint knobs of the
-reference raise ``NotImplementedError`` (ROADMAP A8).
+reference raise ``NotImplementedError`` (ROADMAP A8).  The data-parallel
+trainers (``trainers/distributed.py``, ``trainers/elastic.py``) run one
+replica per process of a ``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -31,6 +33,30 @@ _UNPORTED = {
 }
 
 
+def normalize_zero_args(zero, zero1: bool, zero_bucket_mb,
+                        zero1_bucket_mb):
+    """Reconcile the ``zero=`` stage knob with its deprecated aliases
+    (one definition for ``DistributedTrainer`` and ``LMTrainer``, as in
+    the reference).  Returns ``(zero, zero1, zero_bucket_mb)`` with
+    ``zero1 == (zero == 1)``."""
+    if zero is None:
+        zero = 1 if zero1 else 0
+    elif zero1 and zero != 1:
+        raise ValueError(
+            f"zero1=True is the deprecated alias of zero=1 and "
+            f"cannot combine with zero={zero}; pass zero= alone")
+    if zero not in (0, 1, 2, 3):
+        raise ValueError(
+            f"zero must be 0 (off), 1, 2 or 3, got {zero!r}")
+    if zero_bucket_mb is not None and zero1_bucket_mb is not None:
+        raise ValueError(
+            "pass only one of zero_bucket_mb / zero1_bucket_mb "
+            "(the latter is the deprecated alias)")
+    if zero_bucket_mb is None:
+        zero_bucket_mb = zero1_bucket_mb
+    return zero, zero == 1, zero_bucket_mb
+
+
 def reject_unported(owner: str, unported: dict, table: dict) -> None:
     """Raise for a knob of the reference that the port does not have yet
     (``table``: name -> (default, ROADMAP item)), unless it is left at
@@ -43,7 +69,7 @@ def reject_unported(owner: str, unported: dict, table: dict) -> None:
         if value != default:
             raise NotImplementedError(
                 f"{owner}({name}=...) is not ported yet (ROADMAP {item}); "
-                "the port trains on one device without checkpoints")
+                "the port trains without checkpoints")
 
 
 class Trainer:

@@ -13,10 +13,11 @@ synchronization rule against the center variable:
   * Ensemble — no synchronization; independent models
 
 A rule is a function ``(local_tv, center_tv, reduce) -> (new_local_tv,
-new_center_tv)`` where ``reduce`` sums a tensor over the replicas: the
-identity here, where one process trains one replica on its one device,
-and ``torch.distributed.all_reduce`` when replicas span devices (ROADMAP
-A7); the rules stay as they are.
+new_center_tv)`` where ``reduce`` sums a tensor over the replicas: an
+``all_reduce(SUM)`` over the process group, where each rank trains one
+replica (the identity for a single process).  Rank ``r`` trains on the
+slab of each round that the reference's stacked replica ``r`` takes;
+the center variable is computed alike on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.models.adapter import _gather
+from distkeras_tpu_torch.parallel.collectives import all_gather, all_reduce
 from distkeras_tpu_torch.trainers.distributed import DistributedTrainer
 from distkeras_tpu_torch.trainers.optim import Optimizer
 from distkeras_tpu_torch.utils.serialization import (keras_numpy_from_module,
@@ -82,6 +84,22 @@ class ReplicaTrainer(DistributedTrainer):
     _supports_device_data = True
 
     def __init__(self, keras_model, loss="categorical_crossentropy", **kw):
+        if kw.pop("fsdp", False):
+            raise ValueError(
+                f"{type(self).__name__} cannot use FSDP: each replica "
+                "holds intentionally divergent full weights (that is the "
+                "algorithm), so there is no single parameter set to "
+                "scatter. Use ADAG/DynSGD with fsdp=True for "
+                "memory-sharded data parallelism.")
+        plan = kw.get("plan")
+        if kw.pop("zero1", False) or kw.pop("zero", 0) or (
+                plan is not None and getattr(plan, "zero", 0)):
+            raise ValueError(
+                f"{type(self).__name__} cannot use zero1/zero=: each "
+                "replica runs its own full optimizer on intentionally "
+                "divergent weights (that is the algorithm), so there is "
+                "no single update to shard. Use ADAG/DynSGD with zero= "
+                "for the sharded stages.")
         super().__init__(keras_model, loss=loss, **kw)
         self.sync_fn = self.make_sync()
 
@@ -103,32 +121,46 @@ class ReplicaTrainer(DistributedTrainer):
     # ------------------------------------------------------------ fit
 
     def _round_stream(self, dataset: Dataset, window: int):
-        """Yield this replica's ``[window, B, ...]`` per round: the
-        reference's round ``[n, window, B, ...]``, replica 0's slab (the
-        only replica of a one-device process)."""
-        n = self.num_workers
+        """Yield this replica's ``[window, B, ...]`` per round: of the
+        reference's round ``[n, window, B, ...]``, slab ``rank``."""
+        n, rank = self.num_workers, self.mesh.rank
         for _ in range(self.num_epoch):
             for xs, ys in dataset.batches(
                     self.batch_size, features_col=self.features_col,
                     label_col=self.label_col, window=n * window):
-                xs = xs.reshape((n, window) + xs.shape[1:])[0]
-                ys = ys.reshape((n, window) + ys.shape[1:])[0]
+                xs = xs.reshape((n, window) + xs.shape[1:])[rank]
+                ys = ys.reshape((n, window) + ys.shape[1:])[rank]
                 yield (torch.as_tensor(xs, device=self.device),
                        torch.as_tensor(ys, device=self.device))
 
     def _index_rounds(self, dataset: Dataset, window: int):
-        """Device-resident analogue of :meth:`_round_stream`: the columns
-        staged once, then one ``[window, B]`` index block per round (the
+        """Device-resident analogue of :meth:`_round_stream`: this
+        replica's stream staged once (rounds ``[rounds, n, w*B]``, slab
+        ``rank``), then one ``[window, B]`` index block per round (the
         same rows, in order)."""
+        n, rank = self.num_workers, self.mesh.rank
         wb = window * self.batch_size
-        rounds = len(dataset) // (self.num_workers * wb)
-        X = torch.as_tensor(dataset[self.features_col], device=self.device)
-        Y = torch.as_tensor(dataset[self.label_col], device=self.device)
+        rounds = len(dataset) // (n * wb)
+
+        def stage(col):
+            a = np.asarray(col[:rounds * n * wb])
+            a = a.reshape((rounds, n, wb) + a.shape[1:])[:, rank]
+            return torch.as_tensor(np.ascontiguousarray(
+                a.reshape((rounds * wb,) + a.shape[2:])), device=self.device)
+
+        X, Y = stage(dataset[self.features_col]), stage(
+            dataset[self.label_col])
         for _ in range(self.num_epoch):
             for r in range(rounds):
                 idx = torch.arange(r * wb, (r + 1) * wb, device=self.device
                                    ).reshape(window, self.batch_size)
                 yield _gather(X, idx), _gather(Y, idx)
+
+    def _reduce(self):
+        """The rules' ``reduce``: the sum over the group's replicas."""
+        if self.mesh.group is None:
+            return local_sum
+        return lambda t: all_reduce(t.contiguous().clone(), self.mesh)
 
     def _window(self, dataset: Dataset) -> int:
         return self.communication_window
@@ -138,7 +170,7 @@ class ReplicaTrainer(DistributedTrainer):
         state = self._replica_state()
         center = self.adapter.initial_tv()
         train_step = self.adapter.make_train_step()
-        n, reduce = self.num_workers, local_sum
+        n, reduce = self.num_workers, self._reduce()
         rounds = (self._index_rounds(dataset, window) if self.device_data
                   else self._round_stream(dataset, window))
         losses = []
@@ -152,7 +184,7 @@ class ReplicaTrainer(DistributedTrainer):
                 with torch.no_grad():
                     for p, v in zip(state.tv, new_tv):
                         p.copy_(v)
-                losses.append(reduce(torch.stack(local).mean()) / n)
+                losses.append(torch.stack(local).mean())
             self._eval_hook({"state": state, "center_tv": center}, rnd)
         self._require_steps(losses, self.batch_size * n * window,
                             len(dataset))
@@ -280,7 +312,7 @@ class EnsembleTrainer(ReplicaTrainer):
                              label_col=label_col)
 
     def _replica_state(self):
-        member = 0  # the one member of a one-device process
+        member = self.mesh.rank  # this rank trains member `rank`
         model = self.adapter.model
         tv, ntv = keras_numpy_from_module(model)
         seed = None if self.seed is None else self.seed + member
@@ -291,7 +323,16 @@ class EnsembleTrainer(ReplicaTrainer):
             module_from_keras_numpy(model, tv, ntv)
 
     def _export(self, state) -> list:
-        return [self.adapter.export_model(st) for st in self._final_states]
+        """Every member on every rank: each member's weights gathered
+        from the rank that trained it."""
+        mine = self._final_states[0]
+        if self.mesh.group is None:
+            return [self.adapter.export_model(mine)]
+        stacked = [all_gather(t.detach().reshape(-1), self.mesh)
+                   for t in mine.tv]
+        return [self.adapter.export_model(mine.replace(tv=[
+            s[i].reshape(t.shape) for s, t in zip(stacked, mine.tv)]))
+            for i in range(self.num_workers)]
 
 
 def _reinit_weights(weights, seed=None):

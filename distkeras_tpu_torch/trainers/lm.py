@@ -17,8 +17,17 @@ shape (``data.packing.pack_documents``).
 ``device_data=True`` stages the rows on the device once and gathers each
 step's batch there by index; ``profile_dir`` writes a ``torch.profiler``
 chrome trace of a few steady steps.  Runs on the card unless
-``device="cpu"``.  The parallel and checkpoint knobs of the reference
-raise ``NotImplementedError``.
+``device="cpu"``.
+
+Data parallelism: one process per device, joined by ``torch.distributed``
+(``parallel/mesh.py``); ``batch_size`` is the global batch and rank ``r``
+trains on rows ``[r B/n, (r+1) B/n)`` of each microbatch, as
+``P("data")`` places them in the reference.  ``zero=1|2|3``,
+``merge_rule``, ``sync_every``, ``compress`` / ``topk_frac`` take the
+reference's meanings, compositions and refusals.  ``rules``,
+``microbatches``, ``fsdp`` and a non-data mesh axis (tensor, sequence,
+pipeline, expert parallelism: ROADMAP A7b) and the checkpoint knobs
+(A8) raise ``NotImplementedError``.
 
 ``LoRATrainer`` fine-tunes LoRA adapters over a frozen base under the
 same contract (``distkeras_tpu/trainers/lm.py::LoRATrainer``).
@@ -40,17 +49,26 @@ from distkeras_tpu_torch.models.lora import (LoRAConfig, _validate,
                                              lora_init, lora_mask,
                                              lora_merge, make_lora_loss)
 from distkeras_tpu_torch.native import gather_rows
+from distkeras_tpu_torch.parallel.collectives import (DataParallel,
+                                                      ZeroOptimizer,
+                                                      all_reduce, gather_bucket,
+                                                      gather_tree, scatter,
+                                                      true_div,
+                                                      zero_validate)
+from distkeras_tpu_torch.parallel.exchange import (ExchangeConfig,
+                                                   ExchangeOptimizer,
+                                                   merge_local_params,
+                                                   residual_norm_of)
+from distkeras_tpu_torch.parallel.mesh import check_axes, make_mesh
+from distkeras_tpu_torch.parallel.tree import tree_leaves
+from distkeras_tpu_torch.trainers.base import normalize_zero_args
 from distkeras_tpu_torch.trainers.optim import LM_NAMES, Optimizer
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
 
 # Reference knobs not ported yet: name -> (default, ROADMAP item).
 _UNPORTED = {
-    "mesh": (None, "A7"), "rules": (None, "A7"), "microbatches": (None, "A7"),
-    "fsdp": (False, "A7"), "zero": (None, "A7"), "zero1": (False, "A7"),
-    "zero1_bucket_mb": (None, "A7"), "zero_bucket_mb": (None, "A7"),
-    "merge_rule": ("mean", "A7"),
-    "sync_every": (1, "A7"), "compress": (None, "A7"),
-    "topk_frac": (0.01, "A7"), "checkpoint_dir": (None, "A8"),
+    "rules": (None, "A7b"), "microbatches": (None, "A7b"),
+    "fsdp": (False, "A7b"), "checkpoint_dir": (None, "A8"),
     "checkpoint_every": (0, "A8"), "max_checkpoints": (3, "A8"),
     "resume": (False, "A8"), "checkpoint_backend": ("auto", "A8"),
 }
@@ -73,6 +91,120 @@ def _device_bytes_limit(device: torch.device) -> int | None:
 def nll_to_perplexity(mean_nll: float) -> float:
     """exp(mean NLL) with the reference's overflow guard."""
     return math.exp(mean_nll) if mean_nll < 700 else float("inf")
+
+
+def _make_zero_step(cfg: tfm.TransformerConfig, zopt: ZeroOptimizer,
+                    mesh, stage: int, grad_accum: int, probe: bool):
+    """The ZeRO stage-2/3 train step (``distkeras_tpu/trainers/lm.py::
+    _make_zero_step``): each microbatch's gradient buckets are
+    reduce-scattered into this rank's accumulated rows as they are made,
+    so a rank only keeps its ``1/n`` gradient shard; the update runs on
+    the shards.  Stage 2 keeps ``params`` whole and all-gathers the new
+    parameters; stage 3 takes ``params`` as the shards (a tree of
+    ``[cols]`` leaves), gathers each bucket on use inside the loss
+    (``gather_bucket``) and has no parameter gather after the update."""
+    n = mesh.size
+
+    def step(carry, tokens, dropout_rng=None, segment_ids=None):
+        params, zs = carry
+        layout = zs.layout
+        rng = dropout_rng if cfg.dropout > 0 else None
+        leaves = tree_leaves(params)
+        acc, loss = None, None
+        for i in range(grad_accum):
+            tok = tokens[i] if grad_accum > 1 else tokens
+            seg = (None if segment_ids is None else segment_ids[i]
+                   if grad_accum > 1 else segment_ids)
+            with torch.enable_grad():
+                if stage >= 3:
+                    full = layout.unflatten(layout.unpack(
+                        [gather_bucket(r, mesh)
+                         for r in layout.pack_rows(leaves)]))
+                    li = tfm.lm_loss(full, tok, cfg, dropout_rng=rng,
+                                     segment_ids=seg)
+                    rows = layout.pack_rows(torch.autograd.grad(li, leaves))
+                else:
+                    li = tfm.lm_loss(params, tok, cfg, dropout_rng=rng,
+                                     segment_ids=seg)
+                    grads = torch.autograd.grad(li, leaves,
+                                                allow_unused=True)
+                    grads = [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(leaves, grads)]
+                    rows = [scatter(b, mesh) for b in layout.pack(grads)]
+            acc = rows if acc is None else [a + r for a, r in zip(acc, rows)]
+            loss = li.detach() if loss is None else loss + li.detach()
+        zopt.set_shard_grads(zs, [true_div(a, n * grad_accum) for a in acc])
+        norm = zopt.grad_norm(None, zs) if probe else None
+        if stage >= 3:
+            zopt.step_shards(zs)
+        else:
+            zopt.update(params, zs)
+        for s_ in zs.shards:
+            s_.grad = None
+        loss = loss / grad_accum
+        if probe:
+            return (params, zs), (loss, {"grad_norm": norm})
+        return (params, zs), loss
+
+    return step
+
+
+def _make_localsgd_step(cfg: tfm.TransformerConfig, optimizer: Optimizer,
+                        mesh, config):
+    """Local SGD (``distkeras_tpu/trainers/lm.py::_make_localsgd_step``):
+    ``step((params, opt), tokens[H, B/n, S+1])`` takes ``H =
+    config.sync_every`` purely local optimizer steps on this rank's
+    rows, then one merge over the group — the parameter deltas by the
+    configured rule (per fusion bucket) and the floating optimizer state
+    averaged.  The loss is this rank's mean over the period."""
+    from distkeras_tpu_torch.models.adapter import sync_optimizer_state
+
+    def step(carry, tokens, dropout_rng=None, segment_ids=None):
+        if dropout_rng is not None or segment_ids is not None:
+            raise ValueError(
+                "sync_every > 1 does not support dropout or packed "
+                "segments (replica-local loss)")
+        params, opt_state = carry
+        leaves = tree_leaves(params)
+        start = [p.detach().clone() for p in leaves]
+        losses = []
+        for h in range(tokens.shape[0]):
+            for p in leaves:
+                p.grad = None
+            loss = tfm.lm_loss(params, tokens[h], cfg)
+            loss.backward()
+            optimizer.update(params, opt_state)
+            losses.append(loss.detach())
+        with torch.no_grad():
+            for p, v in zip(leaves, merge_local_params(start, leaves, config,
+                                                       mesh)):
+                p.copy_(v)
+            sync_optimizer_state(opt_state, config, mesh)
+        for p in leaves:
+            p.grad = None
+        return (params, opt_state), torch.stack(losses).mean()
+
+    return step
+
+
+def _global_count_loss(fn, mesh):
+    """``fn`` (an ``lm_loss``) rescaled for packed rows split over the
+    group: the reference's mean runs over the global batch's valid
+    targets, so this rank's mean over its own ``c`` of them is scaled by
+    ``c n / C`` (``C`` summed over the group) — the group mean of the
+    scaled losses is the global mean, and so is its gradient."""
+    def loss(params, tokens, cfg, attention_fn, apply_fn, rng, hidden_fn,
+             segment_ids=None):
+        out = fn(params, tokens, cfg, attention_fn, apply_fn, rng,
+                 hidden_fn, segment_ids)
+        if segment_ids is None:
+            return out
+        seg = segment_ids.to(torch.int32)
+        c = ((seg[:, 1:] == seg[:, :-1]) & (seg[:, :-1] != 0)).sum().float()
+        total = all_reduce(c.clone(), mesh)
+        return out * (c * mesh.size) / total.clamp(min=1.0)
+
+    return loss
 
 
 def _valid_targets(seg) -> int:
@@ -109,7 +241,12 @@ class LMTrainer:
                  shuffle: bool = False, eval_every: int = 0,
                  ema_decay: float | None = None, device_data: bool = False,
                  tokens_col: str = "tokens", profile_dir: str | None = None,
-                 profile_steps: int = 3, device=None, **unported):
+                 profile_steps: int = 3, device=None, mesh=None,
+                 zero: int | None = None, zero1: bool = False,
+                 zero1_bucket_mb: float | None = None,
+                 zero_bucket_mb: float | None = None,
+                 merge_rule: str = "mean", sync_every: int = 1,
+                 compress=None, topk_frac: float = 0.01, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"LMTrainer got an unexpected keyword "
@@ -118,7 +255,10 @@ class LMTrainer:
             if value != default:
                 raise NotImplementedError(
                     f"LMTrainer({name}=...) is not ported yet (ROADMAP "
-                    f"{item}); the port trains on one device")
+                    f"{item}); the port's mesh is data-parallel, without "
+                    "checkpoints")
+        zero, zero1, zero_bucket_mb = normalize_zero_args(
+            zero, zero1, zero_bucket_mb, zero1_bucket_mb)
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if eval_every < 0:
@@ -139,6 +279,75 @@ class LMTrainer:
         self.optimizer = Optimizer(optimizer, learning_rate, weight_decay,
                                    grad_clip_norm, ema_decay)
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        check_axes(self.mesh.shape)
+        n = self.mesh.size
+        if self.mesh.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError(
+                f"the process group runs NCCL but the trainer's device is "
+                f"{self.device}; CPU ranks join with gloo (device='cpu')")
+        if batch_size % n:
+            raise ValueError(
+                f"batch_size={batch_size} (the global batch) must divide "
+                f"by the data axis ({n} ranks)")
+        if n > 1 and cfg.num_experts:
+            raise NotImplementedError(
+                "MoE over more than one rank is not ported yet (ROADMAP "
+                "A7b, expert parallelism): its load-balancing loss is a "
+                "global-batch statistic")
+        if zero_bucket_mb is not None and not zero:
+            raise ValueError(
+                "zero_bucket_mb/zero1_bucket_mb only apply with a "
+                "ZeRO stage (zero=/zero1=True)")
+        exchange = ExchangeConfig(
+            merge_rule=merge_rule, sync_every=sync_every,
+            compress=compress, topk_frac=topk_frac,
+            **({} if zero_bucket_mb is None
+               else {"bucket_mb": zero_bucket_mb}))
+        if not exchange.is_default:
+            if cfg.num_experts:
+                raise ValueError(
+                    "merge_rule/sync_every/compress compose with the "
+                    "pure data-parallel mesh only (no model/seq/"
+                    "pipeline/expert axes, no fsdp, no MoE): the "
+                    "exchange layer computes per-replica gradients in "
+                    "a shard_map over the data axis")
+            if cfg.dropout > 0:
+                raise ValueError(
+                    "merge_rule/sync_every/compress do not compose "
+                    "with cfg.dropout > 0: the dropout mask stream is "
+                    "a global-batch quantity a replica-local loss "
+                    "would draw differently")
+            if device_data:
+                raise ValueError(
+                    "merge_rule/sync_every/compress do not compose "
+                    "with device_data=True: the staged data plane "
+                    "does not route through the local-gradient "
+                    "shard_map")
+            if zero and not (zero == 1 and exchange.compress == "int8"
+                             and exchange.sync_every == 1):
+                raise ValueError(
+                    "the ZeRO stages compose with zero=1 + "
+                    "compress='int8' only (the chunked codec compresses "
+                    "the reduce-scatter leg); adasum, local-SGD, codec "
+                    "rules and stages 2/3 replace the exchange the "
+                    "sharded update rides")
+            if exchange.sync_every > 1 and grad_accum > 1:
+                raise ValueError(
+                    "sync_every > 1 with grad_accum > 1 is not "
+                    "supported: the local-SGD period already scans "
+                    "sync_every microbatches per call")
+        if probe_metrics and exchange.sync_every > 1:
+            raise ValueError(
+                "probe_metrics with sync_every > 1 is not supported: "
+                "the local-SGD period has no single per-step global "
+                "gradient to probe")
+        if zero:
+            zero_validate(self.mesh, optimizer, stage=zero)
+        self.zero, self.zero1 = zero, zero1
+        self._zero_bucket_mb = zero_bucket_mb
+        self.exchange = exchange
+        self.residual_norm = None
         self.batch_size = batch_size
         self.num_epoch = num_epoch
         self.grad_accum = grad_accum
@@ -173,6 +382,23 @@ class LMTrainer:
 
     def init_params(self):
         return tfm.init_params(self.seed, self.cfg, device=self.device)
+
+    def _dp_optimizer(self):
+        """The optimizer the step drives: ``self.optimizer`` wrapped for
+        this configuration's exchange over the group (none for a single
+        process and the default exchange, the inner one for local SGD,
+        whose step merges by itself)."""
+        opt, mesh, ex = self.optimizer, self.mesh, self.exchange
+        bucket_mb = self._zero_bucket_mb or ex.bucket_mb
+        if self.zero == 1 and ex.compress == "int8":
+            return ExchangeOptimizer(opt, mesh, ex, zero1=True)
+        if self.zero:
+            return ZeroOptimizer(opt, mesh, bucket_mb)
+        if ex.needs_grad_exchange:
+            return ExchangeOptimizer(opt, mesh, ex)
+        if ex.sync_every == 1 and mesh.group is not None:
+            return DataParallel(opt, mesh)
+        return opt
 
     def _nll(self, params, tokens, segment_ids=None):
         """The evaluation NLL of the trained state."""
@@ -260,12 +486,28 @@ class LMTrainer:
                 raise ValueError(
                     f"eval_tokens has {len(eval_tokens)} rows; one eval "
                     f"batch needs {bs}")
-        rows_per_step = bs * self.grad_accum
+        # The leading block of one step: the grad-accum depth or the
+        # local-SGD period (exclusive by construction).
+        feed = (self.grad_accum if self.grad_accum > 1
+                else self.exchange.sync_every)
+        rows_per_step = bs * feed
         n_rows = len(tokens) - (len(tokens) % rows_per_step)
         if not n_rows:
             raise ValueError(
                 f"dataset has {len(tokens)} rows; one step needs "
                 f"{rows_per_step} (batch_size x grad_accum)")
+        mesh = self.mesh
+        n, rank = mesh.size, mesh.rank
+        if n > 1 and self.exchange.needs_grad_exchange \
+                and segments is not None:
+            raise ValueError(
+                "gradient-exchange configurations do not support dropout "
+                "or packed segments (replica-local loss)")
+        b = bs // n  # this rank's rows of each microbatch
+        # This rank's stream rows, in consumption order: step j's block
+        # [feed, bs] holds its rows [:, rank * b:(rank + 1) * b].
+        mine = np.arange(n_rows).reshape(-1, feed, n, b)[:, :, rank].reshape(
+            -1)
 
         t0 = time.perf_counter()
         self.opt_state = None  # free the last run's state first
@@ -274,15 +516,35 @@ class LMTrainer:
         else:
             check_on_device(params, self.device)
             params = tfm._map_leaves(lambda p: p.detach().clone(), params)
-        opt_state = self.optimizer.init(params)
-        step = tfm.make_train_step(self.cfg, self.optimizer,
-                                   grad_accum=self.grad_accum,
-                                   loss_fn=self._loss_fn,
-                                   probe=self.probe_metrics)
+        opt = self._dp_optimizer()
+        opt_state = opt.init(params)
+        if self.zero >= 3:
+            # The persistent params are this rank's shards from here on.
+            params = opt_state.layout.unflatten(opt_state.shards)
+        if self.exchange.sync_every > 1:
+            step = _make_localsgd_step(self.cfg, self.optimizer, mesh,
+                                       self.exchange)
+        elif self.zero >= 2:
+            step = _make_zero_step(self.cfg, opt, mesh, self.zero,
+                                   self.grad_accum, self.probe_metrics)
+        else:
+            loss_fn = self._loss_fn
+            if n > 1 and segments is not None:
+                loss_fn = _global_count_loss(loss_fn or tfm.lm_loss, mesh)
+            step = tfm.make_train_step(self.cfg, opt,
+                                       grad_accum=self.grad_accum,
+                                       loss_fn=loss_fn,
+                                       probe=self.probe_metrics)
         drop = None
         if self.cfg.dropout > 0:
+            # Each rank draws its own masks (its rows differ).
             drop = torch.Generator(self.device).manual_seed(
-                self.seed + 0x5eed)
+                self.seed + 0x5eed + rank)
+
+        def full_params():
+            if self.zero >= 3:
+                return gather_tree(opt_state.layout, opt_state.shards, mesh)
+            return params
 
         eval_fn = None
         if eval_tokens is not None:
@@ -302,11 +564,12 @@ class LMTrainer:
 
             @torch.no_grad()
             def eval_fn(rnd):
+                p_eval = full_params()
                 if seg_chunks is None:
-                    mean = sum(float(self._nll(params, c))
+                    mean = sum(float(self._nll(p_eval, c))
                                for c in chunks) / len(chunks)
                 else:
-                    tot = sum(w * float(self._nll(params, c, sc))
+                    tot = sum(w * float(self._nll(p_eval, c, sc))
                               for c, sc, w in zip(chunks, seg_chunks,
                                                   weights))
                     mean = tot / max(sum(weights), 1)
@@ -318,47 +581,50 @@ class LMTrainer:
                 # Warm the eval call, so an eval round inside the capture
                 # records its steady run, not its first-call set-up.
                 with torch.no_grad():
-                    self._nll(params, chunks[0],
+                    self._nll(full_params(), chunks[0],
                               None if seg_chunks is None else seg_chunks[0])
 
         X_dev = seg_dev = None
+        local_rows = feed * b
         if self.device_data:
-            self._guard_staged_bytes(n_rows, tokens.shape[1],
+            self._guard_staged_bytes(len(mine), tokens.shape[1],
                                      segments is not None)
-            X_dev = self._rows(np.asarray(tokens[:n_rows], np.int32),
+            X_dev = self._rows(np.asarray(tokens[mine], np.int32),
                                torch.int32)
             if segments is not None:
-                seg_dev = self._rows(np.asarray(segments[:n_rows], np.int32),
+                seg_dev = self._rows(np.asarray(segments[mine], np.int32),
                                      torch.int32)
 
-        def batch_at(i):
-            """Rows ``[i, i + rows_per_step)`` of the stream on the device
-            (gathered from the staged stream by index under
-            ``device_data``), shaped for grad_accum."""
+        def batch_at(j):
+            """This rank's rows of step ``j`` on the device (gathered from
+            the staged stream by index under ``device_data``), shaped
+            ``[feed, B/n, S+1]`` when a step has a leading block."""
             if X_dev is not None:
-                idx = torch.arange(i, i + rows_per_step, device=self.device)
+                idx = torch.arange(j * local_rows, (j + 1) * local_rows,
+                                   device=self.device)
                 block = X_dev.index_select(0, idx).long()
                 seg = None if seg_dev is None else seg_dev.index_select(0,
                                                                         idx)
             else:
-                block = self._rows(tokens[i:i + rows_per_step], torch.long)
+                rows = mine[j * local_rows:(j + 1) * local_rows]
+                block = self._rows(tokens[rows] if n > 1 else
+                                   tokens[rows[0]:rows[-1] + 1], torch.long)
                 seg = None
                 if segments is not None:
-                    seg = self._rows(segments[i:i + rows_per_step],
-                                     torch.int32)
-            if self.grad_accum > 1:
-                block = block.reshape(self.grad_accum, bs, -1)
+                    seg = self._rows(segments[rows], torch.int32)
+            if feed > 1:
+                block = block.reshape(feed, b, -1)
                 if seg is not None:
-                    seg = seg.reshape(self.grad_accum, bs, -1)
+                    seg = seg.reshape(feed, b, -1)
             return block, seg
 
         carry, losses, probes, rnd = (params, opt_state), [], [], 0
         prof, prof_start = None, 2
         try:
             for _ in range(self.num_epoch):
-                for i in range(0, n_rows, rows_per_step):
+                for j in range(n_rows // rows_per_step):
                     rnd += 1
-                    block, seg = batch_at(i)
+                    block, seg = batch_at(j)
                     if self.profile_dir and rnd == prof_start:
                         prof = self._start_profile()
                     carry, out = step(carry, block, drop, seg)
@@ -390,13 +656,19 @@ class LMTrainer:
                 self.eval_history and self.eval_history[-1][0] == rnd):
             eval_fn(-1)  # final state not already evaluated
         params, opt_state = carry
-        # One device -> host transfer for the whole run.
-        self.history = torch.stack(losses).tolist()
+        params = full_params()
+        # One device -> host transfer for the whole run; the losses are
+        # the group's means (one all-reduce).
+        hist = torch.stack(losses).float()
+        if mesh.group is not None:
+            hist = true_div(all_reduce(hist, mesh), n)
+        self.history = hist.tolist()
         self.probe_history = ([{"grad_norm": g}
                                for g in torch.stack(probes).tolist()]
                               if probes else [])
         self._ema_params = opt_state.ema
         self.opt_state = opt_state
+        self.residual_norm = residual_norm_of(opt_state)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.training_time = time.perf_counter() - t0

@@ -158,15 +158,26 @@ class Optimizer:
             ema = _map_leaves(lambda p: p.detach().clone(), params)
         return OptState(opt, 0, ema, leaves)
 
+    def exchange(self, params, state: OptState) -> None:
+        """Merge the gradients over the data-parallel group: nothing to
+        do for one replica (``parallel/collectives.py`` wraps this)."""
+
+    def grad_norm(self, params, state: OptState):
+        """The global norm of the trained leaves' gradients (the
+        ``probe_metrics`` reading)."""
+        return global_norm([p.grad for p in state.leaves
+                            if p.grad is not None])
+
     @torch.no_grad()
-    def update(self, params, state: OptState) -> None:
+    def update(self, params, state: OptState, norm_fn=None) -> None:
         """One step, in place: clip, set the scheduled rate, step the
         torch optimizer, then move the EMA shadow toward the new
-        params."""
+        params.  ``norm_fn(grads)`` replaces the clip's global norm (a
+        sharded update sums it over the group)."""
         leaves = state.leaves
         grads = [p.grad for p in leaves if p.grad is not None]
         if self.grad_clip_norm is not None and grads:
-            norm = global_norm(grads)
+            norm = (norm_fn or global_norm)(grads)
             keep = norm < self.grad_clip_norm
             for g in grads:
                 g.copy_(torch.where(keep, g, (g / norm) * self.grad_clip_norm))

@@ -671,3 +671,67 @@ def test_kv_int8_engine_schedule_on_card_matches_cpu(cuda):
         solo = generate(card_p, p[None], cfg, len(got) - len(p),
                         kv_int8=True, use_prefill=False)
         np.testing.assert_array_equal(got, solo[0].cpu().numpy())
+
+
+def test_lm_zero1_in_a_world1_nccl_group_equals_zero_none(cuda, tmp_path):
+    """The data-parallel LM on the card in a world-1 NCCL group: zero=1
+    (reduce-scatter, shard update, all-gather through NCCL) gives the
+    plain exchange's losses and weights (elementwise update math)."""
+    import torch.distributed as dist
+
+    import distkeras_tpu_torch as dkt
+
+    cfg = dkt.TransformerConfig(vocab_size=64, d_model=128, n_heads=2,
+                                n_layers=2, d_ff=256, max_len=17)
+    tokens = np.random.default_rng(3).integers(0, 64, (8, 17)).astype(
+        np.int32)
+    np_params = dkt.params_to_numpy(dkt.init_params(0, cfg, device="cpu"))
+    dkt.initialize_multihost(init_method=f"file://{tmp_path}/rdv",
+                             world_size=1, rank=0, timeout=60)
+    try:
+        assert dist.get_backend() == "nccl"
+        runs = []
+        for kw in ({}, dict(zero=1), dict(zero=3)):
+            t = dkt.LMTrainer(cfg, batch_size=4, **kw)
+            out = t.train(tokens, params=dkt.params_from_numpy(np_params,
+                                                               "cuda"))
+            runs.append((t.history, dkt.params_to_numpy(out)))
+    finally:
+        dist.destroy_process_group()
+    (h0, p0) = runs[0]
+    for h, p in runs[1:]:
+        np.testing.assert_allclose(h, h0, rtol=1e-6)
+        for k in p0:
+            if isinstance(p0[k], dict):
+                continue
+            np.testing.assert_allclose(p[k], p0[k], rtol=1e-6, atol=1e-7)
+
+
+def test_two_rank_gloo_adag_on_card_equals_world1(cuda, tmp_path):
+    """Two ranks sharing the card over gloo (CUDA tensors), started by
+    deploy.Job: ADAG(num_workers=2) equals world-1 ADAG at twice the
+    batch on the same rows (Keras tolerance)."""
+    # tests/ is on the path (pytest's rootdir-relative import), as the
+    # suite's conftest imports helpers.
+    from helpers import make_blobs
+    from torch_dp_ranks import spawn
+
+    import distkeras_tpu_torch as dkt
+
+    x, y = make_blobs(n=256)
+    model = dkt.zoo.MLP(16, (32,), 4, seed=0)
+    weights = dkt.keras_numpy_from_module(model)[0]
+    data = dict(x=x, y=y, n_w=np.asarray(len(weights)),
+                **{f"w{i}": w for i, w in enumerate(weights)})
+    kw = dict(batch_size=8, communication_window=2, worker_optimizer="adam",
+              learning_rate=0.01)
+    got = spawn(tmp_path, 2, [dict(name="adag", kind="keras",
+                                   trainer="ADAG", kw=kw)], data,
+                device="cuda:0", backend="gloo")["adag"][0]
+    t = dkt.ADAG(model, loss="sparse_categorical_crossentropy",
+                 **dict(kw, batch_size=16))
+    out = t.train(dkt.Dataset.from_arrays(x, y))
+    np.testing.assert_allclose(got["history"], t.history, rtol=1e-4,
+                               atol=1e-5)
+    for i, w in enumerate(dkt.keras_numpy_from_module(out)[0]):
+        np.testing.assert_allclose(got[f"m0_w{i}"], w, rtol=1e-4, atol=1e-5)

@@ -233,7 +233,9 @@ def test_port_imports_neither_jax_nor_reference_package():
         "for name in ('trainers.elastic', 'native', 'data.tokenizer',\n"
         "             'data.prefetch', 'serving.lanes',\n"
         "             'serving.speculative', 'models.speculative', 'obs',\n"
-        "             'utils.locks', 'models.quant', 'models.lora'):\n"
+        "             'utils.locks', 'models.quant', 'models.lora',\n"
+        "             'parallel.exchange', 'parallel.async_tier',\n"
+        "             'trainers.async_dp', 'deploy'):\n"
         "    assert 'distkeras_tpu_torch.' + name in names, names\n"
         "from distkeras_tpu_torch.trainers.lm import LoRATrainer\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -228,13 +228,12 @@ def test_error_contracts(monkeypatch):
     for cls in (dkt.ADAG, dkt.DOWNPOUR, dkt.AEASGD):
         with pytest.raises(ValueError, match="exceeds visible devices"):
             cls(mlp(), num_workers=2, device="cpu")
+    # The data-parallel knobs (zero=, merge_rule=, sync_every=,
+    # compress=) are ported; rule-driven placements are ROADMAP A7b.
     for knob, value, item in (("checkpoint_dir", "/x", "A8"),
                               ("resume", True, "A8"),
-                              ("zero", 1, "A7"), ("fsdp", True, "A7"),
-                              ("plan", object(), "A7"),
-                              ("merge_rule", "adasum", "A7"),
-                              ("sync_every", 2, "A7"),
-                              ("compress", "int8", "A7")):
+                              ("fsdp", True, "A7b"),
+                              ("plan", object(), "A7b")):
         cls = dkt.SingleTrainer if item == "A8" else dkt.ADAG
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             cls(mlp(), device="cpu", **{knob: value})

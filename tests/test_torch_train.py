@@ -278,7 +278,10 @@ def test_lm_trainer_probe_ema_and_unported_knobs(rng):
     assert not torch.equal(out["tok_emb"], before["tok_emb"])  # a copy moved
     ema = tt.ema_params["tok_emb"]
     assert not torch.equal(ema, out["tok_emb"])
-    for knob, value, item in [("mesh", object(), "A7"), ("zero", 1, "A7"),
+    # mesh= and zero= are ported (data parallelism); the rule-driven
+    # placements and the pipeline are ROADMAP A7b.
+    for knob, value, item in [("rules", (), "A7b"), ("microbatches", 4, "A7b"),
+                              ("fsdp", True, "A7b"),
                               ("checkpoint_dir", "/x", "A8")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tlm.LMTrainer(tcfg, device="cpu", **{knob: value})
