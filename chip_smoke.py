@@ -74,7 +74,21 @@ each went through its kernels:
   ``num_workers=2`` on the CIFAR CNN, world-2 ADAG against world-1 at
   twice the batch) and phase ``async_dp`` (``AsyncDP(hosts=4)`` on the
   card against the CPU: event log, report and weights).  ``python3
-  chip_smoke.py --dp-rank MODE DIR`` is one rank of ``dp_keras``.
+  chip_smoke.py --dp-rank MODE DIR`` is one rank of ``dp_keras``;
+- checkpoint and resilience (phase ``resume``): (a) ``LMTrainer`` at
+  the training width with dropout 0.1, two straight 6-step runs (which
+  must be bit-identical), then the same trainer under a ``Supervisor``
+  with ``checkpoint_every=2`` and ``FaultPlan.preempt("train.round",
+  at=3)``: it resumes from step 2 and must end bit-identical to the
+  straight run (params, and rounds 3-6's losses), with save / restore /
+  load seconds, the checkpoint's GB and the step ms after the restore
+  against the straight run's; (b) the same with ``zero=1`` in a world-1
+  NCCL group; (c) two gloo ranks of ADAG on the CIFAR CNN (f32) under
+  ``resilience.cluster.run_cluster_local``, host 1 killed at a seeded
+  round: both hosts restart under epoch 1 and the job's weights must
+  equal a straight run's bit for bit.  ``python3 chip_smoke.py
+  --cluster-rank SPEC`` is one host of (c).  The script sets
+  ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before CUDA starts.
 
 Usage: python3 chip_smoke.py [--profile]     (needs one CUDA device)
 
@@ -93,10 +107,11 @@ it under ``"f32_lse_causal"`` and the engine's prefill shapes under
 ``"bf16_causal_spec_warm"`` and the f32 speculative warm-up of
 ``int8_serve`` under ``"f32_causal_spec_int8_warm"``, and its launches
 those of every main-path run: serve, engine, train, long_train, the
-four model-surface phases and ``dp`` (``launches_by_path``; a run that only
-serves a comparison is not counted); the backward kernels'
-times are the training case (f32, causal) and their launches those of
-the training runs (train, long_train, moe_train, lora_train, dp), with the
+four model-surface phases, ``dp`` and ``resume`` (the supervised runs
+of (a) and (b)) (``launches_by_path``; a run that only serves a
+comparison is not counted); the backward kernels' times are the
+training case (f32, causal) and their launches those of the training
+runs (train, long_train, moe_train, lora_train, dp, resume), with the
 bf16 causal case beside it under ``"bf16_causal"``; each kernel also
 carries its seq-4096 f32 readings (causal, and window 1024).
 """
@@ -109,6 +124,11 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# cuBLAS picks its GEMM reductions deterministically only with a fixed
+# workspace, set before CUDA starts (phase resume holds a resumed run
+# against a straight one bit for bit).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import torch
@@ -2383,6 +2403,300 @@ def async_dp_phase():
 
 
 
+# ----------------------------------------------------- checkpoint / resume
+
+RESUME_STEPS = 6       # rounds of the straight run
+RESUME_EVERY = 2       # checkpoint_every of the supervised run
+RESUME_PREEMPT = 3     # the round FaultPlan.preempt stops
+# Phase resume (c): the CIFAR CNN (f32) over two gloo ranks sharing the
+# card, CLUSTER_ROUNDS rounds of window 2 x 2 ranks x CLUSTER_BATCH rows.
+CLUSTER_BATCH = 512
+CLUSTER_ROUNDS = 8
+CLUSTER_ROWS = CLUSTER_ROUNDS * 2 * 2 * CLUSTER_BATCH
+
+
+def round_clock(trainer):
+    """Time an LMTrainer's rounds: wrap its ``_checkpoint`` (called once
+    a round, after the step) and ``_load_carry`` (the restored state into
+    the live one) with a device sync and a timestamp at entry and exit.
+    Returns ``{"rounds": {round: (entry, exit)}, "loaded": (entry,
+    exit)}``; a round's step ms is its entry minus the previous round's
+    exit (so no save is inside it)."""
+    stamps = {"rounds": {}, "loaded": None}
+    ckpt, load = trainer._checkpoint, trainer._load_carry
+
+    def timed_ckpt(state, rnd, final=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return ckpt(state, rnd, final)
+        finally:
+            if not final:
+                stamps["rounds"][rnd] = (t0, time.perf_counter())
+
+    def timed_load(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load(*args)
+        torch.cuda.synchronize()
+        stamps["loaded"] = (t0, time.perf_counter())
+
+    trainer._checkpoint, trainer._load_carry = timed_ckpt, timed_load
+    return stamps
+
+
+def step_ms(stamps, first, last):
+    """Mean step ms of rounds ``first..last`` (each after the previous
+    round's exit)."""
+    r = stamps["rounds"]
+    return 1e3 * sum(r[i][0] - r[i - 1][1]
+                     for i in range(first, last + 1)) / (last - first + 1)
+
+
+def lm_resume_case(np_params, rows, name, **kw):
+    """Phase resume (a) / (b): the training config with dropout 0.1 (so
+    the CUDA generator's state is part of the checkpoint): two straight
+    runs of RESUME_STEPS steps, which must be bit-identical; then the
+    same trainer under a Supervisor with checkpoint_every=2 and
+    FaultPlan.preempt("train.round", at=3), which resumes from step 2,
+    ends at step 6 and must equal the straight run bit for bit (params,
+    and rounds 3-6's losses), every step through the three kernels.
+    Returns (its record, the supervised run's launches)."""
+    from distkeras_tpu_torch import obs
+
+    cfg = dataclasses.replace(FLAGSHIP_TRAIN, dropout=0.1)
+
+    def trainer(**ck):
+        return dkt.LMTrainer(cfg, optimizer="adamw", learning_rate=3e-4,
+                             batch_size=8, seed=0, **kw, **ck)
+
+    straight = []
+    for _ in range(2):
+        t = trainer()
+        clock = round_clock(t)
+        out = t.train(rows, params=dkt.params_from_numpy(np_params, "cuda"))
+        straight.append((t.history, {k: v.detach().cpu() for k, v in
+                                     named_leaves(out)}, clock))
+        del t, out
+    (hist, ref, _), (hist2, ref2, straight_clock) = straight
+    differ = [k for k in ref if not torch.equal(ref[k], ref2[k])]
+    if hist != hist2 or differ:
+        raise AssertionError(f"resume {name}: two straight runs differ "
+                             f"(losses equal: {hist == hist2}; leaves "
+                             f"{differ[:4]})")
+    del ref2
+    tmp = tempfile.mkdtemp()
+    ckdir, trace = os.path.join(tmp, "ckpt"), os.path.join(tmp, "t.jsonl")
+    t = trainer(checkpoint_dir=ckdir, checkpoint_every=RESUME_EVERY,
+                max_checkpoints=2)
+    clock = round_clock(t)
+    sup = dkt.Supervisor(t, max_retries=0, handle_sigterm=False)
+    torch.cuda.synchronize()
+    zero_launches()
+    with obs.session(trace), dkt.FaultPlan().preempt(
+            "train.round", at=RESUME_PREEMPT):
+        out = sup.run(rows, params=dkt.params_from_numpy(np_params, "cuda"))
+    torch.cuda.synchronize()
+    launches = dict(attn.LAUNCHES)
+    executed = RESUME_PREEMPT + RESUME_STEPS - RESUME_EVERY
+    expect_launches(launches, cfg.n_layers * executed, f"resume {name}")
+    attempts = [(a.outcome, a.resumed_from) for a in sup.attempts]
+    if attempts != [("preempted", None), ("ok", RESUME_EVERY)]:
+        raise AssertionError(f"resume {name}: attempts {attempts}")
+    got = {k: v.detach().cpu() for k, v in named_leaves(out)}
+    differ = [k for k in ref if not torch.equal(got[k], ref[k])]
+    if differ or t.history != hist[RESUME_EVERY:]:
+        raise AssertionError(
+            f"resume {name}: the resumed run differs from the straight "
+            f"run (leaves {differ[:4]}; losses {t.history} vs "
+            f"{hist[RESUME_EVERY:]})")
+    spans = [r for r in obs.read_trace(trace) if r.get("kind") == "span"]
+    restore = [r["dur"] for r in spans if r["name"] == "checkpoint.restore"]
+    saves = [r["dur"] for r in spans if r["name"] == "checkpoint.save"]
+    first = RESUME_EVERY + 1  # the first round after the restore
+    rounds = clock["rounds"]
+    resumed_s = sup.attempts[1].duration
+    gb = os.path.getsize(os.path.join(ckdir, str(RESUME_STEPS),
+                                      "state.pkl")) / 1e9
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    del out, got, ref, t, sup
+    return dict(
+        name=name, steps=RESUME_STEPS, checkpoint_every=RESUME_EVERY,
+        preempted_at=RESUME_PREEMPT, resumed_from=RESUME_EVERY,
+        straight_runs_bit_identical=True, resumed_bit_identical=True,
+        losses_rounds_3_6=hist[RESUME_EVERY:], launches=dict(launches),
+        # Save: tree, device-to-host copy, pickle, fsync, rename (steps
+        # 2, 4, 6); restore: read and unpickle onto the host; load: the
+        # host tree into the live state on the card.
+        save_s=saves, restore_s=restore[0],
+        load_s=clock["loaded"][1] - clock["loaded"][0], checkpoint_gb=gb,
+        # Step ms: the warm straight run's rounds 2-6, the resumed run's
+        # first round after the load, and its rounds 4-6.
+        step_ms_straight=step_ms(straight_clock, 2, RESUME_STEPS),
+        first_step_ms_after_restore=1e3 * (rounds[first][0]
+                                           - clock["loaded"][1]),
+        step_ms_after_restore=step_ms(clock, first + 1, RESUME_STEPS),
+        resumed_attempt_s=resumed_s), launches
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def cluster_rank_main(spec_path):
+    """One host of phase resume (c), started by a ClusterSupervisor
+    driver (``run_cluster_local``) with the ``DKT_CLUSTER_*``
+    environment: its ClusterMember (heartbeats, the collective
+    watchdog), the epoch's gloo group over CUDA tensors on the one card,
+    then ADAG(num_workers=2) on the CIFAR CNN (f32, cuDNN deterministic)
+    under a per-host Supervisor, checkpointing every round into the
+    shared directory.  On epoch 0 the spec's host dies at the spec's
+    round (FaultPlan.kill: exit 137, no cleanup).  Host 0 writes the
+    weights and losses of the run it finished."""
+    import warnings
+
+    import torch.distributed as dist
+    from distkeras_tpu_torch.resilience import cluster
+
+    warnings.filterwarnings("ignore", message="export_model")
+    spec = json.load(open(spec_path))
+    member = cluster.member_from_env()
+    member.start()
+    try:
+        member.join_group(device="cuda:0", backend="gloo", timeout=300)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        x, y = cifar_data(CLUSTER_ROWS, seed=4)
+        t = keras_trainer(dkt.ADAG, "cuda:0", CLUSTER_BATCH, 1,
+                          policy="float32", seed=9, num_workers=2,
+                          worker_optimizer="sgd", learning_rate=0.01,
+                          communication_window=2,
+                          checkpoint_dir=spec["ckpt"], checkpoint_every=1,
+                          max_checkpoints=100)
+        sup = dkt.Supervisor(t, max_retries=0, handle_sigterm=False)
+        plan = dkt.FaultPlan(seed=spec["seed"])
+        if spec["kill"] and member.epoch == 0 \
+                and member.host == spec["kill_host"]:
+            plan.kill("train.round", at=spec["kill"])
+        with plan:
+            m = sup.run(dkt.Dataset.from_arrays(x, y))
+        member.complete()
+        if member.host == 0:
+            w = dkt.keras_numpy_from_module(m)[0]
+            np.savez(os.path.join(spec["out"], "final.npz"),
+                     history=np.asarray(t.history),
+                     resumed_from=np.asarray(
+                         sup.attempts[-1].resumed_from or 0),
+                     **{f"w{i}": a for i, a in enumerate(w)})
+        dist.destroy_process_group()
+    finally:
+        member.stop()
+    return 0
+
+
+def cluster_job(tmp, kill, kill_host=1, seed=0):
+    """Two hosts of ``--cluster-rank`` under ``run_cluster_local``;
+    returns (the drivers' summaries, host 0's final.npz, wall s)."""
+    from distkeras_tpu_torch.resilience import cluster
+
+    os.makedirs(tmp)
+    spec = os.path.join(tmp, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"out": tmp, "ckpt": os.path.join(tmp, "ckpt"),
+                   "kill": kill, "kill_host": kill_host, "seed": seed}, f)
+    t0 = time.perf_counter()
+    summaries = cluster.run_cluster_local(
+        [sys.executable, os.path.abspath(__file__), "--cluster-rank", spec],
+        num_hosts=2, coord_dir=os.path.join(tmp, "coord"),
+        base_port=free_port(), checkpoint_dirs=[os.path.join(tmp, "ckpt")],
+        window=10.0, poll=0.2, heartbeat_interval=0.5, grace=240.0,
+        max_restarts=2, barrier_timeout=300.0, attempt_timeout=400.0)
+    wall = time.perf_counter() - t0
+    return summaries, dict(np.load(os.path.join(tmp, "final.npz"))), wall
+
+
+def cluster_restart_case():
+    """Phase resume (c): a straight two-host run, then the same job with
+    a seeded FaultPlan.kill of host 1 mid-run: both drivers restart
+    under epoch 1 (host 0 trims to the cluster-consistent step), the
+    hosts join the epoch-1 group on its own port and resume, and the
+    restarted job's weights and resumed losses must equal the straight
+    run's bit for bit."""
+    kill = int(np.random.default_rng(10).integers(3, CLUSTER_ROUNDS - 1))
+    tmp = tempfile.mkdtemp()
+    s_sum, straight, s_wall = cluster_job(os.path.join(tmp, "straight"),
+                                          None)
+    if any(s["epochs"] != 1 or s["restarts"] for s in s_sum):
+        raise AssertionError(f"resume cluster: straight run {s_sum}")
+    k_sum, got, k_wall = cluster_job(os.path.join(tmp, "killed"), kill)
+    if any(s["epochs"] != 2 or s["restarts"] != 1 for s in k_sum):
+        raise AssertionError(f"resume cluster: killed run {k_sum}")
+    start = int(got["resumed_from"])
+    n_w = len([k for k in straight if k.startswith("w")])
+    w_err = max(float(np.abs(got[f"w{i}"] - straight[f"w{i}"]).max())
+                for i in range(n_w))
+    if not (w_err == 0.0 and np.array_equal(got["history"],
+                                            straight["history"][start:])):
+        raise AssertionError(f"resume cluster: restarted job differs from "
+                             f"the straight run (weights {w_err}, resumed "
+                             f"from {start})")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    rcs = {s["host"]: [a["rc"] for a in s["history"]
+                       if a["event"] == "attempt"] for s in k_sum}
+    return dict(model="cifar_cnn", policy="float32", ranks=2,
+                backend="gloo", tensors="cuda", batch=CLUSTER_BATCH,
+                rounds=CLUSTER_ROUNDS, killed_host=1, killed_at_round=kill,
+                resumed_from=start, epochs=[s["epochs"] for s in k_sum],
+                restarts=[s["restarts"] for s in k_sum], attempt_rcs=rcs,
+                weights_bit_identical=True, straight_wall_s=s_wall,
+                restarted_wall_s=k_wall)
+
+
+def resume_phase(np_params):
+    """Phase resume: (a) the LM at full width with dropout, preempted at
+    round 3 and resumed by a Supervisor; (b) the same with zero=1 in a
+    world-1 NCCL group; (c) the two-host cluster restart.  Returns the
+    launches of (a) and (b)'s supervised runs."""
+    import torch.distributed as dist
+
+    rows = np.random.default_rng(13).integers(
+        0, FLAGSHIP_TRAIN.vocab_size,
+        (8 * RESUME_STEPS, TRAIN_SHAPE[1] + 1)).astype(np.int32)
+    rec_a, launches = lm_resume_case(np_params, rows, "lm")
+    torch.cuda.empty_cache()
+    rdv = tempfile.mkdtemp()
+    dkt.initialize_multihost(init_method=f"file://{rdv}/rdv", world_size=1,
+                             rank=0, timeout=120)
+    try:
+        backend = dist.get_backend()
+        rec_b, launches_b = lm_resume_case(np_params, rows, "lm_zero1",
+                                           zero=1)
+    finally:
+        dist.destroy_process_group()
+    rec_b["backend"] = backend
+    for k in launches:
+        launches[k] += launches_b[k]
+    torch.cuda.empty_cache()
+    rec_c = cluster_restart_case()
+    log("resume", config="transformer_d1024", dropout=0.1, batch=8,
+        seq=TRAIN_SHAPE[1], optimizer="adamw", learning_rate=3e-4,
+        cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+        deterministic_algorithms=torch.are_deterministic_algorithms_enabled(),
+        lm=rec_a, lm_zero1=rec_b, cluster=rec_c, launches=launches)
+    return launches
+
+
+
 def main(profile=False):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2549,6 +2863,11 @@ def main(profile=False):
     dp_keras_phase()
     async_dp_phase()
 
+    # 8c. Checkpoint, resume and resilience: the LM preempted and
+    # resumed at full width (also under zero=1), and the cluster restart.
+    torch.cuda.empty_cache()
+    resume_launches = resume_phase(train_np)
+
     # 9. The engine's profiled window.
     torch.cuda.empty_cache()
     log("engine_idle", idle_share_4x_step4=engine_idle_share(
@@ -2580,14 +2899,15 @@ def main(profile=False):
     lcausal, lwindow = long_cases  # f32 [8, 4096, 8, 128]: causal, 1024
 
     surface = (moe_train_launches, lora_launches, moe_serve_launches,
-               int8_launches, dp_launches)
+               int8_launches, dp_launches, resume_launches)
 
     def launch_counts(name, *paths):
         paths = paths + surface
         return {"launches": sum(p[name] for p in paths),
                 "launches_by_path": {k: p[name] for k, p in zip(
                     ("serve", "engine", "train", "long_train", "moe_train",
-                     "lora_train", "moe_serve", "int8_serve", "dp"),
+                     "lora_train", "moe_serve", "int8_serve", "dp",
+                     "resume"),
                     paths)}}
 
     print(json.dumps({"kernels": [{
@@ -2637,4 +2957,6 @@ def main(profile=False):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--cluster-rank"]:
+        sys.exit(cluster_rank_main(sys.argv[2]))
     sys.exit(main(profile="--profile" in sys.argv[1:]))

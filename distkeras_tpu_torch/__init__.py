@@ -43,6 +43,15 @@ replicas, with the ZeRO stages and the gradient-exchange policies of
 ``parallel/``, and ``AsyncDP`` simulates a bounded-staleness async fleet
 in one process.
 
+Checkpoint and resilience: every trainer takes ``checkpoint_dir`` /
+``checkpoint_every`` / ``max_checkpoints`` / ``resume`` and resumes bit
+for bit from a :class:`CheckpointManager` step (the pickle layout; in a
+process group rank 0 writes the gathered state); a :class:`Supervisor`
+retries faults and preemptions around ``train``, and
+``resilience.cluster`` restarts a multi-process job under a new cluster
+epoch (heartbeats, the collective watchdog, cluster-consistent
+checkpoints).
+
 Device rule: entry points run on CUDA by default; with no card they
 raise unless called with ``device="cpu"`` (as the tests do).  The port
 imports ``torch`` and numpy, never ``jax`` or ``distkeras_tpu``.
@@ -93,6 +102,9 @@ from distkeras_tpu_torch.ops.attention import (
     naive_attention,
 )
 from distkeras_tpu_torch.predictors import ModelPredictor, Predictor
+from distkeras_tpu_torch.checkpoint import CheckpointManager
+from distkeras_tpu_torch.resilience import (ClusterMember, ClusterSupervisor,
+                                            FaultPlan, Preempted, Supervisor)
 from distkeras_tpu_torch.serving import (ContinuousBatcher, EngineClosed,
                                          PrefixPool, QueueFull, RequestResult,
                                          SpeculativeBatcher, TraceReplay)
@@ -120,6 +132,12 @@ from distkeras_tpu_torch.utils.serialization import (
 
 __all__ = [
     "ADAG",
+    "CheckpointManager",
+    "ClusterMember",
+    "ClusterSupervisor",
+    "FaultPlan",
+    "Preempted",
+    "Supervisor",
     "AsyncConfig",
     "AsyncDP",
     "AsyncSchedule",

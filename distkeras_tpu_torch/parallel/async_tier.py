@@ -20,9 +20,14 @@ same ``SeedSequence`` draws, the same event order).
 Chaos probe sites (``resilience/chaos.py``): ``cluster.push`` fires
 before a host's delta publishes (a fault there drops it cleanly) and
 ``cluster.merge`` before the root applies a wave (a fault leaves center
-and pending buffer intact; the wave retries on the next push).  The
-cluster substrate of the reference (``coord_dir``: epoch markers and
-heartbeat files) is ROADMAP A8.
+and pending buffer intact; the wave retries on the next push).
+
+``coord_dir=`` roots the plane on the cluster substrate
+(``resilience/cluster.py``, ``resilience/health.py``): every membership
+transition requests the next :class:`EpochStore` epoch, and the
+heartbeats are real ``health.write_beat`` files under
+``<coord_dir>/beats`` stamped with the virtual clock, so an external
+supervisor can observe the fleet's composition history.
 """
 
 from __future__ import annotations
@@ -243,11 +248,6 @@ class AsyncPlane:
 
     def __init__(self, center, config: AsyncConfig, clock: VirtualClock,
                  coord_dir: str | None = None):
-        if coord_dir is not None:
-            raise NotImplementedError(
-                "AsyncPlane(coord_dir=...) is not ported yet (ROADMAP A8: "
-                "the cluster substrate's epoch markers and heartbeat "
-                "files)")
         self.config = config
         self.clock = clock
         self.center = copy_tree(center)
@@ -261,11 +261,25 @@ class AsyncPlane:
         self.dropped_deltas = 0
         self.wire_bytes = 0
         self.epoch = 0
+        self._store = None
+        self._hb_dir = None
+        if coord_dir is not None:
+            import os
+
+            from distkeras_tpu_torch.resilience.cluster import EpochStore
+
+            self._store = EpochStore(coord_dir)
+            self._store.request(self.epoch)
+            self._hb_dir = os.path.join(coord_dir, "beats")
 
     # ------------------------------------------------------- membership
 
     def _bump_epoch(self) -> None:
+        """Every membership transition is a cluster-epoch generation
+        (the marker-file contract of coordinated restarts)."""
         self.epoch += 1
+        if self._store is not None:
+            self._store.request(self.epoch)
 
     def join(self, host: int):
         """Register ``host`` at the fleet's max round; returns
@@ -290,6 +304,7 @@ class AsyncPlane:
         self._require_member(host)
         if final_delta is not None:
             self.push(host, final_delta)
+        self._write_beat(host, done=True)
         del self.members[host]
         self._bump_epoch()
         obs.event("async.leave", host=host, t=self.clock.now())
@@ -316,6 +331,14 @@ class AsyncPlane:
 
     # -------------------------------------------------------- heartbeats
 
+    def _write_beat(self, host: int, done: bool = False) -> None:
+        if self._hb_dir is not None:
+            from distkeras_tpu_torch.resilience.health import write_beat
+
+            write_beat(self._hb_dir, host, self.epoch,
+                       self.members[host].beats, clock=self.clock,
+                       done=done)
+
     def beat(self, host: int) -> None:
         """One virtual-time heartbeat (a frozen writer publishes
         nothing)."""
@@ -323,6 +346,7 @@ class AsyncPlane:
         if m.frozen_at is not None:
             return
         m.beats += 1
+        self._write_beat(host)
 
     def freeze_beats(self, host: int) -> None:
         self._require_member(host)

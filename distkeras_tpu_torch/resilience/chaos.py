@@ -78,8 +78,11 @@ class BeatDropped(RuntimeError):
 
 class Preempted(RuntimeError):
     """A (simulated or real) preemption: stop now, resume from the
-    latest checkpoint.  Raised by ``FaultPlan.preempt`` rules (the
-    supervisor that resumes from it is ROADMAP A8)."""
+    latest checkpoint.  Raised by the preemption machinery in
+    ``CheckpointingBase._checkpoint`` after it forces a final
+    synchronous checkpoint, and by ``FaultPlan.preempt`` rules; the
+    :class:`~distkeras_tpu_torch.resilience.supervisor.Supervisor`
+    treats it as resumable rather than as a failure."""
 
 
 @dataclasses.dataclass

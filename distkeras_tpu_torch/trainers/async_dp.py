@@ -22,7 +22,10 @@ schedule)`` — the reference's loop, event for event (the same
 4. re-pull and start the next round unless the SSP gate blocks it.
 
 A host killed mid-push (a ``fail`` rule on ``cluster.push``) publishes
-nothing and leaves the membership.
+nothing and leaves the membership.  ``coord_dir=`` roots the plane's
+membership epochs and heartbeat files on the cluster substrate, and a
+``checkpoint_dir`` receives the final center under step
+``plane.version``.
 """
 
 from __future__ import annotations
@@ -47,8 +50,9 @@ class AsyncDP(ADAG):
     bound ``tau``, ``async_merge`` ("adasum"/"sum") up a ``fanout``-ary
     tree, ``async_compress`` (None/"int8") on the wire, ``schedule`` an
     :class:`AsyncSchedule` (stalls, joins, leaves; default the plain
-    seeded one).  The intra-host ADAG knobs compose except
-    ``device_data`` and ``coord_dir`` (ROADMAP A8).  After ``train()``,
+    seeded one), ``coord_dir`` the cluster directory of the plane's
+    epochs and heartbeats.  The intra-host ADAG knobs compose except
+    ``device_data``.  After ``train()``,
     ``async_report`` holds the audit trail: virtual makespan, per-host
     rounds, hard syncs, evictions, wire bytes and the center version."""
 
@@ -74,16 +78,13 @@ class AsyncDP(ADAG):
             raise ValueError(
                 "AsyncDP simulates its hosts in one process, each a "
                 f"world-1 ADAG; got num_workers={self.num_workers}")
-        if coord_dir is not None:
-            raise NotImplementedError(
-                "AsyncDP(coord_dir=...) is not ported yet (ROADMAP A8: "
-                "the cluster substrate)")
         self.hosts = int(hosts)
         self.async_config = AsyncConfig(
             tau=tau, merge_rule=async_merge, compress=async_compress,
             fanout=fanout, beat_window=beat_window)
         self.schedule = schedule if schedule is not None \
             else AsyncSchedule(seed=async_seed)
+        self.coord_dir = coord_dir
         self.async_report: dict | None = None
 
     def _host_windows(self, dataset: Dataset):
@@ -118,7 +119,7 @@ class AsyncDP(ADAG):
         shards, rows_per_round, per_host = self._host_windows(dataset)
 
         clock = VirtualClock()
-        plane = AsyncPlane(state0.tv, cfg, clock)
+        plane = AsyncPlane(state0.tv, cfg, clock, coord_dir=self.coord_dir)
         opt = self.adapter.optimizer
 
         # Per-host islands: each host's tv tensors are its own (the
@@ -268,6 +269,9 @@ class AsyncDP(ADAG):
             "members_final": sorted(plane.members),
         }
         obs.gauge("async.makespan", t_work)
-        return TrainState(tv=plane.center, ntv=copy_tree(state0.ntv),
-                          opt_state=None,
-                          step=sum(rounds_done.values(), 0))
+        final = TrainState(tv=plane.center, ntv=copy_tree(state0.ntv),
+                           opt_state=None,
+                           step=sum(rounds_done.values(), 0))
+        self._checkpoint(lambda: self._state_tree(final), plane.version,
+                         final=True)
+        return final

@@ -9,8 +9,11 @@ the ``eval_every`` hook's ``(round, {"loss", metric...})`` records
 (round -1: the end of training).  The data order is the reference's bit
 for bit (``Dataset.shuffle(seed)``, the same batch streams).
 
-Runs on the card unless ``device="cpu"``.  The checkpoint knobs of the
-reference raise ``NotImplementedError`` (ROADMAP A8).  The data-parallel
+Runs on the card unless ``device="cpu"``.  Every trainer checkpoints
+and resumes through :class:`CheckpointingBase` (``checkpoint_dir`` /
+``checkpoint_every`` / ``max_checkpoints`` / ``resume`` /
+``checkpoint_backend``, the reference's knobs and refusals); a resumed
+run replays the uninterrupted one bit for bit.  The data-parallel
 trainers (``trainers/distributed.py``, ``trainers/elastic.py``) run one
 replica per process of a ``torch.distributed`` group.
 """
@@ -18,19 +21,19 @@ replica per process of a ``torch.distributed`` group.
 from __future__ import annotations
 
 import time
+import warnings
 
 import torch
+import torch.distributed as dist
 
+from distkeras_tpu_torch import obs
 from distkeras_tpu_torch.data.dataset import Dataset
-from distkeras_tpu_torch.models.adapter import ModelAdapter
+from distkeras_tpu_torch.models.adapter import ModelAdapter, TrainState
+from distkeras_tpu_torch.resilience import chaos
+from distkeras_tpu_torch.resilience.chaos import Preempted
+from distkeras_tpu_torch.trainers.carry import (copy_leaves, load_opt_tree,
+                                                opt_tree)
 from distkeras_tpu_torch.utils.profiling import StepTimer, synchronize
-
-# Reference knobs not ported yet: name -> (default, ROADMAP item).
-_UNPORTED = {
-    "checkpoint_dir": (None, "A8"), "checkpoint_every": (0, "A8"),
-    "max_checkpoints": (3, "A8"), "resume": (False, "A8"),
-    "checkpoint_backend": ("auto", "A8"),
-}
 
 
 def normalize_zero_args(zero, zero1: bool, zero_bucket_mb,
@@ -57,34 +60,179 @@ def normalize_zero_args(zero, zero1: bool, zero_bucket_mb,
     return zero, zero == 1, zero_bucket_mb
 
 
-def reject_unported(owner: str, unported: dict, table: dict) -> None:
-    """Raise for a knob of the reference that the port does not have yet
-    (``table``: name -> (default, ROADMAP item)), unless it is left at
-    its default; an unknown name is a TypeError."""
-    for name, value in unported.items():
-        if name not in table:
-            raise TypeError(f"{owner} got an unexpected keyword argument "
-                            f"{name!r}")
-        default, item = table[name]
-        if value != default:
-            raise NotImplementedError(
-                f"{owner}({name}=...) is not ported yet (ROADMAP {item}); "
-                "the port trains without checkpoints")
+class CheckpointingBase:
+    """Checkpoint / resume plumbing shared across the whole trainer
+    family (``distkeras_tpu/trainers/base.py::CheckpointingBase``): the
+    Keras trainers and ``LMTrainer`` take the same ``checkpoint_dir`` /
+    ``checkpoint_every`` / ``max_checkpoints`` / ``resume`` contract.
+
+    A round's state reaches :meth:`_checkpoint` as a zero-argument
+    function building its tree, called only when a save is due (in a
+    process group building it gathers, a collective every rank runs),
+    and comes back from :meth:`_restore_or` as a tree of CPU tensors the
+    trainer loads into its live state.
+    """
+
+    def _setup_checkpointing(self, *, checkpoint_dir: str | None,
+                             checkpoint_every: int, max_checkpoints: int,
+                             resume: bool, shuffle: bool,
+                             seed: int | None,
+                             backend: str = "auto") -> None:
+        self.checkpoint_every = checkpoint_every
+        self.resume = resume
+        self.checkpoint_dir = checkpoint_dir
+        self.max_checkpoints = max_checkpoints
+        self.checkpoint_backend = backend
+        # Set by a resilience.Supervisor (or any orchestrator): when
+        # this Event is set, the next round boundary forces a final
+        # synchronous checkpoint and raises Preempted — the graceful
+        # half of a preemption.
+        self.preempt_event = None
+        self._ckpt = None
+        self._last_saved_round = 0
+        if resume and shuffle and seed is None:
+            raise ValueError(
+                "resume=True with shuffle=True needs a fixed seed: resume "
+                "skips the first N rounds of the stream, which only lands on "
+                "the right data if the permutation is reproducible")
+        if (resume or checkpoint_every) and not checkpoint_dir:
+            raise ValueError(
+                "resume/checkpoint_every need a checkpoint_dir — without one "
+                "nothing is restored or written")
+
+    def _open_checkpoints(self) -> None:
+        """Open the per-run checkpoint manager (closed by
+        :meth:`_close_checkpoints`); fail fast on a populated directory
+        unless resuming."""
+        self._last_saved_round = 0
+        if not self.checkpoint_dir:
+            return
+        from distkeras_tpu_torch.checkpoint import CheckpointManager
+
+        self._ckpt = CheckpointManager(
+            self.checkpoint_dir, max_to_keep=self.max_checkpoints,
+            backend=self.checkpoint_backend)
+        if not self.resume and self._ckpt.latest_step() is not None:
+            self._ckpt.close()
+            self._ckpt = None
+            raise ValueError(
+                f"checkpoint_dir {self.checkpoint_dir!r} already holds "
+                "checkpoints; pass resume=True to continue from them or "
+                "point at a fresh directory (a committed step is never "
+                "overwritten)")
+
+    def _close_checkpoints(self) -> None:
+        if self._ckpt is not None:
+            self._ckpt.close()
+            self._ckpt = None
+
+    def _restore_or(self):
+        """``(tree, start_round)``: the latest valid checkpoint's tree
+        when resuming; ``(None, 0)`` otherwise.
+
+        Resume semantics: deterministic data order; the first
+        ``start_round`` rounds of the batch stream are skipped so the
+        restored state continues exactly where the checkpoint left off.
+        In a process group every rank selects the same step (a barrier
+        before the directory is read and one before rank 0 trims it).
+        """
+        if not (self._ckpt and self.resume):
+            return None, 0
+        from distkeras_tpu_torch.checkpoint import group_rank
+
+        rank, world = group_rank()
+        group = world > 1
+        if group:
+            dist.barrier()
+        step = self._ckpt.latest_step()
+        valid = self._ckpt.latest_valid_step()
+        if group:
+            dist.barrier()
+        if step is None:
+            return None, 0
+        if valid != step:
+            # Torn latest (died mid-save on a store without atomic
+            # rename): resume from the newest step that passes the
+            # integrity check, and drop the torn steps — the resumed
+            # run passes their rounds again, and a committed step is
+            # never overwritten.  One trimming rule, shared with the
+            # cluster driver's pre-epoch trim.
+            from distkeras_tpu_torch.resilience.cluster import (
+                trim_to_consistent)
+
+            warnings.warn(
+                f"checkpoint step {step} under "
+                f"{self.checkpoint_dir!r} is torn/partial; resuming "
+                f"from the latest valid step {valid} instead",
+                stacklevel=2)
+            obs.event("checkpoint.torn", step=step, fallback=valid)
+            if rank == 0:
+                trim_to_consistent([self._ckpt.directory])
+            if valid is None:
+                return None, 0
+            step = valid
+        with obs.span("checkpoint.restore", step=step):
+            restored = self._ckpt.restore(step=step)
+        return restored, step
+
+    def attach_publisher(self, publisher, every: int = 1):
+        """The live train -> serve weight push
+        (``serving/publish.py``) is not ported yet (ROADMAP A10)."""
+        raise NotImplementedError(
+            "attach_publisher is not ported yet (ROADMAP A10: "
+            "serving/publish.py, the snapshot publisher)")
+
+    def _checkpoint(self, tree_fn, round_idx: int,
+                    final: bool = False) -> None:
+        """Persist training state after round ``round_idx`` (1-based).
+
+        ``tree_fn()`` builds the tree to save.  The save is synchronous:
+        the round loop updates the state in place next round.  Every
+        call passes the ``"train.round"`` chaos probe; a set
+        ``preempt_event`` forces a save of this round and raises
+        :class:`Preempted`.
+        """
+        chaos.probe("train.round", step=round_idx)
+        if self.preempt_event is not None and self.preempt_event.is_set():
+            # Graceful preemption (SIGTERM via a Supervisor, or any
+            # orchestrator flipping the event): persist THIS round's
+            # state synchronously, then stop.  The resumed run replays
+            # from here bit for bit — data order is round-indexed and
+            # the dropout generator's state rides the checkpoint.
+            if self._ckpt is not None and round_idx != self._last_saved_round:
+                self._save(tree_fn, round_idx, preempt=True)
+            obs.event("train.preempted", round=round_idx,
+                      checkpointed=self._ckpt is not None)
+            raise Preempted(
+                f"preempted at round {round_idx}"
+                + (" (state checkpointed)" if self._ckpt is not None
+                   else " (no checkpoint_dir: round lost)"))
+        if self._ckpt is None or round_idx == self._last_saved_round:
+            return  # (final save right after a periodic one: already durable)
+        periodic = self.checkpoint_every and round_idx % self.checkpoint_every == 0
+        if final or periodic:
+            self._save(tree_fn, round_idx)
+
+    def _save(self, tree_fn, round_idx: int, **fields) -> None:
+        with obs.span("checkpoint.save", step=round_idx, **fields):
+            self._ckpt.save(tree_fn(), round_idx, force=True)
+            self._ckpt.wait_until_finished()
+        self._last_saved_round = round_idx
 
 
-class Trainer:
+class Trainer(CheckpointingBase):
     """Base trainer: owns the adapter and the train() bookkeeping."""
-
-    _unported = _UNPORTED
 
     def __init__(self, keras_model, loss="categorical_crossentropy",
                  worker_optimizer="sgd", learning_rate=None,
                  batch_size: int = 32, num_epoch: int = 1,
                  features_col: str = "features", label_col: str = "label",
                  shuffle: bool = False, seed: int | None = None,
+                 checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+                 max_checkpoints: int = 3, resume: bool = False,
+                 checkpoint_backend: str = "auto",
                  preprocess=None, metrics=(), eval_every: int = 0,
-                 device=None, **unported):
-        reject_unported(type(self).__name__, unported, self._unported)
+                 device=None):
         self.adapter = ModelAdapter(
             keras_model, loss=loss, optimizer=worker_optimizer,
             learning_rate=learning_rate, preprocess=preprocess,
@@ -103,6 +251,10 @@ class Trainer:
         self.training_time: float = 0.0
         self.history: list[float] = []
         self.step_timer = StepTimer()
+        self._setup_checkpointing(
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            max_checkpoints=max_checkpoints, resume=resume, shuffle=shuffle,
+            seed=seed, backend=checkpoint_backend)
 
     # -- subclass hook -----------------------------------------------------
     def _fit(self, dataset: Dataset):  # pragma: no cover
@@ -136,11 +288,33 @@ class Trainer:
                 "eval_every is set but train() got no eval_dataset")
         self.step_timer.reset()
         t0 = time.perf_counter()
-        state = self._fit(dataset)
-        self._eval_hook(state, rnd=None, final=True)
-        synchronize(state.tv)
+        self._open_checkpoints()
+        try:
+            with obs.span("train.run", trainer=type(self).__name__):
+                state = self._fit(dataset)
+                self._eval_hook(state, rnd=None, final=True)
+                synchronize(state.tv)
+        finally:
+            self._close_checkpoints()
         self.training_time = time.perf_counter() - t0
         return self._export(state)
+
+    # -- checkpoint trees --------------------------------------------------
+    def _state_tree(self, state: TrainState) -> dict:
+        """The checkpoint tree of a TrainState (``tv`` full, the
+        optimizer state gathered; see ``trainers/carry.py``)."""
+        return {"tv": list(state.tv), "ntv": list(state.ntv),
+                "opt": opt_tree(state.opt_state, state.tv,
+                                getattr(self, "mesh", None)),
+                "step": state.step}
+
+    def _load_state(self, state: TrainState, tree) -> None:
+        """Load :meth:`_state_tree`'s tree into the fresh ``state``."""
+        copy_leaves(state.tv, tree["tv"])
+        copy_leaves(state.ntv, tree["ntv"])
+        load_opt_tree(state.opt_state, state.tv, tree["opt"],
+                      getattr(self, "mesh", None))
+        state.step = tree["step"]
 
     # -- evaluation hook ---------------------------------------------------
     def _eval_state_view(self, pytree):
@@ -227,6 +401,16 @@ class SingleTrainer(Trainer):
     def _fit(self, dataset: Dataset):
         spc = self.steps_per_call
         state = self.adapter.init_state()
+        tree, start = self._restore_or()
+        if start:
+            if tree["step"] != start * spc:
+                raise ValueError(
+                    f"checkpoint at round {start} holds optimizer step "
+                    f"{tree['step']}, but steps_per_call={spc} implies "
+                    f"{start * spc}: the checkpoint was written under a "
+                    "different steps_per_call — resume with the original "
+                    "value (data skipping is counted in rounds)")
+            self._load_state(state, tree)
         if self.device_data:
             step = self.adapter.make_indexed_train_step(spc)
             X = torch.as_tensor(dataset[self.features_col], device=self.device)
@@ -247,11 +431,17 @@ class SingleTrainer(Trainer):
         else:
             step = self.adapter.make_multi_train_step(spc)
             stream = self._epoch_stream(dataset, window=spc)
-        losses = []
+        losses, rnd = [], start
         for rnd, args in enumerate(stream, 1):
+            if rnd <= start:
+                continue
             state, loss = step(state, *args)
             losses.append(loss)     # a device tensor: no sync here
+            self._checkpoint(lambda: self._state_tree(state), rnd)
             self._eval_hook(state, rnd)
+        if start and not losses:  # resumed past the end: nothing left to do
+            return state
         self._require_steps(losses, self.batch_size * spc, len(dataset))
         self._record(losses)
+        self._checkpoint(lambda: self._state_tree(state), rnd, final=True)
         return state

@@ -45,6 +45,7 @@ from distkeras_tpu_torch.parallel.sharding import (ExchangePlan,
                                                    zero3_plan)
 from distkeras_tpu_torch.trainers.base import (Trainer,
                                                normalize_zero_args)
+from distkeras_tpu_torch.trainers.carry import copy_leaves, load_opt_tree
 
 _A7B = "(ROADMAP A7b: rule-driven parameter sharding, tensor parallelism)"
 
@@ -241,6 +242,26 @@ class DistributedTrainer(Trainer):
             return gather_tree(zs.layout, zs.shards, self.mesh)
         return state.tv
 
+    def _state_tree(self, state) -> dict:
+        """The checkpoint tree with ``tv`` whole (under stage 3 the
+        shards gathered) and the optimizer state gathered."""
+        tree = super()._state_tree(state)
+        if state.opt_state is not None:  # (AsyncDP's final center: whole)
+            tree["tv"] = list(self._full_tv(state))
+        return tree
+
+    def _load_state(self, state, tree) -> None:
+        """Load a checkpoint tree: ``tv`` whole, each rank's ZeRO shards
+        (of the parameters under stage 3, of the optimizer state under
+        every stage) cut back out of it by this rank's layout."""
+        full = {str(i): t for i, t in enumerate(tree["tv"])}
+        if self.zero < 3:
+            copy_leaves(state.tv, tree["tv"])
+        copy_leaves(state.ntv, tree["ntv"])
+        load_opt_tree(state.opt_state, state.tv, tree["opt"], self.mesh,
+                      full_params=full)
+        state.step = tree["step"]
+
     def _eval_state_view(self, pytree):
         if self.zero >= 3 and not isinstance(pytree, dict):
             return self._full_tv(pytree), pytree.ntv
@@ -371,10 +392,15 @@ class ADAG(DistributedTrainer):
                                 dataset)
 
     def _run_rounds(self, state, step, rounds, rows_per_round, dataset):
-        """The one round loop of both data paths: losses, probes and the
-        eval hook."""
-        losses, probes = [], []
+        """The one round loop of both data paths: resume skipping,
+        losses, probes, checkpoints and the eval hook."""
+        losses, probes, rnd = [], [], 0
+        tree, start = self._restore_or()
+        if start:
+            self._load_state(state, tree)
         for rnd, args in enumerate(rounds, 1):
+            if rnd <= start:
+                continue
             with self.step_timer.phase("step"):
                 state, out = step(state, *args)
             if self.probe_metrics:
@@ -383,7 +409,10 @@ class ADAG(DistributedTrainer):
             else:
                 loss = out
             losses.append(loss)
+            self._checkpoint(lambda: self._state_tree(state), rnd)
             self._eval_hook(state, rnd)
+        if start and not losses:  # resumed past the end
+            return state
         self._require_steps(losses, rows_per_round, len(dataset))
         self._record(losses)
         if probes:  # one device-to-host copy, at the end of the run
@@ -393,6 +422,7 @@ class ADAG(DistributedTrainer):
             # The error-feedback diagnostic, under the reference's name.
             self.residual_norm = residual_norm_of(state.opt_state)
             obs.gauge("exchange.residual_norm", self.residual_norm)
+        self._checkpoint(lambda: self._state_tree(state), rnd, final=True)
         return state
 
 

@@ -18,6 +18,10 @@ new_center_tv)`` where ``reduce`` sums a tensor over the replicas: an
 replica (the identity for a single process).  Rank ``r`` trains on the
 slab of each round that the reference's stacked replica ``r`` takes;
 the center variable is computed alike on every rank.
+
+A checkpoint holds the reference's ``{"stacked", "center_tv"}``: every
+replica's state stacked over the ranks (``trainers/carry.py``), and the
+center; on resume each rank takes its own replica back.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import torch
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.models.adapter import _gather
 from distkeras_tpu_torch.parallel.collectives import all_gather, all_reduce
+from distkeras_tpu_torch.trainers.carry import (copy_leaves, stack_tree,
+                                                unstack_tree)
 from distkeras_tpu_torch.trainers.distributed import DistributedTrainer
 from distkeras_tpu_torch.trainers.optim import Optimizer
 from distkeras_tpu_torch.utils.serialization import (keras_numpy_from_module,
@@ -165,16 +171,29 @@ class ReplicaTrainer(DistributedTrainer):
     def _window(self, dataset: Dataset) -> int:
         return self.communication_window
 
+    def _round_tree(self, state, center) -> dict:
+        """``{"stacked": every replica's state, "center_tv"}`` (a
+        collective in a process group)."""
+        return {"stacked": stack_tree(self._state_tree(state), self.mesh),
+                "center_tv": list(center)}
+
     def _fit(self, dataset: Dataset):
         window = self._window(dataset)
         state = self._replica_state()
         center = self.adapter.initial_tv()
+        tree, start = self._restore_or()
+        if start:
+            self._load_state(state, unstack_tree(tree["stacked"],
+                                                 self.mesh.rank))
+            copy_leaves(center, tree["center_tv"])
         train_step = self.adapter.make_train_step()
         n, reduce = self.num_workers, self._reduce()
         rounds = (self._index_rounds(dataset, window) if self.device_data
                   else self._round_stream(dataset, window))
-        losses = []
+        losses, rnd = [], 0
         for rnd, (xs, ys) in enumerate(rounds, 1):
+            if rnd <= start:
+                continue
             with self.step_timer.phase("step"):
                 local = []
                 for i in range(window):
@@ -185,10 +204,14 @@ class ReplicaTrainer(DistributedTrainer):
                     for p, v in zip(state.tv, new_tv):
                         p.copy_(v)
                 losses.append(torch.stack(local).mean())
+            self._checkpoint(lambda: self._round_tree(state, center), rnd)
             self._eval_hook({"state": state, "center_tv": center}, rnd)
-        self._require_steps(losses, self.batch_size * n * window,
-                            len(dataset))
-        self._record(losses)
+        if losses or not start:  # resumed past the end skips to export
+            self._require_steps(losses, self.batch_size * n * window,
+                                len(dataset))
+            self._record(losses)
+            self._checkpoint(lambda: self._round_tree(state, center), rnd,
+                             final=True)
         self._final_states = [state]  # kept for the ensemble's export
         # Export the center variable, the replica's non-trainable state.
         return state.replace(tv=center)

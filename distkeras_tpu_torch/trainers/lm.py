@@ -26,8 +26,16 @@ trains on rows ``[r B/n, (r+1) B/n)`` of each microbatch, as
 ``merge_rule``, ``sync_every``, ``compress`` / ``topk_frac`` take the
 reference's meanings, compositions and refusals.  ``rules``,
 ``microbatches``, ``fsdp`` and a non-data mesh axis (tensor, sequence,
-pipeline, expert parallelism: ROADMAP A7b) and the checkpoint knobs
-(A8) raise ``NotImplementedError``.
+pipeline, expert parallelism: ROADMAP A7b) raise
+``NotImplementedError``.
+
+Checkpoints (``checkpoint_dir`` / ``checkpoint_every`` /
+``max_checkpoints`` / ``resume``, ``trainers/base.py::
+CheckpointingBase``): a round is one optimizer step, and the carry
+saved after it holds the parameters, the optimizer state (ZeRO shards
+gathered), the EMA shadow, the exchange residuals and the dropout
+generator's state, so a resumed run draws the same masks and replays the
+uninterrupted run bit for bit.
 
 ``LoRATrainer`` fine-tunes LoRA adapters over a frozen base under the
 same contract (``distkeras_tpu/trainers/lm.py::LoRATrainer``).
@@ -61,16 +69,17 @@ from distkeras_tpu_torch.parallel.exchange import (ExchangeConfig,
                                                    residual_norm_of)
 from distkeras_tpu_torch.parallel.mesh import check_axes, make_mesh
 from distkeras_tpu_torch.parallel.tree import tree_leaves
-from distkeras_tpu_torch.trainers.base import normalize_zero_args
+from distkeras_tpu_torch.trainers.base import (CheckpointingBase,
+                                               normalize_zero_args)
+from distkeras_tpu_torch.trainers.carry import (copy_leaves, load_opt_tree,
+                                                opt_tree, stack_tree)
 from distkeras_tpu_torch.trainers.optim import LM_NAMES, Optimizer
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
 
 # Reference knobs not ported yet: name -> (default, ROADMAP item).
 _UNPORTED = {
     "rules": (None, "A7b"), "microbatches": (None, "A7b"),
-    "fsdp": (False, "A7b"), "checkpoint_dir": (None, "A8"),
-    "checkpoint_every": (0, "A8"), "max_checkpoints": (3, "A8"),
-    "resume": (False, "A8"), "checkpoint_backend": ("auto", "A8"),
+    "fsdp": (False, "A7b"),
 }
 
 # Staging more than this fraction of the device's memory fails fast (the
@@ -213,7 +222,7 @@ def _valid_targets(seg) -> int:
     return int(((seg[:, 1:] == seg[:, :-1]) & (seg[:, :-1] != 0)).sum())
 
 
-class LMTrainer:
+class LMTrainer(CheckpointingBase):
     """Train a causal transformer LM on one device.
 
     ``optimizer`` is one of ``adam`` / ``adamw`` / ``sgd`` (optax's
@@ -230,7 +239,8 @@ class LMTrainer:
     ``_stage_stream``, the same data order as streaming.
     ``profile_dir`` traces optimizer rounds ``[2, 2 + profile_steps)``
     (round 1 pays the first-call set-up) with ``torch.profiler`` and
-    writes a chrome trace there (``profile_path``).
+    writes a chrome trace there (``profile_path``); a resumed run counts
+    them from its first executed round.
     """
 
     def __init__(self, cfg: tfm.TransformerConfig, optimizer: str = "adamw",
@@ -246,7 +256,10 @@ class LMTrainer:
                  zero1_bucket_mb: float | None = None,
                  zero_bucket_mb: float | None = None,
                  merge_rule: str = "mean", sync_every: int = 1,
-                 compress=None, topk_frac: float = 0.01, **unported):
+                 compress=None, topk_frac: float = 0.01,
+                 checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+                 max_checkpoints: int = 3, resume: bool = False,
+                 checkpoint_backend: str = "auto", **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"LMTrainer got an unexpected keyword "
@@ -255,8 +268,7 @@ class LMTrainer:
             if value != default:
                 raise NotImplementedError(
                     f"LMTrainer({name}=...) is not ported yet (ROADMAP "
-                    f"{item}); the port's mesh is data-parallel, without "
-                    "checkpoints")
+                    f"{item}); the port's mesh is data-parallel")
         zero, zero1, zero_bucket_mb = normalize_zero_args(
             zero, zero1, zero_bucket_mb, zero1_bucket_mb)
         if grad_accum < 1:
@@ -370,6 +382,10 @@ class LMTrainer:
         self.opt_state = None
         # The train step's loss (None: lm_loss); LoRATrainer's merges.
         self._loss_fn = None
+        self._setup_checkpointing(
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            max_checkpoints=max_checkpoints, resume=resume, shuffle=shuffle,
+            seed=seed, backend=checkpoint_backend)
 
     @property
     def ema_params(self):
@@ -429,7 +445,7 @@ class LMTrainer:
             warnings.warn(
                 f"{msg}; this device reports no memory budget, but that "
                 "figure rarely fits — device_data=False streams from the "
-                "host instead", stacklevel=3)
+                "host instead", stacklevel=4)
 
     def train(self, dataset, params=None, eval_tokens=None, segments=None,
               eval_segments=None):
@@ -511,6 +527,50 @@ class LMTrainer:
 
         t0 = time.perf_counter()
         self.opt_state = None  # free the last run's state first
+        # Fail fast on a populated checkpoint_dir before paying the
+        # parameter init.
+        self._open_checkpoints()
+        try:
+            params = self._train(tokens, segments, eval_tokens,
+                                 eval_segments, params, feed, rows_per_step,
+                                 n_rows, mine, b)
+        finally:
+            self._close_checkpoints()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.training_time = time.perf_counter() - t0
+        return params
+
+    def _carry_tree(self, carry, drop, full_params) -> dict:
+        """The checkpoint tree of the round carry: the full parameters,
+        the optimizer state (``trainers/carry.py``: ZeRO shards gathered,
+        EMA, exchange residuals) and every rank's dropout generator
+        state (a collective in a process group)."""
+        params, opt_state = carry
+        tree = {"params": full_params(),
+                "opt": opt_tree(opt_state, params, self.mesh),
+                "dropout": None}
+        if drop is not None:
+            tree["dropout"] = stack_tree(drop.get_state(), self.mesh)
+        return tree
+
+    def _load_carry(self, carry, drop, tree) -> None:
+        """Load a checkpoint tree into the fresh carry and generator."""
+        params, opt_state = carry
+        full = dict(tfm.named_leaves(tree["params"]))
+        if self.zero < 3:  # stage 3's params are the shards: loaded below
+            copy_leaves(params, tree["params"])
+        load_opt_tree(opt_state, params, tree["opt"], self.mesh,
+                      full_params=full)
+        if drop is not None:
+            drop.set_state(tree["dropout"][self.mesh.rank].cpu().clone())
+
+    def _train(self, tokens, segments, eval_tokens, eval_segments, params,
+               feed, rows_per_step, n_rows, mine, b):
+        """The run behind :meth:`train`, inside the checkpoint manager's
+        lifetime; returns the trained params."""
+        bs, mesh = self.batch_size, self.mesh
+        n, rank = mesh.size, mesh.rank
         if params is None:
             params = self.init_params()
         else:
@@ -619,11 +679,19 @@ class LMTrainer:
             return block, seg
 
         carry, losses, probes, rnd = (params, opt_state), [], [], 0
-        prof, prof_start = None, 2
+        tree, start = self._restore_or()
+        if start:
+            self._load_carry(carry, drop, tree)
+            del tree
+        # Profile rounds relative to the first executed round (resume
+        # skips rnd <= start): one warm round, then profile_steps.
+        prof, prof_start = None, start + 2
         try:
             for _ in range(self.num_epoch):
                 for j in range(n_rows // rows_per_step):
                     rnd += 1
+                    if rnd <= start:
+                        continue
                     block, seg = batch_at(j)
                     if self.profile_dir and rnd == prof_start:
                         prof = self._start_profile()
@@ -636,6 +704,8 @@ class LMTrainer:
                             and rnd >= prof_start - 1 + self.profile_steps):
                         self._stop_profile(prof, prof_start, rnd)
                         prof = None
+                    self._checkpoint(lambda: self._carry_tree(
+                        carry, drop, full_params), rnd)
                     if eval_fn is not None and self.eval_every and \
                             rnd % self.eval_every == 0:
                         eval_fn(rnd)
@@ -644,11 +714,14 @@ class LMTrainer:
                 prof = None
             elif self.profile_dir and rnd < prof_start:
                 warnings.warn(
-                    f"profile_dir is set but the run executed only {rnd} "
-                    f"round(s); the trace skips the first round and starts "
-                    f"at round {prof_start} — no profile was written. "
-                    "Train on more data or more epochs to capture one.",
-                    stacklevel=2)
+                    f"profile_dir is set but the run executed only "
+                    f"{max(0, rnd - start)} round(s); the trace skips the "
+                    f"first round and starts at round {prof_start - start} "
+                    "— no profile was written. Train on more data or more "
+                    "epochs to capture one.", stacklevel=3)
+            if losses:
+                self._checkpoint(lambda: self._carry_tree(
+                    carry, drop, full_params), rnd, final=True)
         finally:
             if prof is not None:  # an exception mid-capture
                 prof.__exit__(None, None, None)
@@ -658,20 +731,20 @@ class LMTrainer:
         params, opt_state = carry
         params = full_params()
         # One device -> host transfer for the whole run; the losses are
-        # the group's means (one all-reduce).
-        hist = torch.stack(losses).float()
-        if mesh.group is not None:
-            hist = true_div(all_reduce(hist, mesh), n)
-        self.history = hist.tolist()
+        # the group's means (one all-reduce).  A run resumed past the
+        # end executed none.
+        self.history = []
+        if losses:
+            hist = torch.stack(losses).float()
+            if mesh.group is not None:
+                hist = true_div(all_reduce(hist, mesh), n)
+            self.history = hist.tolist()
         self.probe_history = ([{"grad_norm": g}
                                for g in torch.stack(probes).tolist()]
                               if probes else [])
         self._ema_params = opt_state.ema
         self.opt_state = opt_state
         self.residual_norm = residual_norm_of(opt_state)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.training_time = time.perf_counter() - t0
         return params
 
     def _start_profile(self):
@@ -709,8 +782,9 @@ class LoRATrainer(LMTrainer):
     (``Optimizer.masked(lora_mask)``) and the loss merges a detached base
     inside the step, so the base copy comes out bit-identical.  ``train``
     returns the merged servable params; ``self.adapters`` keeps the raw
-    adapters.  Checkpoint knobs raise naming ROADMAP A8, as
-    ``LMTrainer``'s do.
+    adapters.  It checkpoints the packed ``(adapters, base)`` state
+    and the adapters' optimizer state, as ``LMTrainer`` checkpoints its
+    carry.
     """
 
     def __init__(self, cfg: tfm.TransformerConfig, base_params,
@@ -775,8 +849,8 @@ class LoRATrainer(LMTrainer):
         if params is not None:
             raise ValueError(
                 "LoRATrainer builds its own (adapters, base) state from "
-                "the constructor's base_params; resuming needs "
-                "checkpoint_dir/resume (ROADMAP A8)")
+                "the constructor's base_params; to resume, pass "
+                "checkpoint_dir= with resume=True like any trainer")
         packed = super().train(dataset, **kw)
         self.adapters = packed[0]
         return self._merged(packed)

@@ -145,7 +145,7 @@ def test_plane_pieces_match_jax():
     assert tat.wire_cost_bytes(tq, ts) == jat.wire_cost_bytes(jq, js)
 
 
-def test_plane_contracts():
+def test_plane_contracts(tmp_path):
     clock = tat.VirtualClock()
     cfg = tat.AsyncConfig(tau=2, compress=None, beat_window=3.0)
     plane = tat.AsyncPlane([torch.zeros(4)], cfg, clock)
@@ -170,11 +170,26 @@ def test_plane_contracts():
     assert plane.evicted == [1] and plane.may_start(0, 4) == (True, [])
     with pytest.raises(KeyError):
         plane.pull(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tat.AsyncPlane([torch.zeros(1)], cfg, clock, coord_dir="/tmp/x")
+    # coord_dir: membership transitions are cluster epochs and the beats
+    # real heartbeat files on the virtual clock (the reference's files).
+    from distkeras_tpu_torch.resilience import cluster, health
+
+    coord = str(tmp_path / "coord")
+    plane = tat.AsyncPlane([torch.zeros(1)], cfg, clock, coord_dir=coord)
+    store = cluster.EpochStore(coord)
+    assert store.current() == 0
+    plane.join(0)
+    plane.join(1)
+    assert store.current() == plane.epoch == 2
+    beat = health.read_beat(str(tmp_path / "coord" / "beats"), 1)
+    assert beat["epoch"] == 2 and beat["t"] == clock.now() \
+        and not beat["done"]
+    plane.leave(1)
+    assert store.current() == 3
+    assert health.read_beat(str(tmp_path / "coord" / "beats"), 1)["done"]
 
 
-def test_asyncdp_construction_rejects():
+def test_asyncdp_construction_rejects(tmp_path):
     mlp = lambda: dkt.zoo.MLP(16, (32,), 4)
     with pytest.raises(ValueError, match="hosts"):
         dkt.AsyncDP(mlp(), hosts=0, device="cpu")
@@ -182,5 +197,7 @@ def test_asyncdp_construction_rejects():
         dkt.AsyncDP(mlp(), device_data=True, device="cpu")
     with pytest.raises(ValueError, match="merge_rule"):
         dkt.AsyncDP(mlp(), async_merge="median", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        dkt.AsyncDP(mlp(), coord_dir="/tmp/x", device="cpu")
+    # coord_dir is ported (the cluster substrate; tests/test_torch_cluster.py
+    # runs it end to end).
+    assert dkt.AsyncDP(mlp(), coord_dir=str(tmp_path), device="cpu"
+                       ).coord_dir == str(tmp_path)

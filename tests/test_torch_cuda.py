@@ -5,7 +5,9 @@ family's CIFAR CNN path on the card against the same path on the CPU;
 the serving engines on the card (an f32 schedule against the CPU's,
 prefix-pool segments and speculative warm-ups through the kernel); and
 the model surface (an MoE train step, ``quantize_params`` and a
-``kv_int8`` engine schedule against the CPU's).
+``kv_int8`` engine schedule against the CPU's); and resume (an LM run
+preempted and resumed by the Supervisor on the card equals the straight
+run bit for bit, and its checkpoint restores on the CPU).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports no JAX, so on a machine with
@@ -735,3 +737,42 @@ def test_two_rank_gloo_adag_on_card_equals_world1(cuda, tmp_path):
                                atol=1e-5)
     for i, w in enumerate(dkt.keras_numpy_from_module(out)[0]):
         np.testing.assert_allclose(got[f"m0_w{i}"], w, rtol=1e-4, atol=1e-5)
+
+
+def test_lm_resume_on_card_equals_straight_run(cuda, tmp_path):
+    """LMTrainer with dropout on the card: a run preempted at round 3 and
+    resumed by the Supervisor from round 2 ends bit-identical to the
+    straight run (the kernels are deterministic and the CUDA dropout
+    generator's state rides the checkpoint), through all three kernels;
+    and the checkpoint it wrote restores on the CPU."""
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models.transformer import named_leaves
+
+    cfg = dkt.TransformerConfig(vocab_size=128, d_model=256, n_heads=2,
+                                n_layers=2, d_ff=512, max_len=129,
+                                dropout=0.1)
+    rows = np.random.default_rng(0).integers(0, 128, (24, 129)).astype(
+        np.int32)
+    kw = dict(optimizer="adamw", learning_rate=3e-4, batch_size=4, seed=1)
+    straight = dkt.LMTrainer(cfg, **kw)
+    ref = straight.train(rows)
+    d = str(tmp_path / "c")
+    t = dkt.LMTrainer(cfg, checkpoint_dir=d, checkpoint_every=2,
+                      max_checkpoints=10, **kw)
+    sup = dkt.Supervisor(t, max_retries=0, handle_sigterm=False)
+    before = dict(tattn.LAUNCHES)
+    with dkt.FaultPlan().preempt("train.round", at=3):
+        out = sup.run(rows)
+    torch.cuda.synchronize()
+    assert [a.resumed_from for a in sup.attempts] == [None, 2]
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert tattn.LAUNCHES[k] - before[k] == 7 * cfg.n_layers, k
+    assert t.history == straight.history[2:]
+    for (n, a), (_, b) in zip(named_leaves(out), named_leaves(ref)):
+        assert torch.equal(a, b), n
+    # Written on the card, read on the CPU: the round-6 parameters.
+    tree = dkt.CheckpointManager(d).restore()
+    for n, a in named_leaves(ref):
+        assert torch.equal(dict(named_leaves(tree["params"]))[n],
+                           a.detach().cpu()), n
+    assert tree["dropout"].shape[0] == 1 and tree["opt"]["count"] == 6

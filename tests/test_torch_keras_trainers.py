@@ -229,14 +229,17 @@ def test_error_contracts(monkeypatch):
         with pytest.raises(ValueError, match="exceeds visible devices"):
             cls(mlp(), num_workers=2, device="cpu")
     # The data-parallel knobs (zero=, merge_rule=, sync_every=,
-    # compress=) are ported; rule-driven placements are ROADMAP A7b.
-    for knob, value, item in (("checkpoint_dir", "/x", "A8"),
-                              ("resume", True, "A8"),
-                              ("fsdp", True, "A7b"),
+    # compress=) and the checkpoint knobs are ported (the latter with
+    # the reference's refusals); rule-driven placements are ROADMAP A7b.
+    for knob, value, item in (("fsdp", True, "A7b"),
                               ("plan", object(), "A7b")):
-        cls = dkt.SingleTrainer if item == "A8" else dkt.ADAG
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            cls(mlp(), device="cpu", **{knob: value})
+            dkt.ADAG(mlp(), device="cpu", **{knob: value})
+    for knob, value in (("checkpoint_every", 2), ("resume", True)):
+        with pytest.raises(ValueError, match="checkpoint_dir"):
+            dkt.SingleTrainer(mlp(), device="cpu", **{knob: value})
+    assert dkt.SingleTrainer(mlp(), device="cpu",
+                             checkpoint_dir="/x").checkpoint_dir == "/x"
     with pytest.raises(TypeError, match="unexpected keyword"):
         dkt.SingleTrainer(mlp(), device="cpu", mesh=None)
     with pytest.raises(ValueError, match="known: .*sparse_categorical"):

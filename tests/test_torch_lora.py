@@ -186,11 +186,12 @@ def test_lora_trainer_rejections(m):
                       (dict(lora_targets=("wz",)), "unknown")):
         with pytest.raises(ValueError, match=match):
             LoRATrainer(m["cfg"], base, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        LoRATrainer(m["cfg"], base, checkpoint_dir="/nonexistent",
-                    device="cpu")
+    # The checkpoint knobs are ported (tests/test_torch_checkpoint.py
+    # resumes a LoRATrainer); their refusals are the reference's.
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        LoRATrainer(m["cfg"], base, resume=True, device="cpu")
     tr = LoRATrainer(m["cfg"], base, device="cpu")
-    with pytest.raises(ValueError, match="base_params"):
+    with pytest.raises(ValueError, match="resume=True"):
         tr.train(rows(7, 8), params=base)
 
 

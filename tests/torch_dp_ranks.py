@@ -3,14 +3,19 @@
 Started by ``distkeras_tpu_torch.deploy.Job(...).run_local()``: every
 rank joins the gloo group from its environment, runs the cases of the
 spec file given as the first argument (on the CPU, or on the device the
-spec names), and writes
-``<out>/<case>_r<rank>.npz``.  It imports neither jax nor
-``distkeras_tpu``; the parent test runs the JAX side and compares.
+spec names), and writes ``<out>/<case>_r<rank>.npz``.  It imports
+neither jax nor ``distkeras_tpu``; the parent test runs the JAX side
+and compares.  A case with a ``resume`` entry (``{"at": k}``,
+tests/test_torch_checkpoint.py) trains three times: a straight run, a
+checkpointed run that a ``train.round`` fault stops at round ``k``,
+and its resumed run (checkpoints in ``<out>/ckpt_<case>``, shared by
+the ranks); the results carry ``straight/`` and ``resumed/`` prefixes.
 
 Run alone: ``python tests/torch_dp_ranks.py spec.json`` (world 1).
 :func:`spawn` is the tests' launcher.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -80,12 +85,36 @@ def flatten(tree, prefix=""):
     return out
 
 
-def keras_case(case, data, device):
+def resumed_case(case, data, device, run):
+    """``run(data, device, kw)`` three times: straight, stopped by a
+    fault at round ``case["resume"]["at"]``, resumed from its latest
+    checkpoint."""
+    from distkeras_tpu_torch.resilience.chaos import FaultInjected, FaultPlan
+
+    spec = case["resume"]
+    ckpt = os.path.join(SPEC_OUT, f"ckpt_{case['name']}")
+    ck = dict(checkpoint_dir=ckpt, checkpoint_every=spec.get("every", 1),
+              max_checkpoints=100)
+    out = {f"straight/{k}": v for k, v in run(case, data, device, {}).items()}
+    try:
+        with FaultPlan().fail("train.round", at=spec["at"]):
+            run(case, data, device, ck)
+        raise AssertionError("the fault did not fire")
+    except FaultInjected:
+        pass
+    steps = sorted(int(e) for e in os.listdir(ckpt) if e.isdigit())
+    res = run(case, data, device, dict(ck, resume=True))
+    out.update({f"resumed/{k}": v for k, v in res.items()})
+    out["resumed_from"] = np.asarray(steps[-1])
+    return out
+
+
+def keras_case(case, data, device, extra=None):
     model = dkt.zoo.MLP(16, (32,), 4)
     dkt.module_from_keras_numpy(
         model, [data[f"w{i}"] for i in range(int(data["n_w"]))])
     cls = getattr(dkt, case["trainer"])
-    kw = dict(case["kw"])
+    kw = dict(case["kw"], **(extra or {}))
     t = cls(model, loss="sparse_categorical_crossentropy", device=device,
             **kw)
     ds = dkt.Dataset.from_arrays(data["x"], data["y"])
@@ -107,12 +136,14 @@ def keras_case(case, data, device):
     return res
 
 
-def lm_case(case, data, cfg, device):
+def lm_case(case, data, cfg, device, extra=None):
     params = dkt.params_from_numpy(nest({k[2:]: data[k] for k in data.files
                                          if k.startswith("p/")}), device)
     seg = data["segments"] if case.get("segments") else None
     tokens = data["seg_tokens"] if seg is not None else data["tokens"]
-    t = dkt.LMTrainer(cfg, device=device, **case["kw"])
+    if case.get("dropout"):
+        cfg = dataclasses.replace(cfg, dropout=case["dropout"])
+    t = dkt.LMTrainer(cfg, device=device, **case["kw"], **(extra or {}))
     out = t.train(tokens[:case.get("rows")], params=params, segments=seg)
     res = {"history": np.asarray(t.history),
            "probe": np.asarray([p["grad_norm"] for p in t.probe_history])}
@@ -155,9 +186,14 @@ def prims_case(mesh):
                     "jax", "jaxlib", "distkeras_tpu", "keras")) or [""])}
 
 
+SPEC_OUT = None
+
+
 def main(spec_path):
+    global SPEC_OUT
     torch.set_num_threads(1)
     spec = json.load(open(spec_path))
+    SPEC_OUT = spec["out"]
     # The CPU by default; a spec may name the card and the backend (two
     # ranks sharing one card take gloo over CUDA tensors).
     device = spec.get("device", "cpu")
@@ -170,11 +206,17 @@ def main(spec_path):
     for case in spec["cases"]:
         try:
             if case["kind"] == "keras":
-                res = keras_case(case, data, device)
+                run = lambda c, d, dev, kw: keras_case(c, d, dev, kw)
             elif case["kind"] == "lm":
-                res = lm_case(case, data, cfg, device)
+                run = lambda c, d, dev, kw: lm_case(c, d, cfg, dev, kw)
             else:
+                run = None
+            if run is None:
                 res = prims_case(mesh)
+            elif case.get("resume"):
+                res = resumed_case(case, data, device, run)
+            else:
+                res = run(case, data, device, {})
         except Exception as e:  # recorded for the parent to report
             res = {"error": np.asarray(
                 f"{type(e).__name__}: {e}\n{traceback.format_exc()}")}
