@@ -21,6 +21,19 @@ each went through its kernels:
   ``SingleTrainer``.  This path reaches no hand-written kernel (its
   convolutions and dense products are cuDNN / cuBLAS, as the reference's
   are XLA's);
+- the paper's other workloads (phase ``keras_zoo``): ``imdb_lstm``
+  (``FusedLSTM`` and the stock LSTM on cuDNN's fused kernel), ``resnet50``
+  and the two MLPs at their bench configs (mixed bf16, sgd 0.01, device
+  data: step ms over two timed windows of ~1.5 s, samples/s, idle
+  share, peak GB; ResNet-50's FLOP share of the bf16 peak), card runs
+  against the CPU's (f32 ``imdb_lstm`` both ways; ResNet-50 at 64 x 64
+  in float64, and its f32 loss and moving statistics), the reference's
+  BN model on two gloo ranks sharing the card against world 1 at twice
+  the batch (synchronized statistics), and ResNet-50 under ADAG in a
+  world-1 NCCL group against the run without one (equal, and timed).
+  ``python3 chip_smoke.py --dp-rank sync_bn DIR`` is one of those ranks.
+  These models reach no hand-written kernel (cuDNN, cuBLAS and ATen, as
+  the reference's are XLA's);
 - long-context training from raw text (phase ``long_train``): a seeded
   text through the native BPE tokenizer into rows of 4096 + 1 tokens, a
   ``Dataset`` of them through ``LMTrainer(_long_cfg)`` (remat, shuffled,
@@ -118,6 +131,7 @@ carries its seq-4096 f32 readings (causal, and window 1024).
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -139,6 +153,7 @@ from distkeras_tpu_torch import native as dkt_native
 from distkeras_tpu_torch.ops import _build
 from distkeras_tpu_torch.ops import attention as attn
 from distkeras_tpu_torch.models.transformer import named_leaves
+from distkeras_tpu_torch.utils.serialization import weight_paths
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (NVIDIA data sheet)
 # f32-accurate products: the 495 TFLOP/s TF32 tensor-core peak over the
@@ -788,6 +803,396 @@ def keras_parity(x, y, device, batch, steps=4):
         adag_w1_vs_single_steps=len(h1),
         adag_w1_vs_single_loss_max_abs_diff=adag_hist,
         adag_w1_vs_single_weight_max_abs_diff=adag_w, adag_tol=1e-6)
+
+
+# The paper's other bench configs (scripts/bench_suite.py:173-229), each
+# in mixed_bfloat16 with sgd at 0.01 through SingleTrainer over
+# device-resident data: imdb_lstm (vocab 20000, maxlen 128, batch 512;
+# FusedLSTM and the stock LSTM on torch's fused kernel), resnet50
+# (224 x 224 x 3, 1000 classes, batch 128; also ADAG in a world-1 NCCL
+# group and without one), and the MLPs at batch 4096 with 8 steps a call.
+LSTM_BENCH = dict(vocab_size=20000, embed_dim=128, lstm_units=128,
+                  maxlen=128)
+LSTM_BATCH = 512
+RESNET_BATCH = 128
+MLP_BATCH = 4096
+PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
+ZOO_WINDOW_S = 1.5      # seconds of steps in each timed window
+
+
+def zoo_throughput(name, model, x, y, loss, batch, preprocess=None,
+                   profile_calls=0, deferred=None, trainer=dkt.SingleTrainer,
+                   **kw):
+    """Steady step ms of ``trainer(device_data=True)``.  After a warm-up
+    epoch (cuDNN's algorithm search, the allocator), calls of 1 and of
+    1 + E epochs pay the same set-up (staging, state, export), so their
+    difference is E epochs of steps; E is sized from a 1- and a 2-epoch
+    call so that a window holds ~``ZOO_WINDOW_S`` of steps.  Two windows
+    in turn (``step_ms`` is their mean, ``window_spread`` how far they
+    part), and the peak memory of the timed calls.  With
+    ``profile_calls``, a callable appended to ``deferred`` later fills in
+    the device's idle share over that many calls of the indexed step: a
+    profiled window leaves the host's later launches slower, so the
+    phase profiles after all its timing."""
+    ds = dkt.Dataset.from_arrays(x, y)
+    t = trainer(model, loss=loss, worker_optimizer="sgd", learning_rate=0.01,
+                batch_size=batch, num_epoch=1, device_data=True,
+                preprocess=preprocess, device="cuda", **kw)
+
+    def epochs_s(n):
+        t.num_epoch = n
+        t.train(ds)
+        return t.training_time
+
+    epochs_s(1)
+    epoch = max(epochs_s(2) - epochs_s(1), 1e-3)
+    extra = max(1, min(400, math.ceil(ZOO_WINDOW_S / epoch)))
+    spc = kw.get("steps_per_call", 1)
+    steps = len(ds) // (batch * spc) * spc
+    torch.cuda.reset_peak_memory_stats()
+    windows = []
+    for _ in range(2):
+        one = epochs_s(1)
+        windows.append(1e3 * (epochs_s(1 + extra) - one) / (extra * steps))
+    hist = t.history
+    if not (hist and np.all(np.isfinite(hist))):
+        raise AssertionError(f"{name}: bad losses {hist}")
+    step_ms = float(np.mean(windows))
+    out = dict(batch=batch, steps_per_call=spc, steps_a_window=extra * steps,
+               window_step_ms=windows,
+               window_spread=abs(windows[0] - windows[1]) / step_ms,
+               step_ms=step_ms, samples_per_s=batch * 1e3 / step_ms,
+               idle_share=None,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+               losses_first_last=[hist[0], hist[-1]])
+
+    def profile():
+        ad = t.adapter
+        state = ad.init_state()
+        step = ad.make_indexed_train_step(spc)
+        X = torch.as_tensor(x, device="cuda")
+        Y = torch.as_tensor(y, device="cuda")
+        blocks = [torch.arange(i * batch * spc, (i + 1) * batch * spc,
+                               device="cuda").reshape(spc, batch)
+                  for i in range(profile_calls)]
+        out["idle_share"] = profile_window(f"keras_zoo_{name}", lambda: [
+            step(state, X, Y, b) for b in blocks])
+
+    if profile_calls:
+        deferred.append(profile)
+    return out
+
+
+def conv_flops(model, x):
+    """Forward FLOPs of ``model`` on ``x``: 2 x MACs of every Conv2d and
+    Linear, counted by forward hooks (in inference mode, so that the
+    moving statistics stay as they are)."""
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.weight[0].numel()          # C_in x kh x kw
+            total[0] += 2 * out.numel() * k
+        elif isinstance(mod, torch.nn.Linear):
+            total[0] += 2 * out.numel() * mod.in_features
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()]
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        model.train()
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def lstm_data(n, vocab, maxlen, seed=0):
+    """int32 tokens and a learnable label: whether the first token is in
+    the lower half of the vocabulary."""
+    x = np.random.default_rng(seed).integers(0, vocab, (n, maxlen)
+                                             ).astype(np.int32)
+    return x, (x[:, 0] < vocab // 2).astype(np.int64)
+
+
+def imagenet_like(n, seed=0, side=224):
+    """uint8 ``[n, side, side, 3]`` noise images, labels in [0, 1000)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (n, side, side, 3), dtype=np.uint8)
+    return x, rng.integers(0, 1000, n).astype(np.int64)
+
+
+def zoo_run(builder, device, x, y, loss, batch, steps, dtype=None,
+            trainer=dkt.SingleTrainer, **kw):
+    """An sgd run of ``builder()`` (numpy-seeded weights) on ``device``
+    (``dtype``: the module cast, e.g. float64): ``(losses, Keras
+    weights, step-0 Keras weights)``."""
+    model = builder()
+    w0 = dkt.get_weights(model)
+    if dtype is not None:
+        model = model.to(dtype)
+    t = trainer(model, loss=loss, worker_optimizer="sgd", batch_size=batch,
+                num_epoch=1, device=device, **kw)
+    n = batch * steps
+    out = t.train(dkt.Dataset.from_arrays(x[:n], y[:n]))
+    return np.array(t.history), dkt.get_weights(out), w0
+
+
+def update_gap(a, b, w0):
+    """``|| (a - w0) - (b - w0) || / || b - w0 ||`` over every variable
+    at once."""
+    du = np.concatenate([(np.float64(u) - z).ravel() for u, z in zip(a, w0)])
+    dv = np.concatenate([(np.float64(v) - z).ravel() for v, z in zip(b, w0)])
+    return float(np.linalg.norm(du - dv) / np.linalg.norm(dv))
+
+
+def max_gap(a, b):
+    return max(float(np.abs(np.float64(u) - v).max()) for u, v in zip(a, b))
+
+
+def resnet_parity(x, y, steps=4, batch=8):
+    """ResNet-50 at 64 x 64 on the card against the CPU.  float64,
+    ``steps`` sgd steps at 0.01: the losses, the weights and the moving
+    statistics at keras_parity's tolerances (tests/test_torch_resnet.py
+    holds the CPU's float64 step to the reference's at 1e-8).  f32 one
+    step: the loss and the moving statistics (the forward from equal
+    weights) at the same tolerances; the update of this random-init net
+    is ill-conditioned in f32 (in JAX too), so the card's and the CPU's
+    f32 updates are read against the float64 one, not held."""
+    build = lambda: dkt.zoo.resnet50(num_classes=1000,  # noqa: E731
+                                     input_shape=(64, 64, 3), seed=21)
+    loss = "sparse_categorical_crossentropy"
+    x64 = x.astype(np.float64) / 255
+    kw = dict(learning_rate=0.01)
+    card64 = zoo_run(build, "cuda", x64, y, loss, batch, steps,
+                     dtype=torch.float64, **kw)
+    cpu64 = zoo_run(build, "cpu", x64, y, loss, batch, steps,
+                    dtype=torch.float64, **kw)
+    np.testing.assert_allclose(card64[0], cpu64[0], **PARITY_TOL)
+    for a, b in zip(card64[1], cpu64[1]):
+        np.testing.assert_allclose(a, b, **PARITY_TOL)
+    ref = zoo_run(build, "cpu", x64, y, loss, batch, 1, dtype=torch.float64,
+                  **kw)
+    card = zoo_run(build, "cuda", x, y, loss, batch, 1, preprocess=to_unit,
+                   **kw)
+    cpu = zoo_run(build, "cpu", x, y, loss, batch, 1, preprocess=to_unit,
+                  **kw)
+    names = weight_paths(build())
+    moving = [n.endswith(("moving_mean", "moving_variance")) for n in names]
+    np.testing.assert_allclose(card[0], cpu[0], **PARITY_TOL)
+    for a, b, m in zip(card[1], cpu[1], moving):
+        if m:
+            np.testing.assert_allclose(a, b, **PARITY_TOL)
+    return dict(
+        f64_steps=steps, batch=batch, f64_losses=card64[0].tolist(),
+        f64_loss_max_abs_err=float(np.abs(card64[0] - cpu64[0]).max()),
+        f64_weight_max_abs_err=max_gap(card64[1], cpu64[1]),
+        f32_loss_rel_err=float(abs(card[0][0] - cpu[0][0]) / cpu[0][0]),
+        f32_moving_stat_max_abs_err=max_gap(
+            [a for a, m in zip(card[1], moving) if m],
+            [b for b, m in zip(cpu[1], moving) if m]),
+        f32_update_gap_to_f64_card=update_gap(card[1], ref[1], ref[2]),
+        f32_update_gap_to_f64_cpu=update_gap(cpu[1], ref[1], ref[2]))
+
+
+def lstm_parity(fused, steps=4, batch=64):
+    """f32 imdb_lstm (vocab 1000, width 32, maxlen 32) on the card
+    against the CPU: losses and weights at keras_parity's tolerances."""
+    x, y = lstm_data(batch * steps, 1000, 32, seed=5)
+    build = lambda: dkt.zoo.imdb_lstm(  # noqa: E731
+        vocab_size=1000, embed_dim=32, lstm_units=32, maxlen=32, seed=6,
+        fused=fused)
+    kw = dict(learning_rate=0.1)
+    card = zoo_run(build, "cuda", x, y, "binary_crossentropy", batch, steps,
+                   **kw)
+    cpu = zoo_run(build, "cpu", x, y, "binary_crossentropy", batch, steps,
+                  **kw)
+    np.testing.assert_allclose(card[0], cpu[0], **PARITY_TOL)
+    for a, b in zip(card[1], cpu[1]):
+        np.testing.assert_allclose(a, b, **PARITY_TOL)
+    return dict(loss_max_abs_err=float(np.abs(card[0] - cpu[0]).max()),
+                weight_max_abs_err=max_gap(card[1], cpu[1]))
+
+
+def bn_model(seed=0):
+    """The reference's BN model (tests/test_batchnorm_dp.py::bn_mlp, as
+    tests/torch_dp_ranks.py ports it) with Keras' init from ``seed``.
+    The rank script is imported from its directory: a package named
+    ``tests`` elsewhere on the path would shadow the repo's."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from torch_dp_ranks import BNMLP
+
+    rng = np.random.default_rng(seed)
+    glorot = lambda a, b: rng.uniform(  # noqa: E731
+        -np.sqrt(6 / (a + b)), np.sqrt(6 / (a + b)), (a, b))
+    return dkt.module_from_keras_numpy(BNMLP(), [
+        glorot(16, 32), np.zeros(32), np.ones(32), np.zeros(32),
+        glorot(32, 4), np.zeros(4)], [np.zeros(32), np.ones(32)])
+
+
+def bn_blobs(n=512, seed=0):
+    """Four Gaussian blobs in 16 dimensions."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 3, (4, 16))
+    y = rng.integers(0, 4, n)
+    return (centers[y] + rng.normal(0, 1, (n, 16))).astype(np.float32), y
+
+
+def bn_adag(device, batch, **kw):
+    """ADAG on the BN model (the reference test's run: global batch 64,
+    window 2, 2 epochs, sgd at 0.05): ``(losses, tv, ntv)``."""
+    x, y = bn_blobs()
+    t = dkt.ADAG(bn_model(), loss="sparse_categorical_crossentropy",
+                 worker_optimizer="sgd", learning_rate=0.05,
+                 batch_size=batch, communication_window=2, num_epoch=2,
+                 device=device, **kw)
+    tv, ntv = dkt.keras_numpy_from_module(t.train(
+        dkt.Dataset.from_arrays(x, y)))
+    return np.array(t.history), tv, ntv
+
+
+def sync_bn_rank(tmp):
+    """One rank of the two-rank sync-BN check (gloo over CUDA tensors)."""
+    import torch.distributed as dist
+
+    dkt.deploy.init_from_env(device="cuda:0", backend="gloo", timeout=300)
+    hist, tv, ntv = bn_adag("cuda:0", 32, num_workers=2)
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(tmp, "sync_bn.npz"), history=hist,
+                 **{f"w{i}": a for i, a in enumerate(tv + ntv)})
+    dist.destroy_process_group()
+    return 0
+
+
+def keras_zoo_phase():
+    """The paper's remaining workloads on the card: throughput of
+    imdb_lstm (both LSTMs), resnet50 and the two MLPs at their bench
+    configs, resnet50 under ADAG in a world-1 NCCL group against the run
+    without a group (equal: one rank takes the local BN path; and timed
+    at the bench config), the profiled windows, then parity with the CPU
+    (f32 imdb_lstm both ways, resnet50 at 64 x 64 in float64 and f32)
+    and the BN model's synchronized statistics over two gloo ranks
+    sharing the card against world 1 at twice the batch."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    runs, deferred = {}, []
+    x, y = lstm_data(8 * LSTM_BATCH, LSTM_BENCH["vocab_size"],
+                     LSTM_BENCH["maxlen"])
+    for fused in (True, False):
+        name = "imdb_lstm" + ("" if fused else "_keras_lstm")
+        runs[name] = zoo_throughput(
+            name, dkt.zoo.imdb_lstm(**LSTM_BENCH, seed=0, fused=fused,
+                                    policy="mixed_bfloat16"),
+            x, y, "binary_crossentropy", LSTM_BATCH, profile_calls=2,
+            deferred=deferred)
+    model = dkt.zoo.resnet50(seed=0, policy="mixed_bfloat16")
+    fwd = conv_flops(model, torch.zeros(1, 224, 224, 3))
+    rx, ry = imagenet_like(6 * RESNET_BATCH)
+    r = zoo_throughput("resnet50", model, rx, ry,
+                       "sparse_categorical_crossentropy", RESNET_BATCH,
+                       preprocess=to_unit, profile_calls=2,
+                       deferred=deferred)
+    step_flops = 3 * fwd * RESNET_BATCH
+    r.update(forward_gflop_per_image=fwd / 1e9, step_tflop=step_flops / 1e12,
+             flop_share_of_bf16_peak=step_flops / (r["step_ms"] / 1e3)
+             / H100_BF16_FLOPS,
+             bound_ms=1e3 * step_flops / H100_BF16_FLOPS)
+    runs["resnet50"] = r
+    del model
+
+    # ResNet-50 under ADAG (window 1): without a group, then in a
+    # world-1 NCCL group, where one rank normalizes with local
+    # statistics and the exchange sums one gradient.  Equal to the run
+    # without a group (deterministic cuDNN, 2 steps at 224 x 224, batch
+    # 8), and the bench config timed in turn with the run without one.
+    adag = dict(trainer=dkt.ADAG, communication_window=1)
+    runs["resnet50_adag_no_group"] = zoo_throughput(
+        "resnet50_adag_no_group",
+        dkt.zoo.resnet50(seed=0, policy="mixed_bfloat16"), rx, ry,
+        "sparse_categorical_crossentropy", RESNET_BATCH, preprocess=to_unit,
+        **adag)
+    build = lambda: dkt.zoo.resnet50(num_classes=1000,  # noqa: E731
+                                     input_shape=(224, 224, 3), seed=22)
+    gx, gy = imagenet_like(16, seed=6)
+    one = dict(adag, learning_rate=0.01, preprocess=to_unit)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = zoo_run(build, "cuda", gx, gy,
+                        "sparse_categorical_crossentropy", 8, 2, **one)
+        rdv = tempfile.mkdtemp()
+        dkt.initialize_multihost(init_method=f"file://{rdv}/rdv",
+                                 world_size=1, rank=0, timeout=120)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError("keras_zoo: not an NCCL group")
+            grouped = zoo_run(build, "cuda", gx, gy,
+                              "sparse_categorical_crossentropy", 8, 2, **one)
+            torch.backends.cudnn.deterministic = prev
+            runs["resnet50_adag_world1_nccl"] = zoo_throughput(
+                "resnet50_adag_world1_nccl",
+                dkt.zoo.resnet50(seed=0, policy="mixed_bfloat16"), rx, ry,
+                "sparse_categorical_crossentropy", RESNET_BATCH,
+                preprocess=to_unit, **adag)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    nccl = dict(steps=len(grouped[0]),
+                loss_max_abs_err=float(np.abs(grouped[0] - plain[0]).max()),
+                weight_max_abs_err=max_gap(grouped[1], plain[1]),
+                step_ms_group_over_no_group=(
+                    runs["resnet50_adag_world1_nccl"]["step_ms"]
+                    / runs["resnet50_adag_no_group"]["step_ms"]))
+    if not (len(grouped[0]) == 2 and nccl["loss_max_abs_err"] <= 1e-6
+            and nccl["weight_max_abs_err"] <= 1e-6):
+        raise AssertionError(f"resnet50 in a world-1 NCCL group: {nccl}")
+    del rx, ry
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(3)
+    for name, shape, classes in (("mnist_mlp", (784,), 10),
+                                 ("higgs_mlp", (28,), 2)):
+        n = MLP_BATCH * 8 * 2
+        x = rng.normal(0, 1, (n, *shape)).astype(np.float32)
+        y = rng.integers(0, classes, n)
+        runs[name] = zoo_throughput(
+            name, dkt.zoo.ZOO[name](seed=0, policy="mixed_bfloat16"), x, y,
+            "sparse_categorical_crossentropy", MLP_BATCH, steps_per_call=8,
+            profile_calls=1, deferred=deferred)
+    bench_s = time.perf_counter() - t0
+    for profile in deferred:
+        profile()
+    del deferred
+
+    parity = {f"imdb_lstm_fused_{f}": lstm_parity(f) for f in (True, False)}
+    px, py = imagenet_like(32, seed=4, side=64)
+    parity["resnet50_64x64"] = resnet_parity(px, py)
+
+    # Synchronized BN: two gloo ranks on the card == world 1 at twice the
+    # batch.
+    tmp = tempfile.mkdtemp()
+    dkt.deploy.Job("chip_smoke.py", world=2,
+                   init_method=f"file://{tmp}/rdv_bn",
+                   args=("--dp-rank", "sync_bn", tmp)).run_local(
+        timeout=300, capture=True)
+    got = np.load(os.path.join(tmp, "sync_bn.npz"))
+    h1, tv, ntv = bn_adag("cuda", 64)
+    w2 = [got[f"w{i}"] for i in range(len(tv) + len(ntv))]
+    sync = dict(loss_max_abs_err=float(np.abs(got["history"] - h1).max()),
+                weight_max_abs_err=max_gap(w2[:len(tv)], tv),
+                moving_stat_max_abs_err=max_gap(w2[len(tv):], ntv))
+    if not max(sync.values()) <= 1e-4:
+        raise AssertionError(f"sync BN world 2 != world 1: {sync}")
+    log("keras_zoo", policy="mixed_bfloat16", optimizer="sgd",
+        learning_rate=0.01, runs=runs, bench_s=bench_s, parity=parity,
+        parity_tol=PARITY_TOL, sync_bn_world2_vs_world1=sync,
+        sync_bn_tol=1e-4, resnet50_world1_nccl_vs_no_group=nccl,
+        seconds=time.perf_counter() - t0)
 
 
 def text_corpus(n_bytes, seed=0):
@@ -2254,6 +2659,8 @@ def dp_rank_main(mode, tmp):
     import torch.distributed as dist
 
     rank = int(os.environ["RANK"])
+    if mode == "sync_bn":
+        return sync_bn_rank(tmp)
     if mode == "nccl":
         try:
             dkt.deploy.init_from_env(device="cuda:0", backend="nccl",
@@ -2850,6 +3257,11 @@ def main(profile=False):
 
     # 7. The paper's path: the Keras trainer family on the CIFAR CNN.
     keras_phase()
+
+    # 7b. The paper's other workloads: imdb_lstm, resnet50, the MLPs,
+    # and synchronized BatchNorm.
+    torch.cuda.empty_cache()
+    keras_zoo_phase()
 
     # 8. Long-context LM training from raw text, at seq 4096.
     torch.cuda.empty_cache()

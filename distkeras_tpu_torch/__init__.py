@@ -43,6 +43,12 @@ replicas, with the ZeRO stages and the gradient-exchange policies of
 ``parallel/``, and ``AsyncDP`` simulates a bounded-staleness async fleet
 in one process.
 
+The paper's workloads are all in ``zoo``: the MLPs, the CIFAR CNN,
+``imdb_lstm`` (``FusedLSTM``, or the stock LSTM on torch's fused
+kernel) and ``resnet50`` (Keras' ``BatchNormalization`` semantics,
+synchronized over the data group at ``num_workers > 1``); a zoo model
+travels as the reference's ``serialize_keras_model`` dict.
+
 Checkpoint and resilience: every trainer takes ``checkpoint_dir`` /
 ``checkpoint_every`` / ``max_checkpoints`` / ``resume`` and resumes bit
 for bit from a :class:`CheckpointManager` step (the pickle layout; in a
@@ -108,10 +114,16 @@ from distkeras_tpu_torch.resilience import (ClusterMember, ClusterSupervisor,
 from distkeras_tpu_torch.serving import (ContinuousBatcher, EngineClosed,
                                          PrefixPool, QueueFull, RequestResult,
                                          SpeculativeBatcher, TraceReplay)
-from distkeras_tpu_torch import deploy, parallel
+from distkeras_tpu_torch import deploy, obs, parallel
 from distkeras_tpu_torch.parallel import (AsyncConfig, AsyncSchedule,
                                           MeshSpec, initialize_multihost,
                                           make_mesh)
+from distkeras_tpu_torch.parallel import collectives, exchange, rules
+from distkeras_tpu_torch.parallel.collectives import zero1_optimizer
+from distkeras_tpu_torch.parallel.exchange import (ExchangeConfig,
+                                                   exchange_optimizer)
+from distkeras_tpu_torch.parallel.sharding import (ShardingPlan, dp_plan,
+                                                   zero1_plan, zero3_plan)
 from distkeras_tpu_torch.trainers.async_dp import AsyncDP
 from distkeras_tpu_torch.trainers.base import SingleTrainer, Trainer
 from distkeras_tpu_torch.trainers.distributed import ADAG, DynSGD
@@ -120,7 +132,10 @@ from distkeras_tpu_torch.trainers.elastic import (AEASGD, DOWNPOUR, EAMSGD,
                                                   EnsembleTrainer)
 from distkeras_tpu_torch.trainers.lm import LMTrainer, LoRATrainer
 from distkeras_tpu_torch.trainers.optim import Optimizer
+from distkeras_tpu_torch.utils.misc import to_dense_vector, uniform_weights
 from distkeras_tpu_torch.utils.serialization import (
+    deserialize_keras_model,
+    get_weights,
     keras_numpy_from_module,
     load_lm,
     lora_from_numpy,
@@ -128,9 +143,30 @@ from distkeras_tpu_torch.utils.serialization import (
     params_from_numpy,
     params_to_numpy,
     save_lm,
+    serialize_keras_model,
+    set_weights,
 )
+from distkeras_tpu_torch.version import __version__
 
 __all__ = [
+    "__version__",
+    "serialize_keras_model",
+    "deserialize_keras_model",
+    "get_weights",
+    "set_weights",
+    "to_dense_vector",
+    "uniform_weights",
+    "ShardingPlan",
+    "dp_plan",
+    "zero1_plan",
+    "zero3_plan",
+    "zero1_optimizer",
+    "collectives",
+    "exchange",
+    "rules",
+    "ExchangeConfig",
+    "exchange_optimizer",
+    "obs",
     "ADAG",
     "CheckpointManager",
     "ClusterMember",

@@ -99,10 +99,16 @@ class CheckpointManager:
     and puts each restored leaf on the template leaf's device and dtype.
     ``backend``: ``"auto"`` / ``"pickle"`` (``"orbax"`` raises); the
     resolved choice is ``self.backend``.
+
+    ``async_save`` is accepted in the reference's position, but every
+    save is synchronous for now (ROADMAP A13): ``save`` returns once the
+    step is committed, as the reference's own pickle backend does with
+    either value.  ``self.async_save`` records what was asked.
     """
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 save_interval_steps: int = 1, backend: str = "auto"):
+                 save_interval_steps: int = 1, async_save: bool = True,
+                 backend: str = "auto"):
         if backend not in BACKENDS:
             raise ValueError(
                 f"unknown checkpoint backend {backend!r}; known: {BACKENDS}")
@@ -113,6 +119,7 @@ class CheckpointManager:
                 "pass backend='pickle' (or leave backend='auto'), whose "
                 "multi-process saves gather to rank 0")
         self.directory = os.path.abspath(directory)
+        self.async_save = async_save
         self._impl = _PickleBackend(self.directory, max_to_keep=max_to_keep,
                                     save_interval_steps=save_interval_steps)
         self.backend = "pickle"

@@ -33,6 +33,7 @@ from torch.func import functional_call
 from distkeras_tpu_torch.ops.losses import resolve_loss
 from distkeras_tpu_torch.ops.optimizers import resolve_optimizer
 from distkeras_tpu_torch.utils.device import resolve_device
+from distkeras_tpu_torch.utils.serialization import keras_perms
 
 
 @dataclasses.dataclass
@@ -57,10 +58,11 @@ class ModelAdapter:
     as the reference takes them; ``metrics`` may hold ``"accuracy"``.
     """
 
-    def __init__(self, model, loss="categorical_crossentropy",
+    def __init__(self, keras_model, loss="categorical_crossentropy",
                  optimizer="sgd", learning_rate=None,
                  metrics: Sequence[str] = (),
                  preprocess: Callable | None = None, device=None):
+        model = keras_model  # the reference's name: a zoo nn.Module here
         if not isinstance(model, nn.Module):
             raise TypeError(f"expected a torch.nn.Module, got {type(model)}")
         if any(isinstance(p, nn.parameter.UninitializedParameter)
@@ -173,10 +175,9 @@ class ModelAdapter:
     def ref_perms(self) -> list:
         """Per trainable variable, the permutation of its torch layout
         into Keras' (Conv2D OIHW -> HWIO, Dense ``[out, in]`` -> ``[in,
-        out]``), or None: the fusion buckets chunk leaves in the
-        reference's layout."""
-        return [(2, 3, 1, 0) if p.dim() == 4 else (1, 0) if p.dim() == 2
-                else None for p in self.model.parameters()]
+        out]``, by layer kind), or None: the fusion buckets chunk leaves
+        in the reference's layout."""
+        return keras_perms(self.model)
 
     def zero_layout(self, n: int, bucket_mb: float | None = None):
         """The ZeRO fusion-bucket layout of the trainable variables

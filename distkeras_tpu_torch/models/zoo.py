@@ -14,63 +14,35 @@ Keras so that weights carry across exactly
 - the module's parameters are Keras' ``trainable_variables`` in order
   (each layer's kernel, then bias).
 
-``policy`` replaces Keras' global mixed-precision policy with a
-constructor argument: ``"float32"``, or ``"mixed_bfloat16"`` (f32
-weights, the layers computing in bf16 under ``torch.autocast``, bf16
-logits out).  Weights start as Keras' do (glorot-uniform kernels, zero
-biases), drawn from ``np.random.default_rng(seed)``.
+Every model takes ``policy`` and ``seed`` as ``models/base.py``
+describes (Keras' mixed-precision policy and Keras' initializers).
+
+``imdb_lstm`` is ``Embedding -> LSTM -> Dense(1)`` over int32 tokens
+(``models/rnn.py``; ``fused=False`` is the stock Keras LSTM on torch's
+fused kernel) and ``resnet50`` is ``keras.applications.ResNet50``
+(``models/resnet.py``).  Each builder records its name and arguments in
+``module.zoo_config``, which ``serialize_keras_model`` writes.
 """
 
 from __future__ import annotations
 
-import contextlib
-
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distkeras_tpu_torch.utils.serialization import (keras_numpy_from_module,
-                                                     module_from_keras_numpy)
-
-POLICIES = ("float32", "mixed_bfloat16")
-
-
-class _KerasModule(nn.Module):
-    """Base: the policy, and Keras' initialization."""
-
-    def __init__(self, name: str, policy: str):
-        super().__init__()
-        if policy not in POLICIES:
-            raise ValueError(f"unknown policy {policy!r}; known: "
-                             f"{list(POLICIES)}")
-        self.name = name
-        self.policy = policy
-
-    def _compute(self, x):
-        """The layers' compute dtype: autocast to bf16 under the mixed
-        policy, nothing under float32."""
-        if self.policy == "mixed_bfloat16":
-            return torch.autocast(x.device.type, dtype=torch.bfloat16)
-        return contextlib.nullcontext()
-
-    def _init_weights(self, seed):
-        rng = np.random.default_rng(seed)
-        tv, ntv = keras_numpy_from_module(self)
-        out = []
-        for w in tv:
-            if w.ndim >= 2:  # Keras kernel: receptive field x in x out
-                rf = int(np.prod(w.shape[:-2]))
-                fan_in, fan_out = rf * w.shape[-2], rf * w.shape[-1]
-                limit = np.sqrt(6.0 / (fan_in + fan_out))
-                out.append(rng.uniform(-limit, limit, w.shape)
-                           .astype(np.float32))
-            else:
-                out.append(np.zeros_like(w))
-        module_from_keras_numpy(self, out, ntv)
+from distkeras_tpu_torch.models.base import KerasModule
+from distkeras_tpu_torch.models.resnet import ResNet50
+from distkeras_tpu_torch.models.rnn import LSTM, FusedLSTM
 
 
-class MLP(_KerasModule):
+def _zoo(module, builder: str, **kwargs):
+    """Record the builder and its arguments (``serialize_keras_model``'s
+    JSON) on ``module``."""
+    module.zoo_config = {"builder": builder, "kwargs": kwargs}
+    return module
+
+
+class MLP(KerasModule):
     """Dense layers with ReLU between them, logits out."""
 
     def __init__(self, input_dim: int, hidden, num_classes: int,
@@ -88,7 +60,7 @@ class MLP(_KerasModule):
             return self.dense[-1](x)
 
 
-class CifarCNN(_KerasModule):
+class CifarCNN(KerasModule):
     """Conv 32, 32, pool, conv 64, 64, pool, Dense 512, logits."""
 
     def __init__(self, num_classes: int = 10, input_shape=(32, 32, 3),
@@ -115,36 +87,72 @@ class CifarCNN(_KerasModule):
             return self.dense[1](x)
 
 
+class ImdbLSTM(KerasModule):
+    """Embedding, LSTM (fused or cuDNN), Dense(1): one binary logit."""
+
+    def __init__(self, vocab_size: int, embed_dim: int, lstm_units: int,
+                 fused: bool = True, name: str = "imdb_lstm",
+                 policy: str = "float32", seed=None):
+        super().__init__(name, policy)
+        self.embedding = nn.Embedding(vocab_size, embed_dim)
+        self.lstm = (FusedLSTM if fused else LSTM)(lstm_units,
+                                                   input_dim=embed_dim)
+        self.dense = nn.Linear(lstm_units, 1)
+        self._init_weights(seed)
+
+    def forward(self, x):
+        with self._compute(x):
+            return self.dense(self.lstm(self.embedding(x)))
+
+
 def mnist_mlp(hidden=(500, 300), num_classes: int = 10, input_dim: int = 784,
               seed: int | None = None, policy: str = "float32"):
     """3-layer MLP, the reference's canonical MNIST architecture."""
-    return MLP(input_dim, hidden, num_classes, "mnist_mlp", policy, seed)
+    return _zoo(MLP(input_dim, hidden, num_classes, "mnist_mlp", policy,
+                    seed), "mnist_mlp", hidden=list(hidden),
+                num_classes=num_classes, input_dim=input_dim, policy=policy)
 
 
 def cifar_cnn(num_classes: int = 10, input_shape=(32, 32, 3),
               seed: int | None = None, policy: str = "float32"):
     """Small CNN for CIFAR-10 (BASELINE.json config #2)."""
-    return CifarCNN(num_classes, input_shape, "cifar_cnn", policy, seed)
+    return _zoo(CifarCNN(num_classes, input_shape, "cifar_cnn", policy, seed),
+                "cifar_cnn", num_classes=num_classes,
+                input_shape=list(input_shape), policy=policy)
 
 
 def higgs_mlp(input_dim: int = 28, num_classes: int = 2,
               hidden=(600, 600, 600), seed: int | None = None,
               policy: str = "float32"):
     """Tabular MLP for the ATLAS Higgs task."""
-    return MLP(input_dim, hidden, num_classes, "higgs_mlp", policy, seed)
+    return _zoo(MLP(input_dim, hidden, num_classes, "higgs_mlp", policy,
+                    seed), "higgs_mlp", input_dim=input_dim,
+                num_classes=num_classes, hidden=list(hidden), policy=policy)
 
 
-def imdb_lstm(*args, **kwargs):
-    raise NotImplementedError(
-        "imdb_lstm is not ported yet (ROADMAP A6): it needs the port of "
-        "models/rnn.py::FusedLSTM")
+def imdb_lstm(vocab_size: int = 20000, embed_dim: int = 128,
+              lstm_units: int = 128, maxlen: int = 128,
+              seed: int | None = None, fused: bool = True,
+              policy: str = "float32"):
+    """LSTM sentiment classifier (BASELINE.json config #4): int32 tokens
+    ``[B, maxlen]`` in (the module takes any length; ``maxlen`` is
+    recorded for serialization), one binary logit out
+    (``binary_crossentropy``).
+    ``fused=True`` is :class:`~distkeras_tpu_torch.models.rnn.FusedLSTM`,
+    ``fused=False`` the stock Keras LSTM's counterpart."""
+    return _zoo(ImdbLSTM(vocab_size, embed_dim, lstm_units, fused,
+                         "imdb_lstm", policy, seed), "imdb_lstm",
+                vocab_size=vocab_size, embed_dim=embed_dim,
+                lstm_units=lstm_units, maxlen=maxlen, fused=fused,
+                policy=policy)
 
 
-def resnet50(*args, **kwargs):
-    raise NotImplementedError(
-        "resnet50 is not ported yet (ROADMAP A6): it needs a BatchNorm "
-        "with the semantics of keras.applications.ResNet50's (Keras "
-        "momentum 0.99, i.e. torch momentum 0.01, and epsilon=1.001e-5)")
+def resnet50(num_classes: int = 1000, input_shape=(224, 224, 3),
+             seed: int | None = None, policy: str = "float32"):
+    """ResNet-50 (BASELINE.json stretch config), random init, logits out."""
+    return _zoo(ResNet50(num_classes, input_shape, "resnet50", policy, seed),
+                "resnet50", num_classes=num_classes,
+                input_shape=list(input_shape), policy=policy)
 
 
 ZOO = {

@@ -334,6 +334,25 @@ def gather_bucket(row, mesh):
     return _GatherBucket.apply(row, mesh)
 
 
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return all_reduce(t.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous().clone(), ctx.mesh), None
+
+
+def sum_over_group(t, mesh):
+    """The sum of ``t`` over the group's ranks, differentiable: the
+    backward all-reduces the gradient too, so every rank's ``t`` gets
+    the terms of every rank's loss (a synchronized batch norm's
+    statistics)."""
+    return _SumOverGroup.apply(t, mesh)
+
+
 def adasum_reduce(x, mesh):
     """Adasum merge of every rank's ``[C]`` contribution (rule in
     ``parallel/exchange.py``): identical contributions give the value

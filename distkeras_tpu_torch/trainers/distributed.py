@@ -17,7 +17,11 @@ mean over its rows; the exchange makes it the global mean (an all-reduce
 per ~4 MB bucket), or the policy that ``zero=`` / ``merge_rule=`` /
 ``sync_every=`` / ``compress=`` name (``parallel/collectives.py``,
 ``parallel/exchange.py``).  The losses in ``history`` are the global
-means, from one all-reduce at the end of the run.  ``fsdp=True``, a
+means, from one all-reduce at the end of the run.  A BatchNorm model's
+batch statistics are the global batch's under the default synchronous
+exchange (``models/batchnorm.py::synchronized`` around every step), so
+``num_workers`` ranks train as one device on the global batch; the
+exchange policies refuse such models, as the reference does.  ``fsdp=True``, a
 mesh with a non-data axis and rule-driven plans are ROADMAP A7b.
 """
 
@@ -28,6 +32,7 @@ import torch
 
 from distkeras_tpu_torch import obs
 from distkeras_tpu_torch.data.dataset import Dataset
+from distkeras_tpu_torch.models.batchnorm import synchronized
 from distkeras_tpu_torch.parallel.collectives import (DataParallel,
                                                       all_reduce,
                                                       gather_tree,
@@ -198,12 +203,6 @@ class DistributedTrainer(Trainer):
             raise ValueError(
                 f"the process group runs NCCL but the trainer's device is "
                 f"{self.device}; CPU ranks join with gloo (device='cpu')")
-        if n > 1 and self.adapter.ntv_paths:
-            raise ValueError(
-                f"num_workers={n} with non-trainable state (BatchNorm "
-                "running stats): each rank would normalize over its own "
-                "rows — a synchronized batch norm is not ported yet "
-                "(ROADMAP A6)")
         self.zero = zero
         self.zero1 = zero1
         self._zero_bucket_mb = getattr(self.plan, "bucket_mb", None)
@@ -401,7 +400,7 @@ class ADAG(DistributedTrainer):
         for rnd, args in enumerate(rounds, 1):
             if rnd <= start:
                 continue
-            with self.step_timer.phase("step"):
+            with self.step_timer.phase("step"), synchronized(self.mesh):
                 state, out = step(state, *args)
             if self.probe_metrics:
                 loss, aux = out

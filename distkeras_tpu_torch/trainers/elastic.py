@@ -19,6 +19,10 @@ replica (the identity for a single process).  Rank ``r`` trains on the
 slab of each round that the reference's stacked replica ``r`` takes;
 the center variable is computed alike on every rank.
 
+Each replica keeps its own non-trainable state (BatchNorm statistics);
+the center is evaluated and exported with replica 0's, as the
+reference's is.
+
 A checkpoint holds the reference's ``{"stacked", "center_tv"}``: every
 replica's state stacked over the ranks (``trainers/carry.py``), and the
 center; on resume each rank takes its own replica back.
@@ -119,10 +123,19 @@ class ReplicaTrainer(DistributedTrainer):
 
     def _eval_state_view(self, pytree):
         """Mid-fit: the center variable (the algorithm's product), with
-        the replica's non-trainable state."""
+        replica 0's non-trainable state (BatchNorm statistics: every
+        replica keeps its own)."""
         if isinstance(pytree, dict):
-            return pytree["center_tv"], pytree["state"].ntv
+            return pytree["center_tv"], self._replica0(pytree["state"].ntv)
         return super()._eval_state_view(pytree)
+
+    def _replica0(self, ntv) -> list:
+        """Replica 0's copy of ``ntv`` on every rank (a collective in a
+        process group)."""
+        if self.mesh.group is None:
+            return list(ntv)
+        return [all_gather(t.detach().reshape(-1), self.mesh)[0]
+                .reshape(t.shape) for t in ntv]
 
     # ------------------------------------------------------------ fit
 
@@ -213,8 +226,9 @@ class ReplicaTrainer(DistributedTrainer):
             self._checkpoint(lambda: self._round_tree(state, center), rnd,
                              final=True)
         self._final_states = [state]  # kept for the ensemble's export
-        # Export the center variable, the replica's non-trainable state.
-        return state.replace(tv=center)
+        # Export the center variable, with replica 0's non-trainable
+        # state.
+        return state.replace(tv=center, ntv=self._replica0(state.ntv))
 
 
 class AEASGD(ReplicaTrainer):
@@ -351,11 +365,15 @@ class EnsembleTrainer(ReplicaTrainer):
         mine = self._final_states[0]
         if self.mesh.group is None:
             return [self.adapter.export_model(mine)]
-        stacked = [all_gather(t.detach().reshape(-1), self.mesh)
-                   for t in mine.tv]
-        return [self.adapter.export_model(mine.replace(tv=[
-            s[i].reshape(t.shape) for s, t in zip(stacked, mine.tv)]))
-            for i in range(self.num_workers)]
+        def member(leaves):
+            stacked = [all_gather(t.detach().reshape(-1), self.mesh)
+                       for t in leaves]
+            return lambda i: [s[i].reshape(t.shape)
+                              for s, t in zip(stacked, leaves)]
+
+        tv, ntv = member(mine.tv), member(mine.ntv)
+        return [self.adapter.export_model(mine.replace(tv=tv(i), ntv=ntv(i)))
+                for i in range(self.num_workers)]
 
 
 def _reinit_weights(weights, seed=None):

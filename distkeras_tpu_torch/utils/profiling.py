@@ -1,18 +1,55 @@
-"""Step timing: the port's jax-free copy of ``StepTimer``.
+"""Tracing and step timing: the port's jax-free copy of
+``distkeras_tpu/utils/profiling.py``.
 
-Counterpart of ``distkeras_tpu/utils/profiling.py::StepTimer`` (without
-its telemetry hooks, whose subsystem is not ported): per-round wall
-time with a device synchronization at the measurement boundaries only,
-and named phase counters (the trainers record ``"h2d"`` and ``"step"``).
+* :func:`trace` — context manager writing a ``torch.profiler`` chrome
+  trace of the block (host ops, and the card's kernels when there is
+  one) into a directory, viewable in Perfetto or ``chrome://tracing``;
+* :func:`annotate` — named region on that timeline
+  (``torch.profiler.record_function``; a context manager or decorator);
+* :class:`StepTimer` (without the reference's telemetry hooks): per-round
+  wall time with a device synchronization at the measurement boundaries
+  only, and named phase counters (the trainers record ``"h2d"`` and
+  ``"step"``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import statistics
 import time
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile everything in the block into
+    ``logdir/trace_<pid>_<ns>.pt.trace.json`` (the profiler object is
+    yielded; its ``last_path`` names the file once the block ends)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        os.makedirs(logdir, exist_ok=True)
+        prof.last_path = os.path.join(
+            logdir, f"trace_{os.getpid()}_{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(prof.last_path)
+
+
+def annotate(name: str):
+    """Named region on the profiler timeline (a context manager or a
+    decorator)."""
+    return torch.profiler.record_function(name)
 
 
 def synchronize(refs) -> None:

@@ -3,7 +3,16 @@
 Keras models: ``module_from_keras_numpy`` loads Keras' own variable
 lists (``trainable_variables`` / ``non_trainable_variables`` as numpy,
 which is the JAX adapter's ``tv`` / ``ntv``) into a zoo module, and
-``keras_numpy_from_module`` gives them back, exactly.
+``keras_numpy_from_module`` gives them back, exactly.  The layout
+follows the layer kind, not the rank of the array: a ``Linear`` weight
+is a Dense kernel transposed, a ``Conv2d`` weight an HWIO kernel in
+OIHW, and everything else (an ``Embedding`` table, the LSTM's and
+BatchNorm's variables) is held in Keras' layout already.
+``get_weights`` / ``set_weights`` are Keras' per-layer order (each
+layer's trainable variables, then its non-trainable ones), and
+``serialize_keras_model`` / ``deserialize_keras_model`` keep the
+reference's ``{"model": json, "weights": [np.ndarray]}`` dict for a zoo
+model (the JSON names the zoo builder and its arguments).
 
 The LM: ``save_lm`` writes, and ``load_lm`` reads, the ``.npz`` of
 ``distkeras_tpu.utils.serialization.save_lm`` (a ``__config__`` JSON
@@ -21,6 +30,7 @@ import json
 
 import numpy as np
 import torch
+from torch import nn
 
 from distkeras_tpu_torch.models.quant import QTensor
 from distkeras_tpu_torch.models.transformer import (TransformerConfig,
@@ -83,54 +93,137 @@ def params_to_numpy(tree):
     return t.numpy()
 
 
-def _keras_layout(p: torch.Tensor) -> np.ndarray:
-    """A module parameter as a new array in Keras' layout: Conv2D kernels
-    HWIO (torch OIHW), Dense kernels ``[in, out]`` (``Linear.weight`` is
-    ``[out, in]``), anything else as it is."""
-    a = p.detach().cpu().numpy()
-    if a.ndim == 4:
-        a = a.transpose(2, 3, 1, 0)
-    elif a.ndim == 2:
-        a = a.T
-    return np.array(a, order="C")
+def _layer_perm(layer, name: str):
+    """The permutation of ``layer``'s own variable ``name`` from its
+    torch layout into Keras', or None where the two agree."""
+    if name == "weight" and isinstance(layer, nn.Conv2d):
+        return (2, 3, 1, 0)   # OIHW -> HWIO
+    if name == "weight" and isinstance(layer, nn.Linear):
+        return (1, 0)         # [out, in] -> [in, out]
+    return None
 
 
-def _torch_layout(a) -> np.ndarray:
+def _own(module, buffers: bool):
+    """``(perm, tensor)`` of the module's parameters (or buffers), in
+    ``parameters()`` / ``buffers()`` order."""
+    out = []
+    for layer in module.modules():
+        own = layer._buffers if buffers else layer._parameters
+        out += [(_layer_perm(layer, n), t) for n, t in own.items()
+                if t is not None]
+    return out
+
+
+def keras_perms(module) -> list:
+    """Per parameter of ``module`` (in order), the permutation of its
+    torch layout into Keras', or None."""
+    return [perm for perm, _ in _own(module, buffers=False)]
+
+
+def _to_keras(perm, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return np.array(a if perm is None else a.transpose(perm), order="C")
+
+
+def _to_torch(perm, a) -> np.ndarray:
     a = np.asarray(a)
-    if a.ndim == 4:
-        return a.transpose(3, 2, 0, 1)
-    return a.T if a.ndim == 2 else a
+    return a if perm is None else a.transpose(np.argsort(perm))
 
 
 def keras_numpy_from_module(module) -> tuple[list, list]:
     """``(tv, ntv)``: the module's parameters and buffers, in order, as
     numpy arrays in Keras' layout (the inverse of
     :func:`module_from_keras_numpy`)."""
-    return ([_keras_layout(p) for p in module.parameters()],
-            [_keras_layout(b) for b in module.buffers()])
+    return ([_to_keras(p, t) for p, t in _own(module, buffers=False)],
+            [_to_keras(p, t) for p, t in _own(module, buffers=True)])
+
+
+def _load(pairs, src, what: str) -> None:
+    if len(pairs) != len(src):
+        raise ValueError(f"{what} variables: the module holds "
+                         f"{len(pairs)}, got {len(src)}")
+    for (name, perm, t), a in zip(pairs, src):
+        a = _to_torch(perm, a)
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(
+                f"{name}: Keras variable of shape {a.shape} (torch "
+                f"layout) does not fit {tuple(t.shape)}")
+        with torch.no_grad():
+            t.copy_(torch.tensor(a))
 
 
 def module_from_keras_numpy(module, tv, ntv=()):
     """Load Keras' variable lists (numpy, in ``trainable_variables`` /
     ``non_trainable_variables`` order) into ``module`` in place: Conv2D
-    kernels HWIO -> OIHW, Dense kernels ``[in, out]`` -> ``[out, in]``.
-    The counts and every converted shape must match.  Returns the
-    module."""
-    for what, named, src in (
-            ("trainable", list(module.named_parameters()), list(tv)),
-            ("non-trainable", list(module.named_buffers()), list(ntv))):
-        if len(named) != len(src):
-            raise ValueError(f"{what} variables: the module holds "
-                             f"{len(named)}, got {len(src)}")
-        for (name, t), a in zip(named, src):
-            a = _torch_layout(a)
-            if tuple(a.shape) != tuple(t.shape):
-                raise ValueError(
-                    f"{name}: Keras variable of shape {a.shape} (torch "
-                    f"layout) does not fit {tuple(t.shape)}")
-            with torch.no_grad():
-                t.copy_(torch.tensor(a))
+    kernels HWIO -> OIHW, Dense kernels ``[in, out]`` -> ``[out, in]``,
+    every other variable as it is.  The counts and every converted shape
+    must match.  Returns the module."""
+    for what, buffers, named, src in (
+            ("trainable", False, module.named_parameters(), tv),
+            ("non-trainable", True, module.named_buffers(), ntv)):
+        pairs = [(n, p, t) for (n, _), (p, t) in
+                 zip(named, _own(module, buffers))]
+        _load(pairs, list(src), what)
     return module
+
+
+def _layers(module):
+    """``(name, perm, tensor)`` in Keras' ``get_weights`` order: layer by
+    layer, each layer's parameters, then its buffers."""
+    out = []
+    for lname, layer in module.named_modules():
+        for own in (layer._parameters, layer._buffers):
+            out += [(f"{lname}.{n}" if lname else n, _layer_perm(layer, n),
+                     t) for n, t in own.items() if t is not None]
+    return out
+
+
+def weight_paths(module) -> list:
+    """The Keras path (``layer/variable``) of each :func:`get_weights`
+    entry: a ``Linear`` / ``Conv2d`` weight is ``kernel``, every other
+    variable keeps its name."""
+    out = []
+    for name, perm, _ in _layers(module):
+        layer, var = name.rsplit(".", 1) if "." in name else ("", name)
+        var = "kernel" if perm is not None else var
+        out.append(f"{layer}/{var}" if layer else var)
+    return out
+
+
+def get_weights(module) -> list:
+    """Keras' ``model.get_weights()`` of a zoo module: every variable as
+    a numpy array in Keras' layout, in Keras' order (per layer: e.g. a
+    BatchNorm's gamma, beta, moving_mean, moving_variance together)."""
+    return [_to_keras(p, t) for _, p, t in _layers(module)]
+
+
+def set_weights(module, weights) -> None:
+    """Keras' ``model.set_weights``: the inverse of :func:`get_weights`."""
+    _load(_layers(module), list(weights), "get_weights()")
+
+
+def serialize_keras_model(model) -> dict:
+    """A zoo module as the reference's picklable dict: ``"model"`` is a
+    JSON string naming the zoo builder and its arguments, ``"weights"``
+    the :func:`get_weights` list."""
+    cfg = getattr(model, "zoo_config", None)
+    if cfg is None:
+        raise ValueError(
+            "serialize_keras_model takes a model built by "
+            "distkeras_tpu_torch.models.zoo (its JSON names the builder "
+            f"and its arguments); got {type(model).__name__}")
+    return {"model": json.dumps(cfg), "weights": get_weights(model)}
+
+
+def deserialize_keras_model(blob: dict):
+    """Rebuild a module from :func:`serialize_keras_model` output: the
+    zoo builder with its arguments, then the weights."""
+    from distkeras_tpu_torch.models.zoo import ZOO
+
+    cfg = json.loads(blob["model"])
+    model = ZOO[cfg["builder"]](**cfg["kwargs"])
+    set_weights(model, blob["weights"])
+    return model
 
 
 def save_lm(path: str, params, cfg: TransformerConfig) -> None:

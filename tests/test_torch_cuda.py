@@ -7,7 +7,9 @@ prefix-pool segments and speculative warm-ups through the kernel); and
 the model surface (an MoE train step, ``quantize_params`` and a
 ``kv_int8`` engine schedule against the CPU's); and resume (an LM run
 preempted and resumed by the Supervisor on the card equals the straight
-run bit for bit, and its checkpoint restores on the CPU).
+run bit for bit, and its checkpoint restores on the CPU); and the
+paper's last workloads (``imdb_lstm`` with both LSTMs and ResNet-50 on
+the card against the CPU, Keras' BatchNorm under bf16 autocast).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports no JAX, so on a machine with
@@ -776,3 +778,105 @@ def test_lm_resume_on_card_equals_straight_run(cuda, tmp_path):
         assert torch.equal(dict(named_leaves(tree["params"]))[n],
                            a.detach().cpu()), n
     assert tree["dropout"].shape[0] == 1 and tree["opt"]["count"] == 6
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_imdb_lstm_on_card_matches_cpu(cuda, fused):
+    """f32 ``imdb_lstm`` (FusedLSTM, or the stock LSTM on cuDNN's fused
+    kernel), 4 sgd steps on the card against the CPU on the same weights
+    and batches: losses and Keras weights at rtol 1e-4 / atol 1e-5."""
+    import distkeras_tpu_torch as dkt
+
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 300, (128, 20)).astype(np.int32)
+    y = (x[:, 0] < 150).astype(np.int64)
+    out = []
+    for device in ("cuda", "cpu"):
+        t = dkt.SingleTrainer(
+            dkt.zoo.imdb_lstm(vocab_size=300, embed_dim=16, lstm_units=16,
+                              maxlen=20, seed=1, fused=fused),
+            loss="binary_crossentropy", worker_optimizer="sgd",
+            learning_rate=0.1, batch_size=32, device=device)
+        m = t.train(dkt.Dataset.from_arrays(x, y))
+        out.append((np.array(t.history), dkt.get_weights(m)))
+    (h_card, w_card), (h_cpu, w_cpu) = out
+    assert len(h_card) == 4
+    np.testing.assert_allclose(h_card, h_cpu, rtol=1e-4, atol=1e-5)
+    for a, b in zip(w_card, w_cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_resnet50_on_card_matches_cpu(cuda):
+    """f32 ResNet-50 at 64 x 64, batch 4, on the card against the CPU:
+    inference logits at 1e-4 of max |logit|, training-mode logits (batch
+    statistics) at 5e-4 of it (tests/test_torch_resnet.py's bounds), the
+    moving statistics after the training-mode pass at rtol 1e-4 / atol
+    1e-5, one sgd step's loss at rtol 1e-4, and one float64 sgd step's
+    weights at rtol 1e-6 / atol 1e-8 (f32 updates of this random-init
+    net are ill-conditioned; tests/test_torch_resnet.py holds the float64
+    step to the reference's)."""
+    import distkeras_tpu_torch as dkt
+
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (4, 64, 64, 3)).astype(np.float32))
+    mods = {d: dkt.zoo.resnet50(num_classes=10, input_shape=(64, 64, 3),
+                                seed=4).to(d) for d in ("cuda", "cpu")}
+    for training, tol in ((False, 1e-4), (True, 5e-4)):
+        with torch.no_grad():
+            got = {d: m.train(training)(x.to(d)).cpu()
+                   for d, m in mods.items()}
+        scale = float(got["cpu"].abs().max())
+        torch.testing.assert_close(got["cuda"], got["cpu"], rtol=0,
+                                   atol=tol * scale)
+    for a, b in zip(mods["cuda"].buffers(), mods["cpu"].buffers()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        for d in ("cuda", "cpu"):
+            t = dkt.SingleTrainer(
+                dkt.zoo.resnet50(num_classes=10, input_shape=(64, 64, 3),
+                                 seed=4).to(dtype),
+                loss="sparse_categorical_crossentropy",
+                worker_optimizer="sgd", learning_rate=0.01, batch_size=4,
+                device=d)
+            xs = x.numpy().astype(
+                np.float64 if dtype == torch.float64 else np.float32)
+            out = t.train(dkt.Dataset.from_arrays(xs, np.arange(4)))
+            runs[dtype, d] = (t.history, dkt.get_weights(out))
+    np.testing.assert_allclose(runs[torch.float32, "cuda"][0],
+                               runs[torch.float32, "cpu"][0], rtol=1e-4)
+    for a, b in zip(runs[torch.float64, "cuda"][1],
+                    runs[torch.float64, "cpu"][1]):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
+
+
+def test_keras_batchnorm_under_bf16_autocast_on_card(cuda):
+    """Keras' BN under the zoo's mixed_bfloat16 on the card: a bf16 input
+    (a bf16 conv's output) gives a bf16 output computed in f32 (within
+    one bf16 rounding of the f32 result on the same values), f32
+    parameters and moving statistics, the statistics those of the bf16
+    values in f32 (biased variance, momentum 0.99)."""
+    from distkeras_tpu_torch.models.batchnorm import KerasBatchNorm
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(3.0, 2.0, (8, 16, 6, 6)).astype(
+        np.float32)).cuda().to(memory_format=torch.channels_last)
+    xb = x.to(torch.bfloat16)
+    bn = KerasBatchNorm(16, axis=1, epsilon=1.001e-5).cuda().train()
+    with torch.no_grad():
+        bn.gamma.copy_(torch.linspace(0.5, 1.5, 16))
+        bn.beta.copy_(torch.linspace(-1, 1, 16))
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = bn(xb)
+    assert out.dtype == torch.bfloat16
+    assert bn.gamma.dtype == bn.moving_mean.dtype == torch.float32
+    xf = xb.float()
+    var, mean = torch.var_mean(xf, (0, 2, 3), correction=0)
+    want = ((xf - mean[:, None, None]) * torch.rsqrt(var + 1.001e-5)[
+        :, None, None] * bn.gamma[:, None, None] + bn.beta[:, None, None])
+    torch.testing.assert_close(out.float(), want.detach(), rtol=1e-2,
+                               atol=1e-2)
+    torch.testing.assert_close(bn.moving_mean, 0.01 * mean, rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(bn.moving_variance, 0.99 + 0.01 * var,
+                               rtol=1e-5, atol=1e-6)

@@ -119,23 +119,37 @@ def test_weight_round_trip_exact(name):
 def test_zoo_contracts():
     for name in jzoo.ZOO:
         assert name in tzoo.ZOO
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tzoo.imdb_lstm()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6") as err:
-        tzoo.resnet50()
-    # The BatchNorm it names is the one keras.applications.ResNet50
-    # builds: every BatchNormalization there passes epsilon=1.001e-5 and
-    # keeps the layer's default momentum.
+    # Every builder builds, with Keras' variable counts: imdb_lstm's
+    # (both LSTMs: Keras' three variables, no fourth), and ResNet-50's
+    # 214 trainable / 106 non-trainable (held path by path against
+    # keras.applications.ResNet50 in tests/test_torch_resnet.py).
+    jl = jzoo.imdb_lstm(vocab_size=50, embed_dim=8, lstm_units=8, maxlen=6)
+    for fused in (True, False):
+        tl = tzoo.imdb_lstm(vocab_size=50, embed_dim=8, lstm_units=8,
+                            maxlen=6, fused=fused)
+        assert (len(list(tl.parameters())), len(list(tl.buffers()))) == (
+            len(jl.trainable_variables), len(jl.non_trainable_variables))
+    rn = tzoo.resnet50()
+    assert (len(list(rn.parameters())), len(list(rn.buffers()))) == (214,
+                                                                     106)
+    assert rn.predictions.out_features == 1000
+    # Its BatchNorms are the ones keras.applications.ResNet50 builds:
+    # every BatchNormalization there passes epsilon=1.001e-5 and keeps
+    # the layer's default momentum.
     import inspect
 
     import keras
     from keras.src.applications import resnet
 
+    from distkeras_tpu_torch.models.batchnorm import KerasBatchNorm
+
     src = inspect.getsource(resnet)
     assert "epsilon=1.001e-5" in src and "momentum" not in src
-    assert keras.layers.BatchNormalization().momentum == 0.99
-    assert "epsilon=1.001e-5" in str(err.value)
-    assert "momentum 0.99" in str(err.value)
+    bns = [m for m in rn.modules() if isinstance(m, KerasBatchNorm)]
+    assert len(bns) == 53 and all(
+        (b.epsilon, b.momentum) == (1.001e-5,
+                                    keras.layers.BatchNormalization().momentum)
+        for b in bns)
     with pytest.raises(ValueError, match="known"):
         tzoo.cifar_cnn(policy="float16")
     with pytest.raises(ValueError, match="does not fit"):

@@ -29,6 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import distkeras_tpu_torch as dkt  # noqa: E402
 from distkeras_tpu_torch import deploy  # noqa: E402
+from distkeras_tpu_torch.models.batchnorm import KerasBatchNorm  # noqa: E402
 from distkeras_tpu_torch.parallel import collectives as C  # noqa: E402
 from distkeras_tpu_torch.parallel import mesh as M  # noqa: E402
 
@@ -109,15 +110,44 @@ def resumed_case(case, data, device, run):
     return out
 
 
+class BNMLP(torch.nn.Module):
+    """``tests/test_batchnorm_dp.py::bn_mlp``: Dense(32), BatchNorm,
+    ReLU, Dense(classes), with Keras' variables in Keras' order."""
+
+    def __init__(self, dim=16, classes=4):
+        super().__init__()
+        self.dense = torch.nn.Linear(dim, 32)
+        self.bn = KerasBatchNorm(32)
+        self.head = torch.nn.Linear(32, classes)
+
+    def forward(self, x):
+        return self.head(torch.relu(self.bn(self.dense(x))))
+
+
 def keras_case(case, data, device, extra=None):
-    model = dkt.zoo.MLP(16, (32,), 4)
-    dkt.module_from_keras_numpy(
-        model, [data[f"w{i}"] for i in range(int(data["n_w"]))])
+    if case.get("model") == "bn_mlp":
+        model = dkt.module_from_keras_numpy(
+            BNMLP(), [data[f"bn_w{i}"] for i in range(int(data["bn_n_w"]))],
+            [data["bn_mean"], data["bn_var"]])
+    elif case.get("model") == "resnet50":
+        model = dkt.zoo.resnet50(**case["zoo"]).double()
+    else:
+        model = dkt.zoo.MLP(16, (32,), 4)
+        dkt.module_from_keras_numpy(
+            model, [data[f"w{i}"] for i in range(int(data["n_w"]))])
     cls = getattr(dkt, case["trainer"])
     kw = dict(case["kw"], **(extra or {}))
+    if case.get("expect_error"):
+        try:
+            cls(model, loss="sparse_categorical_crossentropy",
+                device=device, **kw)
+        except ValueError as e:
+            return {"error_text": np.asarray(str(e))}
+        raise AssertionError("the trainer accepted the configuration")
     t = cls(model, loss="sparse_categorical_crossentropy", device=device,
             **kw)
-    ds = dkt.Dataset.from_arrays(data["x"], data["y"])
+    pre = case.get("data", "")
+    ds = dkt.Dataset.from_arrays(data[pre + "x"], data[pre + "y"])
     ev = None
     if case.get("eval"):
         ev = dkt.Dataset.from_arrays(data["x"][:50], data["y"][:50])
@@ -128,8 +158,11 @@ def keras_case(case, data, device, extra=None):
                                 getattr(t, "probe_history", [])])}
     models = out if isinstance(out, list) else [out]
     for m, module in enumerate(models):
-        for i, w in enumerate(dkt.keras_numpy_from_module(module)[0]):
+        tv, ntv = dkt.keras_numpy_from_module(module)
+        for i, w in enumerate(tv):
             res[f"m{m}_w{i}"] = w
+        for i, w in enumerate(ntv):
+            res[f"m{m}_n{i}"] = w
     res["n_models"] = np.asarray(len(models))
     if getattr(t, "residual_norm", None) is not None:
         res["residual_norm"] = np.asarray(t.residual_norm)
