@@ -75,6 +75,24 @@ each went through its kernels:
   ``lora_train`` (``LoRATrainer`` rank 8 on wq / wv: the base
   bit-identical, the optimizer holding the adapters only, ``train`` ==
   ``lora_merge(base, adapters)``);
+- paged KV serving and beam search (phases ``paged`` and ``beam``, their
+  profiled windows ``paged_4x_step4`` and ``beam_16_steps`` at the end of
+  the script): ``PagedBatcher(lanes=8, block=41)`` against
+  ``ContinuousBatcher`` (equal tokens on a staggered schedule, also with
+  ``prefill_chunk=128``; an f32 2-layer copy on the card equal to the
+  CPU's), 8 paged lanes on the KV bytes of 4 monolithic ones (measured
+  peak concurrency >= 2), a shared 492-token stem (84 stem-hit blocks on
+  a fresh engine), a copy-on-write fork (one block copied, none leaked),
+  ``kv_int8="prefill"`` admissions through the forward kernel (8 launches
+  each; the f32 first-step logit delta against the decode-built cache),
+  and ``engine_load`` on both engines (the allocator's reserved bytes and
+  device allocations unchanged over the serve phase, one device-to-host
+  copy a ``step``); ``beam_search`` as bench_beam4 (batch 8, prompt 64,
+  256 new, width 4) with ancestry attention and the physical gather, on
+  the flagship and on its window-256 ring (bf16 ancestry and physical
+  beams part only at a near tie of their own candidate scores, checked
+  by running both in lockstep), and an f32 2-layer copy on the card
+  equal to the CPU's;
 - data parallelism: phase ``dp_lm`` (``LMTrainer`` at the training
   width in a world-1 NCCL group — the card's machine has one card — with
   the plain exchange, ``zero=1``, ``zero=3``, ``merge_rule="adasum"``
@@ -120,8 +138,9 @@ it under ``"f32_lse_causal"`` and the engine's prefill shapes under
 ``"bf16_causal_spec_warm"`` and the f32 speculative warm-up of
 ``int8_serve`` under ``"f32_causal_spec_int8_warm"``, and its launches
 those of every main-path run: serve, engine, train, long_train, the
-four model-surface phases, ``dp`` and ``resume`` (the supervised runs
-of (a) and (b)) (``launches_by_path``; a run that only serves a
+four model-surface phases, ``dp``, ``resume`` (the supervised runs
+of (a) and (b)), ``paged`` (the ``kv_int8="prefill"`` admissions) and
+``beam`` (the bench runs' prompt passes) (``launches_by_path``; a run that only serves a
 comparison is not counted); the backward kernels' times are the
 training case (f32, causal) and their launches those of the training
 runs (train, long_train, moe_train, lora_train, dp, resume), with the
@@ -467,10 +486,11 @@ def numpy_params(cfg, seed):
     return params
 
 
-def profile_window(name, fn):
+def profile_window(name, fn, count=()):
     """Device time by kernel (torch.profiler) of one call of ``fn`` after
     a warm call, with the device's busy and idle share of its wall
-    time (also returned)."""
+    time (also returned).  ``count``: substrings of device event names
+    (e.g. ``"DtoH"``) whose calls are logged under ``counts``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
@@ -484,11 +504,17 @@ def profile_window(name, fn):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
+    extra = {}
+    if count:
+        extra["counts"] = {c: sum(e.count for e in kernels if c in e.key)
+                           for c in count}
     log("profile", window=name, wall_ms=1e3 * wall, device_busy_ms=busy,
         idle_share=1 - busy / (1e3 * wall),
         top=[{"kernel": e.key[:90], "calls": e.count,
               "device_ms": e.self_device_time_total / 1e3}
-             for e in top])
+             for e in top], **extra)
+    if count:
+        return 1 - busy / (1e3 * wall), extra["counts"]
     return 1 - busy / (1e3 * wall)
 
 
@@ -1462,16 +1488,21 @@ DEEP_SCALE = 0.1
 BF16_PATH_TOL = 2e-2
 
 
-def top2_gap(params, cfg, seq):
-    """The gap between the top two next-token logits after ``seq``
-    (teacher-forced through ``apply``), as a share of max |logit|.  A
-    comparison, so its kernel launches are not counted."""
+def next_logits(params, cfg, seq):
+    """The next-token logits after ``seq`` (teacher-forced through
+    ``apply``).  A comparison, so its kernel launches are not counted."""
     counts = dict(attn.LAUNCHES)
     with torch.no_grad():
         logits, _ = dkt.apply(params, torch.from_numpy(
             np.asarray(seq)[None]).cuda(), cfg)
     attn.LAUNCHES.update(counts)
-    row = logits[0, -1].float()
+    return logits[0, -1].float()
+
+
+def top2_gap(params, cfg, seq):
+    """The gap between the top two next-token logits after ``seq``, as a
+    share of max |logit|."""
+    row = next_logits(params, cfg, seq)
     top2 = row.topk(2).values
     return float((top2[0] - top2[1]) / row.abs().max())
 
@@ -1537,21 +1568,29 @@ def engine_idle_share(params, cfg):
     return idle
 
 
-def engine_load(params, cfg):
+def engine_load(params, cfg, make=None, name="engine_load"):
     """(a) Open-loop load as bench_engine_load(8, 32.0): 48 requests,
     prompt 64, 128 new tokens, seeded exponential inter-arrivals at 32
     requests/s, step(4) windows, one warm-up request before the clock.
     TTFT and TPOT at p50 / p99, achieved tokens/s, peak memory, and a
-    sample of 4 requests against batch-1 generate."""
+    sample of 4 requests against batch-1 generate.  ``make`` builds the
+    engine (``ContinuousBatcher(lanes=8)`` by default).  The allocator's
+    reserved bytes and device-allocation count are read when the clock
+    starts and when the load ends: they must not change (the port's
+    counterpart of the reference's zero serve-phase compiles).  Returns
+    the logged record."""
     rng = np.random.default_rng(0)
     arrivals = np.cumsum(rng.exponential(1.0 / LOAD_RPS, LOAD_REQUESTS))
     prompts = rng.integers(0, cfg.vocab_size,
                            (LOAD_REQUESTS, LOAD_PROMPT)).astype(np.int32)
-    eng = dkt.ContinuousBatcher(params, cfg, lanes=ENGINE_LANES)
-    warm = eng.submit(prompts[0], LOAD_NEW)
-    run_engine(eng, [warm])
+    eng = (make or (lambda: dkt.ContinuousBatcher(params, cfg,
+                                                  lanes=ENGINE_LANES)))()
+    warm = [eng.submit(prompts[i], LOAD_NEW) for i in range(ENGINE_LANES)]
+    run_engine(eng, warm)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    mem0 = (torch.cuda.memory_reserved(),
+            torch.cuda.memory_stats()["num_device_alloc"])
     zero_launches()
     lane_req, outs = {}, {}
     first_t = np.full(LOAD_REQUESTS, np.nan)
@@ -1584,7 +1623,14 @@ def engine_load(params, cfg):
                 outs[rid] = eng.drain(lane)
                 del lane_req[lane]
     launches = dict(attn.LAUNCHES)
+    torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    mem1 = (torch.cuda.memory_reserved(),
+            torch.cuda.memory_stats()["num_device_alloc"])
+    if mem1 != mem0:
+        raise AssertionError(f"{name}: the serve phase changed the "
+                             f"allocator's (reserved bytes, device "
+                             f"allocations) from {mem0} to {mem1}")
     if launches["flash_fwd"] != 0:
         raise AssertionError(f"engine admission launched {launches}: it "
                              "must run the plain chunk attention")
@@ -1601,16 +1647,21 @@ def engine_load(params, cfg):
                            LOAD_NEW)[0].cpu().numpy()
         agree.append(greedy_agreement(outs[rid], ref, params, cfg,
                                       LOAD_PROMPT))
-    log("engine_load", config=dataclasses.asdict(cfg), lanes=ENGINE_LANES,
-        requests=LOAD_REQUESTS, prompt=LOAD_PROMPT, new_tokens=LOAD_NEW,
-        offered_rps=LOAD_RPS, step_window=4, windows=windows,
-        makespan_s=makespan, tokens=int(n_tok.sum()),
-        tokens_per_s=float(n_tok.sum()) / makespan,
-        achieved_rps=LOAD_REQUESTS / makespan,
-        ttft_p50_ms=pct(ttft, 50), ttft_p99_ms=pct(ttft, 99),
-        tpot_p50_ms=pct(tpot, 50), tpot_p99_ms=pct(tpot, 99),
-        peak_mem_gb=peak, launches=launches,
-        vs_generate=agreement_summary(agree), sample=list(sample))
+    rec = dict(engine=type(eng).__name__, lanes=ENGINE_LANES,
+               requests=LOAD_REQUESTS, prompt=LOAD_PROMPT,
+               new_tokens=LOAD_NEW, offered_rps=LOAD_RPS, step_window=4,
+               windows=windows, makespan_s=makespan,
+               tokens=int(n_tok.sum()),
+               tokens_per_s=float(n_tok.sum()) / makespan,
+               achieved_rps=LOAD_REQUESTS / makespan,
+               ttft_p50_ms=pct(ttft, 50), ttft_p99_ms=pct(ttft, 99),
+               tpot_p50_ms=pct(tpot, 50), tpot_p99_ms=pct(tpot, 99),
+               peak_mem_gb=peak, reserved_bytes=mem1[0],
+               device_allocs=mem1[1], allocator_constant=True,
+               launches=launches, vs_generate=agreement_summary(agree),
+               sample=list(sample))
+    log(name, config=dataclasses.asdict(cfg), **rec)
+    return rec
 
 
 def engine_prefix(params, cfg):
@@ -1913,6 +1964,588 @@ def engine_phase(np_params):
     engine_f32(np_params)
     log("engine", seconds=time.perf_counter() - t0, fwd_launches=launches)
     return launches
+
+
+# Phase paged: scripts/bench_serving.py's paged rows over the flagship
+# serving config, at its block (_paged_block(1025) = 41, :967: the
+# largest divisor of max_len at or under max_len // 8).
+PAGED_BLOCK = 41
+PAGED_NEW = 64
+STEM_TAIL, STEM_NEW = 16, 32
+
+
+def paged_block_bytes(cfg):
+    """K and V bytes of one slab block (bf16)."""
+    return 2 * cfg.n_layers * PAGED_BLOCK * cfg.kv_heads * cfg.head_dim * 2
+
+
+def paged_engine(params, cfg, lanes=ENGINE_LANES, device=None, **kw):
+    return dkt.PagedBatcher(params, cfg, lanes=lanes, block=PAGED_BLOCK,
+                            device=device, **kw)
+
+
+def staggered(make, cfg, n_req=16, new=PAGED_NEW, seed=21):
+    """(a)'s schedule: ``n_req`` greedy requests (prompts of 32-300
+    tokens), two admitted before every step(4) window while a lane is
+    free, drained as they finish (lanes reused).  The schedule depends
+    on token counts only, so two engines run it identically.  Returns
+    every request's tokens and the engine."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(32, 301, n_req)]
+    eng = make()
+    outs, lane_req, nxt = {}, {}, 0
+    while len(outs) < n_req:
+        for _ in range(2):
+            if nxt < n_req and eng.free_lanes():
+                lane_req[eng.submit(prompts[nxt], new)] = nxt
+                nxt += 1
+        eng.step(4)
+        for lane, rid in list(lane_req.items()):
+            if lane not in eng.running():
+                outs[rid] = eng.drain(lane)
+                del lane_req[lane]
+    return [outs[i] for i in range(n_req)], eng
+
+
+def equal_outs(a, b, what):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{what}: request {i} differs")
+
+
+def serve_all(eng, prompts, new):
+    """bench_paged_lanes / _shared_stem's loop: admit while a lane is
+    free (a decline ends the round), step(), drain.  Returns the seconds,
+    the measured peak of simultaneously decoding lanes, each request's
+    first-token time (s from the start) and tokens."""
+    n = len(prompts)
+    done, nxt, lane_req, peak = 0, 0, {}, 0
+    first, outs = [None] * n, [None] * n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while done < n:
+        while nxt < n and eng.free_lanes():
+            lane = eng.submit(prompts[nxt], new)
+            if lane is None:
+                break
+            lane_req[lane] = nxt
+            nxt += 1
+        peak = max(peak, len(eng.running()))
+        out = eng.step()
+        now = time.perf_counter() - t0
+        for lane, toks in out.items():
+            if toks and first[lane_req[lane]] is None:
+                first[lane_req[lane]] = now
+        for lane in [la for la in lane_req if la not in eng.running()]:
+            outs[lane_req[lane]] = eng.drain(lane)
+            del lane_req[lane]
+            done += 1
+    return time.perf_counter() - t0, peak, first, outs
+
+
+def kv8_prefill_logit_delta(np_params, cfg, p_len=257, seed=23):
+    """(e) in f32: the first decode step's logits after a prefill-BUILT
+    int8 admission against the decode-built one (the reference's
+    KV_INT8_PREFILL_LOGIT_TOL measurement, at full width).  A
+    comparison: its prefill launches are not counted."""
+    from distkeras_tpu_torch.models import generate as tgen
+    from distkeras_tpu_torch.serving.paged import KV_INT8_PREFILL_LOGIT_TOL
+
+    p32 = dkt.params_from_numpy(np_params, "cuda")
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, p_len)).astype(np.int32)
+    warm = torch.from_numpy(prompt[:, :-1]).long().cuda()
+    w = warm.shape[1]
+    with torch.no_grad():
+        cache_d = tgen.init_cache(cfg, 1, kv_int8=True)
+        tgen._decode_chunk(p32, cache_d, warm,
+                           torch.zeros(1, dtype=torch.long, device="cuda"),
+                           cfg, uniform_pos=True)
+        cache_p, _ = expect_fwd(lambda: tgen.prefill(
+            p32, warm, cfg, last_logits=False, kv_int8=True),
+            cfg.n_layers, "kv_int8 prefill build", counted=False)
+        pos = torch.full((1,), w, dtype=torch.long, device="cuda")
+        last = torch.from_numpy(prompt[:, -1:]).long().cuda()
+        lg_d = tgen._decode_chunk(p32, cache_d, last, pos, cfg)[0][0, 0]
+        lg_p = tgen._decode_chunk(p32, cache_p, last, pos, cfg)[0][0, 0]
+    delta = float((lg_d - lg_p).abs().max())
+    top2 = lg_d.topk(2).values
+    gap = float(top2[0] - top2[1])
+    same = int(lg_d.argmax()) == int(lg_p.argmax())
+    if not math.isfinite(delta) or delta <= 0.0:
+        raise AssertionError(f"kv_int8 prefill logit delta {delta}")
+    if not same and gap > delta:
+        raise AssertionError("the prefill-built int8 cache changed the "
+                             f"first token outside a near tie (gap {gap}, "
+                             f"delta {delta})")
+    del p32, cache_d, cache_p
+    return dict(prompt=p_len, max_abs_logit_delta=delta,
+                tol=KV_INT8_PREFILL_LOGIT_TOL,
+                within_tol=delta < KV_INT8_PREFILL_LOGIT_TOL,
+                max_abs_logit=float(lg_d.abs().max()), top2_gap=gap,
+                argmax_equal=same)
+
+
+def paged_phase(np_params):
+    """Phase paged: PagedBatcher at the flagship width, bf16, seed-0
+    weights.  (a) 16 staggered greedy requests: tokens equal
+    ContinuousBatcher's, also with prefill_chunk=128, and an f32 2-layer
+    copy on the card equals the CPU's; (b) bench_paged_lanes(2): 8 paged
+    lanes on the slab of 4 monolithic lanes (the KV bytes within one
+    block), the measured peak concurrency ratio >= 2, tokens/s of both;
+    (c) bench_paged_shared_stem(8): 84 stem-hit blocks on a fresh engine,
+    each request against its run on a fresh engine, TTFT and tokens/s
+    against distinct stems; (d) a fork with the runner-up token copies
+    one block, its tokens against a fresh engine's run of the forked
+    transcript, no block leaked; (e) kv_int8="prefill": 8 forward
+    launches per from-scratch admission (the path's launches), and the
+    f32 first-step logit delta against the decode-built cache; (f, g)
+    engine_load on the monolithic and the paged engine (tokens/s, TTFT,
+    TPOT, the allocator constant over the serve phase).  Returns the
+    forward kernel's launches on the paged path."""
+    t0 = time.perf_counter()
+    cfg = FLAGSHIP
+    params = dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16)
+    zero_launches()
+    # (a)
+    mono, _ = staggered(lambda: dkt.ContinuousBatcher(
+        params, cfg, lanes=ENGINE_LANES), cfg)
+    paged, eng = staggered(lambda: paged_engine(params, cfg), cfg)
+    equal_outs(paged, mono, "paged vs monolithic")
+    if eng.allocator.stats()["used"]:
+        raise AssertionError(f"blocks leaked: {eng.allocator.stats()}")
+    mono_c, _ = staggered(lambda: dkt.ContinuousBatcher(
+        params, cfg, lanes=ENGINE_LANES, prefill_chunk=128), cfg)
+    paged_c, _ = staggered(lambda: paged_engine(
+        params, cfg, prefill_chunk=128), cfg)
+    equal_outs(paged_c, mono_c, "paged vs monolithic, prefill_chunk=128")
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    two = draft_layers(np_params, 2)
+    card32, _ = staggered(lambda: paged_engine(
+        dkt.params_from_numpy(two, "cuda"), cfg32), cfg32, n_req=6, new=16)
+    cpu32, _ = staggered(lambda: paged_engine(
+        dkt.params_from_numpy(two, "cpu"), cfg32, device="cpu"), cfg32,
+        n_req=6, new=16)
+    equal_outs(card32, cpu32, "f32 paged, card vs cpu")
+    rec = dict(parity=dict(requests=16, new_tokens=PAGED_NEW,
+                           tokens_equal_monolithic=True,
+                           chunked128_equal_monolithic=True,
+                           f32_card_equal_cpu=dict(requests=6, equal=True)))
+    # (b)
+    mono_lanes, block = 4, PAGED_BLOCK
+    mb = cfg.max_len // block
+    budget = cfg.max_len // 2
+    p_len, new = 32, cfg.max_len // 2 - 32 - block
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2 * mono_lanes, p_len)).astype(np.int32)
+    peng = paged_engine(params, cfg, lanes=2 * mono_lanes,
+                        n_blocks=mono_lanes * mb + 1,
+                        prompt_buckets=(p_len - 1,))
+    meng = dkt.ContinuousBatcher(params, cfg, lanes=mono_lanes,
+                                 prompt_buckets=(p_len - 1,))
+    kv_p = peng.memory_footprint()["kv_bytes"]
+    kv_m = meng.memory_footprint()["kv_bytes"]
+    if abs(kv_p - kv_m) > paged_block_bytes(cfg):
+        raise AssertionError(f"KV bytes: paged {kv_p}, monolithic {kv_m}")
+    dt_p, peak_p, _, outs_p = serve_all(peng, prompts, new)
+    dt_m, peak_m, _, outs_m = serve_all(meng, prompts, new)
+    ratio = peak_p / max(peak_m, 1)
+    if ratio < 2:
+        raise AssertionError(f"peak lanes paged {peak_p} / monolithic "
+                             f"{peak_m} < 2 at equal KV bytes")
+    total = 2 * mono_lanes * new
+    rec["lanes"] = dict(
+        mono_lanes=mono_lanes, paged_lanes=2 * mono_lanes, budget=budget,
+        prompt=p_len, new_tokens=new, slab_blocks=mono_lanes * mb,
+        kv_bytes_paged=kv_p, kv_bytes_mono=kv_m,
+        block_bytes=paged_block_bytes(cfg), peak_lanes_paged=peak_p,
+        peak_lanes_mono=peak_m, lanes_ratio=ratio,
+        paged_tokens_per_s=total / dt_p, mono_tokens_per_s=total / dt_m,
+        vs_monolithic=agreement_summary([
+            greedy_agreement(a, b, params, cfg, p_len)
+            for a, b in zip(outs_p, outs_m)]))
+    del peng, meng
+    # (c)
+    stem_len = (cfg.max_len // 2 // block) * block
+    rng = np.random.default_rng(0)
+    stem = rng.integers(0, cfg.vocab_size, stem_len).astype(np.int32)
+    tails = rng.integers(0, cfg.vocab_size, (8, STEM_TAIL)).astype(np.int32)
+    alt = rng.integers(0, cfg.vocab_size, (8, stem_len)).astype(np.int32)
+    shared_p = [np.concatenate([stem, t]) for t in tails]
+    distinct_p = [np.concatenate([a, t]) for a, t in zip(alt, tails)]
+    buckets = (STEM_TAIL, stem_len + STEM_TAIL)
+    serve_all(paged_engine(params, cfg, prompt_buckets=buckets), shared_p,
+              STEM_NEW)                    # warm-up, as the bench's
+    seng = paged_engine(params, cfg, prompt_buckets=buckets)
+    dt_s, _, first_s, outs_s = serve_all(seng, shared_p, STEM_NEW)
+    hits = seng.stem_hit_blocks
+    want_hits = 7 * ((stem_len + STEM_TAIL - 1) // block)
+    if hits != want_hits:
+        raise AssertionError(f"stem hits {hits}, expected {want_hits}")
+    dt_d, _, first_d, _ = serve_all(seng, distinct_p, STEM_NEW)
+    if seng.stem_hit_blocks != hits:
+        raise AssertionError("distinct stems hit resident blocks")
+    fresh = []
+    for prompt, out in zip(shared_p, outs_s):
+        one = paged_engine(params, cfg, lanes=1, prompt_buckets=buckets)
+        ref = run_engine(one, [one.submit(prompt, STEM_NEW)], ())[0]
+        fresh.append(greedy_agreement(out, ref, params, cfg, len(prompt)))
+    rec["shared_stem"] = dict(
+        requests=8, stem=stem_len, tail=STEM_TAIL, new_tokens=STEM_NEW,
+        stem_hit_blocks=hits,
+        first_token_ms_shared=[1e3 * f for f in first_s],
+        first_token_ms_distinct=[1e3 * f for f in first_d],
+        tokens_per_s_shared=8 * STEM_NEW / dt_s,
+        tokens_per_s_distinct=8 * STEM_NEW / dt_d,
+        vs_fresh_engine=agreement_summary(fresh))
+    del seng
+    # (d)
+    feng = paged_engine(params, cfg)
+    fprompt = np.random.default_rng(24).integers(
+        0, cfg.vocab_size, 100).astype(np.int32)
+    src = feng.submit(fprompt, PAGED_NEW)
+    for _ in range(3):
+        feng.step(4)
+    st = feng._lane_state[src]
+    alt_tok = int(next_logits(params, cfg,
+                              st.tokens[:-1]).topk(2).indices[1])
+    shared_n = (len(st.tokens) - 1) // block
+    with dkt.obs.session() as sess:
+        fork = feng.fork(src, token=alt_tok)
+        forks = sess.registry.counter("serving.cow_forks").value()
+    copied = len(feng._lane_blocks[fork]) - shared_n
+    if (forks != 1 or copied != 1
+            or feng._lane_blocks[fork][:shared_n]
+            != feng._lane_blocks[src][:shared_n]):
+        raise AssertionError(f"fork: {forks} forks, {copied} copied "
+                             "blocks")
+    transcript = list(feng._lane_state[fork].tokens)
+    o_src, o_fork = run_engine(feng, [src, fork])
+    if feng.allocator.stats()["used"]:
+        raise AssertionError(f"fork leaked: {feng.allocator.stats()}")
+    one = paged_engine(params, cfg, lanes=1)
+    ref = run_engine(one, [one.submit(np.asarray(transcript, np.int32),
+                                      PAGED_NEW - 12)])[0]
+    rec["fork"] = dict(prompt=100, forked_at=len(transcript),
+                       shared_blocks=shared_n, copied_blocks=copied,
+                       cow_forks=forks, token=alt_tok, leaked_blocks=0,
+                       vs_fresh_engine=agreement_summary([greedy_agreement(
+                           o_fork, ref, params, cfg, len(transcript))]))
+    del feng, one
+    # (e): the path's launches.
+    kprompts = np.random.default_rng(25).integers(
+        0, cfg.vocab_size, (4, 100)).astype(np.int32)
+    kv8 = {}
+    for mode in (True, "prefill"):
+        keng = paged_engine(params, cfg, kv_int8=mode)
+        want = cfg.n_layers * len(kprompts) if mode == "prefill" else 0
+        lanes = expect_fwd(lambda: [keng.submit(p, 32) for p in kprompts],
+                           want, f"kv_int8={mode!r} admission")
+        kv8[mode] = run_engine(keng, lanes)
+    launches = dict(attn.LAUNCHES)
+    rec["kv_int8_prefill"] = dict(
+        requests=len(kprompts), prompt=100, new_tokens=32,
+        launches=launches["flash_fwd"],
+        launches_per_admission=cfg.n_layers,
+        token_agreement_vs_decode_built=float(np.mean(
+            [np.mean(a[100:] == b[100:])
+             for a, b in zip(kv8[True], kv8["prefill"])])),
+        f32=kv8_prefill_logit_delta(np_params, dataclasses.replace(
+            cfg, dtype="float32")))
+    expect_launches_paged = cfg.n_layers * len(kprompts)
+    if launches["flash_fwd"] != expect_launches_paged:
+        raise AssertionError(f"paged path launched {launches}")
+    # (f, g)
+    keys = ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+            "tpot_p99_ms", "reserved_bytes", "device_allocs")
+    for name, make in (("mono", None),
+                       ("paged", lambda: paged_engine(params, cfg))):
+        load = engine_load(params, cfg, make=make, name=f"paged_load_{name}")
+        rec[f"load_{name}"] = {k: load[k] for k in keys}
+    attn.LAUNCHES.update(launches)
+    log("paged", config=dataclasses.asdict(cfg), block=PAGED_BLOCK,
+        seconds=time.perf_counter() - t0, **rec)
+    return launches
+
+
+def paged_idle_share(params, cfg):
+    """The paged engine's profiled steady window (4 step(4) calls over
+    8 busy lanes): idle share, one device-to-host copy per step, and the
+    gather and the scatter of one window timed alone (CUDA events) at
+    the engine's shapes."""
+    from distkeras_tpu_torch.serving.paged import _gather_view
+
+    rng = np.random.default_rng(9)
+    eng = paged_engine(params, cfg)
+    lanes = [eng.submit(p, LOAD_NEW) for p in rng.integers(
+        0, cfg.vocab_size, (ENGINE_LANES, LOAD_PROMPT)).astype(np.int32)]
+    eng.step(4)
+    idle, counts = profile_window(
+        "paged_4x_step4", lambda: [eng.step(4) for _ in range(4)],
+        count=("DtoH",))
+    if counts["DtoH"] != 4:
+        raise AssertionError(f"4 paged step(4) calls made "
+                             f"{counts['DtoH']} device-to-host copies")
+    tables, n = eng.tables, 4
+    view = {k: _gather_view(a, tables) for k, a in eng.cache.items()}
+    gather_ms = time_ms(lambda: {k: _gather_view(a, tables)
+                                 for k, a in eng.cache.items()})
+    q = torch.clamp(eng.pos[:, None] + torch.arange(n, device="cuda"),
+                    max=cfg.max_len - 1)
+    blk, off = tables.gather(1, q // PAGED_BLOCK), q % PAGED_BLOCK
+    lane = torch.arange(eng.lanes, device="cuda")[:, None]
+
+    def scatter():
+        for k, a in eng.cache.items():
+            a[:, blk, off] = view[k][:, lane, q]
+    scatter_ms = time_ms(scatter)
+    view_bytes = sum(v.numel() * v.element_size() for v in view.values())
+    run_engine(eng, lanes)
+    return dict(idle_share_4x_step4=idle, dtoh_copies_per_step=1.0,
+                gather_ms_per_window=gather_ms,
+                scatter_ms_per_window=scatter_ms,
+                gather_bytes=2 * view_bytes,
+                gather_bound_ms=2 * view_bytes / H100_HBM_BYTES * 1e3)
+
+
+# Phase beam: bench_beam4 (scripts/bench_serving.py:265-330): batch 8,
+# prompt 64, 256 new, width 4, over the flagship config and over its
+# window-256 ring of 384 slots.
+BEAM_BATCH, BEAM_PROMPT, BEAM_NEW, BEAM_WIDTH = 8, 64, 256, 4
+
+
+def beam_lockstep(params, cfg, prompt, new, w, anc_out, phys_out):
+    """Ancestry against physical beams in bf16, in the spirit of
+    ``greedy_agreement``.  The two read the cache through different f32
+    reductions, so their candidate scores differ by a little and a row's
+    kept set may part where the top-W boundary is that close.  This runs
+    ``beam_search``'s loop for both impls in lockstep from one prompt
+    pass (it must end in the library's ``anc_out`` / ``phys_out`` beams
+    exactly: the harness is the library's loop) and, at the first step
+    where a row's kept hypotheses part, holds the physical run's gap
+    between its weakest kept candidate and the strongest one it dropped
+    that the ancestry run kept to twice the largest difference between
+    the two runs' scores of the candidates either kept.  A comparison:
+    its prefill launches are not counted.  Raises otherwise; returns the
+    summary."""
+    from distkeras_tpu_torch.models import generate as tgen
+
+    b, p = prompt.shape
+    pr = torch.from_numpy(prompt).long().cuda()
+    counts = dict(attn.LAUNCHES)
+    with torch.no_grad():
+        cache, _ = tgen.prefill(params, pr, cfg, last_logits=False)
+        attn.LAUNCHES.update(counts)
+        logits, cache = tgen._decode_step(params, cache, pr[:, p - 1],
+                                          p - 1, cfg)
+        scores0, first = tgen._top_w(torch.log_softmax(logits, dim=-1), w)
+        total = p + new
+        rows = torch.arange(b, device="cuda")[:, None]
+        lane_ids = torch.arange(w, device="cuda")
+        st = {}
+        for impl in ("ancestry", "physical"):
+            buf = torch.zeros((b, w, total), dtype=torch.long, device="cuda")
+            buf[:, :, :p] = pr[:, None]
+            buf[:, :, p] = first
+            st[impl] = dict(
+                buf=buf, scores=scores0.clone(),
+                cache={n: a.repeat_interleave(w, dim=1)
+                       for n, a in cache.items()},
+                anc=lane_ids[None, :, None].expand(b, w, cfg.max_len).clone())
+        del cache
+        parted = {}
+        for q in range(p, total - 1):
+            prefix = {impl: s["buf"][:, :, :q + 1].cpu().numpy()
+                      for impl, s in st.items()}
+            picks = {}
+            for impl, s in st.items():
+                lg, _ = tgen._decode_step(
+                    params, s["cache"], s["buf"][:, :, q].reshape(b * w), q,
+                    cfg, beam_anc=(s["anc"], w) if impl == "ancestry"
+                    else None)
+                cand = (s["scores"][:, :, None]
+                        + torch.log_softmax(lg, dim=-1).reshape(b, w, -1))
+                v = cand.shape[-1]
+                sc, idx = tgen._top_w(cand.reshape(b, w * v), w)
+                picks[impl] = (cand, idx.cpu().numpy())
+                parent, token = idx // v, idx % v
+                s["buf"] = s["buf"][rows, parent]
+                s["buf"][:, :, q + 1] = token
+                s["scores"] = sc
+                if impl == "ancestry":
+                    s["anc"] = s["anc"][rows, parent]
+                    s["anc"][:, :, (q + 1) % cfg.max_len] = lane_ids
+                else:
+                    flat = (parent + rows * w).reshape(b * w)
+                    s["cache"] = {n: a.index_select(1, flat)
+                                  for n, a in s["cache"].items()}
+            (ca, ia), (cp, ip) = picks["ancestry"], picks["physical"]
+            for r in range(b):
+                if r in parted:
+                    continue
+                # Physical slot of each ancestry slot (same hypotheses,
+                # possibly in another order after an earlier tie).
+                where = {tuple(x): j for j, x in
+                         enumerate(prefix["physical"][r])}
+                perm = [where[tuple(x)] for x in prefix["ancestry"][r]]
+                ka = {(int(i) // v, int(i) % v) for i in ia[r]}
+                kp = {(perm.index(int(i) // v), int(i) % v) for i in ip[r]}
+                if ka == kp:
+                    continue
+                a_r = ca[r].float().cpu().numpy()
+                p_r = cp[r].float().cpu().numpy()[perm]
+                both = ka | kp
+                delta = max(abs(a_r[k] - p_r[k]) for k in both)
+                gap = (min(p_r[k] for k in kp)
+                       - max(p_r[k] for k in ka - kp))
+                if not gap <= 2 * delta + 1e-6:
+                    raise AssertionError(
+                        f"ancestry and physical beams part in row {r} at "
+                        f"generated step {q - p + 1} where the physical "
+                        f"gap {gap:.5f} exceeds twice the runs' score "
+                        f"difference {delta:.5f}: not a near tie")
+                parted[r] = {"step": q - p + 1, "gap": float(gap),
+                             "score_delta": float(delta)}
+    for impl, (seqs, scores) in (("ancestry", anc_out),
+                                 ("physical", phys_out)):
+        if not (torch.equal(st[impl]["buf"].to(torch.int32), seqs)
+                and torch.equal(st[impl]["scores"], scores)):
+            raise AssertionError(f"the lockstep {impl} run is not "
+                                 "beam_search's")
+    sa, sp = anc_out[1].float().cpu().numpy(), phys_out[1].float().cpu(
+        ).numpy()
+    return dict(rows=b, rows_equal=int(sum(
+        np.array_equal(x, y) for x, y in zip(anc_out[0].cpu().numpy(),
+                                             phys_out[0].cpu().numpy()))),
+        rows_kept_sets_never_parted=b - len(parted),
+        near_tie_partings=[parted[r] for r in sorted(parted)],
+        score_max_rel_diff=float(np.abs(sa - sp).max() / np.abs(sp).max()))
+
+
+def beam_step_peak_bytes(params, cfg, w=BEAM_WIDTH, b=BEAM_BATCH):
+    """Peak bytes above the live set of one beam step at the bench shape
+    (the tiled cache, one token per lane): ancestry and physical."""
+    from distkeras_tpu_torch.models import generate as tgen
+
+    cache = tgen.init_cache(cfg, b * w)
+    anc = torch.zeros((b, w, cfg.max_len), dtype=torch.long, device="cuda")
+    tok = torch.zeros(b * w, dtype=torch.long, device="cuda")
+    parent = torch.arange(b * w, device="cuda")
+    out = {}
+    for impl in ("ancestry", "physical"):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tgen._decode_step(params, cache, tok, BEAM_PROMPT, cfg,
+                              beam_anc=(anc, w) if impl == "ancestry"
+                              else None)
+            if impl == "physical":
+                cache = {k: a.index_select(1, parent)
+                         for k, a in cache.items()}
+            torch.cuda.synchronize()
+            out[impl] = torch.cuda.max_memory_allocated() - base
+    del cache
+    return out
+
+
+def beam_phase(np_params):
+    """Phase beam: beam_search at the flagship width, bf16.  (a)
+    bench_beam4 with beam_impl "auto" (ancestry) and "physical"
+    (agreement: beam_lockstep), the ancestry score bytes and one step's
+    peak bytes; (b) the same on the window-256 ring config (max_len
+    384); (c) an f32 2-layer copy: the card's beams equal the CPU's
+    (scores to 1e-5), width 1 == greedy generate, the prefill prompt pass
+    == the sequential one; (d) ms per beam step, kept tokens/s (batch x
+    new).  Each call's prefill launches the forward kernel once a layer.
+    Returns the path's launches."""
+    from distkeras_tpu_torch.models import generate as tgen
+
+    t0 = time.perf_counter()
+    cfg = FLAGSHIP
+    ring = dataclasses.replace(cfg, attention_window=256, max_len=384)
+    params = dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BEAM_BATCH, BEAM_PROMPT)).astype(np.int32)
+    rec = {}
+    expect_fwd(lambda: tgen.beam_search(params, prompt, cfg, 4,
+                                        beam_width=BEAM_WIDTH),
+               cfg.n_layers, "beam warm-up", counted=False)
+    zero_launches()
+    for name, c in (("full", cfg), ("ring256", ring)):
+        runs = {}
+        for impl in ("auto", "physical"):
+            out, dt = wall_s(lambda: tgen.beam_search(
+                params, prompt, c, BEAM_NEW, beam_width=BEAM_WIDTH,
+                beam_impl=impl))
+            runs[impl] = (out, dt)
+            if tuple(out[0].shape) != (BEAM_BATCH, BEAM_WIDTH,
+                                       BEAM_PROMPT + BEAM_NEW) or not \
+                    torch.isfinite(out[1]).all():
+                raise AssertionError(f"beam {name}/{impl}: bad output")
+        rec[name] = dict(
+            config=dict(max_len=c.max_len, window=c.attention_window),
+            ancestry_score_bytes=tgen._ancestry_score_bytes(
+                BEAM_BATCH, BEAM_WIDTH, c),
+            agreement=beam_lockstep(params, c, prompt, BEAM_NEW,
+                                    BEAM_WIDTH, runs["auto"][0],
+                                    runs["physical"][0]),
+            **{impl: dict(seconds=dt, ms_per_step=1e3 * dt / BEAM_NEW,
+                          tokens_per_s=BEAM_BATCH * BEAM_NEW / dt)
+               for impl, (_, dt) in runs.items()})
+    launches = dict(attn.LAUNCHES)
+    if launches != {"flash_fwd": 4 * cfg.n_layers, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}:
+        raise AssertionError(f"beam path launched {launches}")
+    rec["step_peak_bytes"] = beam_step_peak_bytes(params, cfg)
+    # (c)
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    two = draft_layers(np_params, 2)
+    card32 = dkt.params_from_numpy(two, "cuda")
+    cpu32 = dkt.params_from_numpy(two, "cpu")
+    kw = dict(beam_width=BEAM_WIDTH, eos_token=7)
+    card = {}
+    for impl in ("ancestry", "physical"):
+        card[impl] = s, sc = expect_fwd(lambda: tgen.beam_search(
+            card32, prompt, cfg32, 16, beam_impl=impl, **kw),
+            cfg32.n_layers, "f32 beam", counted=False)
+        cs, csc = tgen.beam_search(cpu32, prompt, cfg32, 16, beam_impl=impl,
+                                   device="cpu", **kw)
+        if not torch.equal(s.cpu(), cs):
+            raise AssertionError(f"f32 beams ({impl}): card != cpu")
+        torch.testing.assert_close(sc.cpu(), csc, atol=1e-5, rtol=1e-5)
+    s, sc = card["ancestry"]
+    s1, _ = expect_fwd(lambda: tgen.beam_search(card32, prompt, cfg32, 16,
+                                                beam_width=1),
+                       cfg32.n_layers, "f32 width 1", counted=False)
+    g = expect_fwd(lambda: dkt.generate(card32, prompt, cfg32, 16),
+                   cfg32.n_layers, "f32 greedy", counted=False)
+    if not torch.equal(s1[:, 0], g):
+        raise AssertionError("f32 beam width 1 != greedy generate")
+    sp, scp = tgen.beam_search(card32, prompt, cfg32, 16,
+                               use_prefill=False, **kw)
+    if not torch.equal(sp, s):
+        raise AssertionError("f32 beams: prefill != sequential prompt pass")
+    torch.testing.assert_close(scp, sc, atol=1e-4, rtol=1e-5)
+    attn.LAUNCHES.update(launches)
+    rec["f32_2layer"] = dict(card_equal_cpu=True, score_tol=1e-5,
+                             width1_equal_greedy=True,
+                             prefill_equal_sequential=True,
+                             prefill_vs_sequential_score_tol=1e-4)
+    log("beam", batch=BEAM_BATCH, prompt=BEAM_PROMPT, new_tokens=BEAM_NEW,
+        beam_width=BEAM_WIDTH, launches=launches,
+        seconds=time.perf_counter() - t0, **rec)
+    return launches
+
+
+def beam_idle_share(params, cfg):
+    from distkeras_tpu_torch.models import generate as tgen
+
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BEAM_BATCH, BEAM_PROMPT)).astype(np.int32)
+    return profile_window("beam_16_steps", lambda: tgen.beam_search(
+        params, prompt, cfg, 16, beam_width=BEAM_WIDTH))
 
 
 # The model surface.  MoE: the transformer_moe_top1 / _top2 rows of
@@ -3132,7 +3765,10 @@ def main(profile=False):
             log("kernel_vs_plain", kernel="flash_fwd", **cases[-1])
     main_case = cases[0]   # bf16 causal: what the prefill launches
     # The engine's prefills: pool segments of 256 and 128 tokens at batch
-    # 1, and the speculative warm-up of 8 x 64-token prompts.
+    # 1, and the speculative warm-up of 8 x 64-token prompts.  The same
+    # two last shapes are the paged kv_int8="prefill" admission of a
+    # 100-token prompt (its 128-wide bucket) and beam_search's prompt
+    # pass (8 x 64).
     engine_cases = {}
     for name, shape in (("pool256", (1, 256, 8, 128)),
                         ("pool128", (1, 128, 8, 128)),
@@ -3243,6 +3879,12 @@ def main(profile=False):
     torch.cuda.empty_cache()
     int8_launches = int8_serve_phase(np_params)
 
+    # 5c. Paged KV serving and beam search.
+    torch.cuda.empty_cache()
+    paged_launches = paged_phase(np_params)
+    torch.cuda.empty_cache()
+    beam_launches = beam_phase(np_params)
+
     # 6. The training path at full width, and its parity.
     train_np = numpy_params(FLAGSHIP_TRAIN, seed=1)
     torch.cuda.empty_cache()
@@ -3282,9 +3924,12 @@ def main(profile=False):
 
     # 9. The engine's profiled window.
     torch.cuda.empty_cache()
-    log("engine_idle", idle_share_4x_step4=engine_idle_share(
-        dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16),
-        FLAGSHIP))
+    bf16 = dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16)
+    log("engine_idle", idle_share_4x_step4=engine_idle_share(bf16,
+                                                             FLAGSHIP))
+    log("paged_idle", **paged_idle_share(bf16, FLAGSHIP))
+    log("beam_idle", idle_share_16_steps=beam_idle_share(bf16, FLAGSHIP))
+    del bf16
     if profile:
         torch.cuda.empty_cache()
         profile_surface(np_params, np_moe)
@@ -3311,7 +3956,8 @@ def main(profile=False):
     lcausal, lwindow = long_cases  # f32 [8, 4096, 8, 128]: causal, 1024
 
     surface = (moe_train_launches, lora_launches, moe_serve_launches,
-               int8_launches, dp_launches, resume_launches)
+               int8_launches, dp_launches, resume_launches, paged_launches,
+               beam_launches)
 
     def launch_counts(name, *paths):
         paths = paths + surface
@@ -3319,7 +3965,7 @@ def main(profile=False):
                 "launches_by_path": {k: p[name] for k, p in zip(
                     ("serve", "engine", "train", "long_train", "moe_train",
                      "lora_train", "moe_serve", "int8_serve", "dp",
-                     "resume"),
+                     "resume", "paged", "beam"),
                     paths)}}
 
     print(json.dumps({"kernels": [{
@@ -3336,6 +3982,9 @@ def main(profile=False):
         **{f"bf16_causal_{name}": {k: c[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")} for name, c in engine_cases.items()},
+        "bf16_case_paths": {"pool256": ["engine"],
+                            "pool128": ["engine", "paged"],
+                            "spec_warm": ["engine", "beam"]},
         "f32_causal_spec_int8_warm": {k: spec32[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},

@@ -27,7 +27,10 @@ configs for long contexts), and ``save_lm`` writes the artefact that
 Serving: ``ContinuousBatcher`` admits requests into lanes at any time and
 decodes them together (chunked prefill, a ``PrefixPool`` of prefilled
 prefixes, elastic lane tiers, deadlines and a bounded queue), and
-``SpeculativeBatcher`` / ``speculative_generate`` add a draft model.
+``SpeculativeBatcher`` / ``speculative_generate`` add a draft model;
+``PagedBatcher`` serves from a block slab with per-lane page tables
+(stem sharing, pinned stems, copy-on-write forks), and
+``models.generate.beam_search`` decodes W hypotheses per row.
 
 The model surface: MoE configs (``num_experts``, top-k capacity routing
 in training, dense routing at inference), int8 weights
@@ -112,8 +115,9 @@ from distkeras_tpu_torch.checkpoint import CheckpointManager
 from distkeras_tpu_torch.resilience import (ClusterMember, ClusterSupervisor,
                                             FaultPlan, Preempted, Supervisor)
 from distkeras_tpu_torch.serving import (ContinuousBatcher, EngineClosed,
-                                         PrefixPool, QueueFull, RequestResult,
-                                         SpeculativeBatcher, TraceReplay)
+                                         PagedBatcher, PrefixPool, QueueFull,
+                                         RequestResult, SpeculativeBatcher,
+                                         TraceReplay)
 from distkeras_tpu_torch import deploy, obs, parallel
 from distkeras_tpu_torch.parallel import (AsyncConfig, AsyncSchedule,
                                           MeshSpec, initialize_multihost,
@@ -184,6 +188,7 @@ __all__ = [
     "parallel",
     "ContinuousBatcher",
     "EngineClosed",
+    "PagedBatcher",
     "PrefixPool",
     "QueueFull",
     "RequestResult",

@@ -18,13 +18,20 @@ the reference's per-token expert gather (T = 1) or the dense block
 (T > 1).  int8 trees (``models.quant.quantize_params``) decode on the
 sequential path, every weight read through ``deq``; ``kv_int8=True``
 stores K/V as int8 with per-token, per-kv-head f32 scales that ride the
-same slot arithmetic as K/V.  Not in this slice: ``beam_search``
-(ROADMAP A5).
+same slot arithmetic as K/V.
+
+:func:`beam_search` keeps ``W`` hypotheses per row: beam lanes tile the
+batch, and each step either reads every beam's history through a
+slot-indexed ancestor map (ancestry attention, the cache never
+reordered) or reorders the cache rows by parent (``beam_impl=
+"physical"``).  Its prompt pass is :func:`prefill`, the flash kernel on
+the card.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -137,6 +144,44 @@ def _attend(qg, ck, cv, mask, cfg: TransformerConfig, scales=None):
     return torch.einsum("btcgs,bsck->btcgk", probs, cv.float())
 
 
+def _ancestry_attend(qg, ck, cv, anc_oh, mask_b, cfg: TransformerConfig,
+                     w_beams: int, kv_scales=None):
+    """Beam ancestry attention for ONE position.
+
+    ``qg [B, kv, G, hd]`` f32 queries (beam lanes tiled batch-major, B =
+    bt * W), ``ck/cv [B, S, kv, hd]`` the per-lane cache, ``anc_oh [bt,
+    W, S, W]`` f32 one-hot ancestor map (slot s of lane w reads lane
+    ``anc[b, w, s]``), ``mask_b [bt, W, S]`` the valid-slot mask
+    (position mask full-cache, band mask windowed).  Scores every
+    (query-lane, source-lane) pair, so the cache is read once at W x the
+    decode attention's operations, then the one-hot selects each slot's
+    true ancestor.  The score tensor and its post-softmax select are
+    ``[bt, W, kv, G, W, S]`` f32 each (``_ancestry_score_bytes``).
+    ``kv_scales = (k_scale, v_scale) [B, S, kv]``: an int8 cache.
+    Returns ``attn [B, n_heads, hd]`` f32."""
+    b, s_len = qg.shape[0], ck.shape[1]
+    bt = b // w_beams
+    qb = qg.reshape(bt, w_beams, cfg.kv_heads, -1, cfg.head_dim)
+    kb = ck.float().reshape(bt, w_beams, s_len, cfg.kv_heads, cfg.head_dim)
+    vb = cv.float().reshape(bt, w_beams, s_len, cfg.kv_heads, cfg.head_dim)
+    la = torch.einsum("bwcgk,bvsck->bwcgvs", qb, kb)
+    if kv_scales is not None:
+        # [B, S, C] -> [bt, 1, C, 1, v(=w), S] over la's dims.
+        bsc = lambda sc: sc.reshape(bt, w_beams, s_len, cfg.kv_heads
+                                    ).permute(0, 3, 1, 2)[:, None, :, None]
+        la = la * bsc(kv_scales[0])
+    logits = torch.einsum("bwcgvs,bwsv->bwcgs", la, anc_oh)
+    del la
+    logits = logits / math.sqrt(cfg.head_dim)
+    logits = torch.where(mask_b[:, :, None, None, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    pm = torch.einsum("bwcgs,bwsv->bwcgvs", probs, anc_oh)
+    if kv_scales is not None:
+        pm = pm * bsc(kv_scales[1])
+    return torch.einsum("bwcgvs,bvsck->bwcgk", pm, vb).reshape(
+        b, cfg.n_heads, cfg.head_dim)
+
+
 def _rows_update(cache_layer, rows, pos0):
     """Write ``rows [B, T, ...]`` into ``cache_layer [B, S, ...]`` (K/V
     rows, or their int8 scales)
@@ -200,11 +245,14 @@ def _decode_chunk(params, cache, tokens, pos0, cfg: TransformerConfig,
     write is one slab ``index_copy_`` instead of a per-row scatter.  An
     int8 cache (``k_scale`` in ``cache``) writes its scales by the same
     slot arithmetic, in all three windowed shapes.
-    Nothing here reads a device value on the host.  Beam ancestry
-    attention (``beam_anc``) comes with ``beam_search`` (ROADMAP A5).
+    Nothing here reads a device value on the host.
+
+    ``beam_anc = (anc [B/W, W, S] long, W)``: beam ancestry attention
+    (T == 1, uniform positions; full-cache or windowed).  Rows are beam
+    lanes (batch-major ``b*W + w``); each lane writes its own cache lane
+    in place, and lane ``w`` reads slot ``s`` from lane ``anc[b, w, s]``
+    (:func:`_ancestry_attend`).
     """
-    if beam_anc is not None:
-        raise _not_ported("beam ancestry attention", "A5")
     dtype = cfg.torch_dtype
     b, t_len = tokens.shape
     dev = tokens.device
@@ -239,6 +287,15 @@ def _decode_chunk(params, cache, tokens, pos0, cfg: TransformerConfig,
         mask = span <= pos_ids[:, :, None]
         wr_pos = pos0
     mask = mask[:, :, None, None, :]                         # [B, T, 1, 1, S]
+    beam = None
+    if beam_anc is not None:
+        anc, w_beams = beam_anc
+        if t_len != 1 or not uniform_pos:
+            raise ValueError("beam ancestry attention requires T == 1 "
+                             "and uniform positions")
+        # One-hot over source lanes, f32 for the einsum contractions.
+        beam = (torch.nn.functional.one_hot(anc, w_beams).float(), w_beams,
+                mask[:, 0, 0, 0, :].reshape(b // w_beams, w_beams, -1))
     if uniform_pos:
         write = lambda c, r: _layer_slab_update(c, r, wr_pos[:1])
     elif win and t_len > 1:
@@ -246,15 +303,16 @@ def _decode_chunk(params, cache, tokens, pos0, cfg: TransformerConfig,
     else:
         write = lambda c, r: _rows_update(c, r, wr_pos)
     return _decode_layers(params, cache, x, rope_ang, write, mask,
-                          cfg), cache
+                          cfg, beam), cache
 
 
 def _decode_layers(params, cache, x, rope_ang, write, mask,
-                   cfg: TransformerConfig):
+                   cfg: TransformerConfig, beam=None):
     """The cached layer stack shared by the decode paths: ``x [B, T, D]``;
     ``write(cache_layer, rows)`` lands each layer's new K/V (and, for an
     int8 cache, their scales) in place.  Every weight read goes through
-    ``deq``.  Returns f32 logits [B, T, V]."""
+    ``deq``.  ``beam = (anc_oh, W, mask_b)``: ancestry attention (T ==
+    1).  Returns f32 logits [B, T, V]."""
     dtype = cfg.torch_dtype
     b, t_len = x.shape[:2]
     groups = cfg.n_heads // cfg.kv_heads
@@ -274,8 +332,13 @@ def _decode_layers(params, cache, x, rope_ang, write, mask,
         ck, cv = write(cache["k"][i], k), write(cache["v"][i], v)
         # GQA: grouped einsums read only the kv-head cache.
         qg = q.float().reshape(b, t_len, cfg.kv_heads, groups, cfg.head_dim)
-        attn = _attend(qg, ck, cv, mask, cfg, scales).reshape(
-            b, t_len, cfg.n_heads, cfg.head_dim)
+        if beam is not None:
+            anc_oh, w_beams, mask_b = beam
+            attn = _ancestry_attend(qg[:, 0], ck, cv, anc_oh, mask_b, cfg,
+                                    w_beams, scales)[:, None]
+        else:
+            attn = _attend(qg, ck, cv, mask, cfg, scales).reshape(
+                b, t_len, cfg.n_heads, cfg.head_dim)
         x = x + _dot(attn.to(dtype), deq(lp["attn"]["wo"]), n=2)
         x = x + _decode_ffn(lp, _rms_norm(x, lp["ln2_scale"]), cfg)
     x = _rms_norm(x, params["ln_f_scale"])
@@ -303,7 +366,7 @@ def _decode_ffn(lp, h, cfg: TransformerConfig):
 
 
 def _decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig,
-                 pad_lens=None):
+                 pad_lens=None, beam_anc=None):
     """One position: ``tokens [B]`` at position ``pos`` ->
     ``(logits [B, V] f32, cache)``.
 
@@ -312,13 +375,17 @@ def _decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig,
     max_len).  ``pad_lens [B]`` (left-padded ragged prompts): slots
     below a row's pad are never attended, and position ids count from
     the row's true start, so each row decodes as it would alone.
+    ``beam_anc``: beam ancestry attention (see :func:`_decode_chunk`).
     """
     b = tokens.shape[0]
     pos_t = torch.full((b,), pos, dtype=torch.long, device=tokens.device)
     if pad_lens is None:
         out, cache = _decode_chunk(params, cache, tokens[:, None], pos_t, cfg,
-                                   uniform_pos=True)
+                                   uniform_pos=True, beam_anc=beam_anc)
         return out[:, 0], cache
+    if beam_anc is not None:
+        raise ValueError("beam ancestry attention does not compose with "
+                         "pad_lens (beam search is uniform-prompt only)")
     dtype = cfg.torch_dtype
     x = embed_rows(params["tok_emb"], tokens, dtype)[:, None]     # [B, 1, D]
     pos_ids = torch.clamp(pos - pad_lens, min=0)                   # [B]
@@ -527,9 +594,191 @@ def _resolve_prompt_cache(prompt_cache, cfg: TransformerConfig, b: int,
     return out, int(cached_len)
 
 
-def beam_search(*args, **kwargs):
-    """Beam search (ancestry attention) comes with a later slice."""
-    raise _not_ported("beam_search", "A5")
+# Ancestry attention materializes per-layer score tensors of
+# B x W^2 x n_heads x S f32 (x2: the scores and the post-softmax select),
+# quadratic in beam width.  Above this ceiling the physical parent
+# gather, slower per step, is the path that fits.
+ANCESTRY_SCORE_LIMIT_BYTES = 1 << 28  # 256 MiB per layer
+
+
+def _ancestry_score_bytes(b: int, w: int, cfg: TransformerConfig) -> int:
+    """Estimated per-layer peak of the ancestry attention intermediates:
+    the ``[B, W, kv_heads, groups, W, S]`` f32 score tensor (``b`` the
+    untiled batch) and its post-softmax select, of the same shape."""
+    return 2 * b * w * w * cfg.n_heads * cfg.max_len * 4
+
+
+def _top_w(x, w: int):
+    """The ``w`` largest entries of each row of ``x`` and their indices,
+    ties to the lower index as ``jax.lax.top_k`` breaks them (the first
+    ``w`` of a stable descending sort; ``torch.topk`` promises no tie
+    order)."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return order.values[..., :w], order.indices[..., :w]
+
+
+def beam_search(params, prompt, cfg: TransformerConfig,
+                max_new_tokens: int, beam_width: int = 4,
+                eos_token: int | None = None,
+                use_prefill: bool | None = None,
+                length_penalty: float = 0.0, kv_int8: bool = False,
+                prompt_cache=None, beam_impl: str = "auto",
+                _force_physical: bool = False, device=None):
+    """Beam search decode: ``prompt [B, P]`` -> ``(sequences, scores)``
+    with ``sequences`` int32 ``[B, W, P + N]`` and ``scores`` f32 ``[B,
+    W]`` (the sum of the generated tokens' log-probabilities), best beam
+    first.
+
+    The first expansion takes the top-W first tokens of the untiled
+    batch, so beams start distinct; every later step scores the ``W x V``
+    continuations of each row and keeps the top W (ties to the lower
+    index, as the reference's ``lax.top_k``).  ``eos_token`` freezes a
+    finished beam: its only continuation is another ``eos_token`` at
+    unchanged score.  ``length_penalty`` > 0 re-ranks the RETURNED beams
+    by ``score / ((5 + n) / 6) ** alpha`` over each beam's generated
+    length n (frozen beams stop counting) and returns those values; the
+    search itself prunes on raw scores.  Uniform-length prompts only;
+    int8 trees decode on the sequential prompt path.
+    ``prompt_cache=(cache, cached_len)``: a prefilled shared prefix, as
+    in :func:`generate`.  Rope + window configs run rolling beams past
+    ``max_len``.
+
+    ``beam_impl``: ``"auto"`` (ancestry attention, unless its score
+    intermediates exceed :data:`ANCESTRY_SCORE_LIMIT_BYTES`, then the
+    physical gather with a warning), ``"ancestry"`` (raises above the
+    limit) or ``"physical"`` (reorder the cache rows by parent every
+    step: the same hypotheses, more memory traffic).  ``_force_physical``
+    is the reference's private spelling of ``"physical"``.  Runs on
+    ``device`` (the card unless ``device="cpu"``), where the params must
+    already live; the prompt pass is :func:`prefill` (the flash kernel)
+    when eligible.
+    """
+    device = resolve_device(device)
+    check_on_device(params, device)
+    prompt = torch.as_tensor(prompt, device=device).long()
+    b, p = prompt.shape
+    w = beam_width
+    if max_new_tokens < 1:
+        raise ValueError(
+            f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if not 1 <= w <= cfg.vocab_size:
+        raise ValueError(
+            f"beam_width must be in [1, vocab_size={cfg.vocab_size}], "
+            f"got {w}")
+    if length_penalty < 0:
+        raise ValueError(
+            f"length_penalty must be >= 0, got {length_penalty}")
+    # Resolved with the other argument checks: a bad beam_impl or an
+    # over-limit ancestry config raises before any device work.
+    if beam_impl not in ("auto", "ancestry", "physical"):
+        raise ValueError(
+            f"beam_impl must be 'auto', 'ancestry', or 'physical', "
+            f"got {beam_impl!r}")
+    if _force_physical:
+        beam_impl = "physical"
+    use_anc = beam_impl != "physical"
+    if use_anc:
+        est = _ancestry_score_bytes(b, w, cfg)
+        if est > ANCESTRY_SCORE_LIMIT_BYTES:
+            msg = (f"ancestry attention's per-layer score intermediate "
+                   f"would be ~{est / 2**20:.0f} MiB (batch {b} x width "
+                   f"{w}^2 x {cfg.n_heads} heads x max_len {cfg.max_len}, "
+                   f"f32 x2) — over the "
+                   f"{ANCESTRY_SCORE_LIMIT_BYTES / 2**20:.0f} MiB limit")
+            if beam_impl == "ancestry":
+                raise ValueError(
+                    msg + "; use beam_impl='physical' (exact same "
+                    "hypotheses via cache reorder) or shrink "
+                    "batch/beam_width/max_len")
+            warnings.warn(msg + "; falling back to the physical "
+                          "parent-gather (same hypotheses, more HBM "
+                          "traffic per step)", stacklevel=2)
+            use_anc = False
+    total = _check_decode_budget(p, max_new_tokens, cfg, eos_token,
+                                 rolling_ok=prompt_cache is None)
+    off = 0
+    with torch.no_grad():
+        # ---- prompt pass on the untiled [B] batch
+        if prompt_cache is not None:
+            cache, off = _resolve_prompt_cache(
+                prompt_cache, cfg, b, p, max_new_tokens, use_prefill,
+                device, kv_int8)
+            _decode_chunk(params, cache, prompt,
+                          torch.full((b,), off, dtype=torch.long,
+                                     device=device), cfg, uniform_pos=True)
+        elif _resolve_prefill(params, cfg, p, use_prefill, ragged=False):
+            cache, _ = prefill(params, prompt, cfg, last_logits=False,
+                               kv_int8=kv_int8, device=device)
+        else:
+            cache = init_cache(cfg, b, kv_int8=kv_int8, device=device)
+            for q in range(p - 1):
+                _decode_step(params, cache, prompt[:, q], q, cfg)
+        # Logits of the first generated position (recomputes the last
+        # prompt position in place, as generate's prefill path does).
+        logits, cache = _decode_step(params, cache, prompt[:, p - 1],
+                                     off + p - 1, cfg)
+        logp0 = torch.log_softmax(logits, dim=-1)             # [B, V]
+
+        # ---- first expansion: top-W distinct first tokens
+        scores, first = _top_w(logp0, w)                      # [B, W]
+        done = (first == eos_token if eos_token is not None else
+                torch.zeros((b, w), dtype=torch.bool, device=device))
+        lengths = torch.ones((b, w), dtype=torch.long, device=device)
+        # Beam lanes tile the batch: row b's beams are b*W .. b*W+W-1.
+        # Positions are absolute (past the prefix ``off``).
+        total = off + total
+        buf = torch.zeros((b, w, total), dtype=torch.long, device=device)
+        buf[:, :, off:off + p] = prompt[:, None, :]
+        buf[:, :, off + p] = first
+        cache = {n: a.repeat_interleave(w, dim=1) for n, a in cache.items()}
+        # Ancestry: every lane is its own ancestor for the prompt and the
+        # first token (the tiled copies agree).
+        lane_ids = torch.arange(w, device=device)
+        anc = lane_ids[None, :, None].expand(b, w, cfg.max_len).clone()
+        if eos_token is not None:
+            frozen = torch.full((cfg.vocab_size,), -1e30, device=device)
+            frozen[eos_token] = 0.0
+        rows = torch.arange(b, device=device)[:, None]
+        for q in range(off + p, total - 1):
+            logits, cache = _decode_step(
+                params, cache, buf[:, :, q].reshape(b * w), q, cfg,
+                beam_anc=(anc, w) if use_anc else None)
+            logp = torch.log_softmax(logits, dim=-1).reshape(b, w, -1)
+            v = logp.shape[-1]
+            cand = scores[:, :, None] + logp                 # [B, W, V]
+            if eos_token is not None:
+                # A finished beam's only continuation is eos at
+                # unchanged score; everything else is pruned.
+                cand = torch.where(done[:, :, None],
+                                   scores[:, :, None] + frozen, cand)
+            scores, idx = _top_w(cand.reshape(b, w * v), w)
+            parent, token = idx // v, idx % v                 # [B, W]
+            buf = buf[rows, parent]
+            buf[:, :, q + 1] = token
+            done = done[rows, parent]
+            lengths = lengths[rows, parent]
+            lengths = torch.where(done, lengths, lengths + 1)
+            if eos_token is not None:
+                done = done | (token == eos_token)
+            if use_anc:
+                # A kept beam inherits its parent's ancestry for s <= q
+                # (the parent's lane wrote position q this step); its
+                # next write slot is its own lane.  Slot-indexed: under
+                # rolling decode this retires the reused slot's ancestry
+                # in the step that overwrites its K/V.
+                anc = anc[rows, parent]
+                anc[:, :, (q + 1) % cfg.max_len] = lane_ids
+            else:
+                flat = (parent + rows * w).reshape(b * w)
+                cache = {n: a.index_select(1, flat)
+                         for n, a in cache.items()}
+        if length_penalty > 0:
+            norm = scores / torch.pow((5.0 + lengths) / 6.0,
+                                      length_penalty)
+            order = torch.sort(-norm, dim=1, stable=True).indices
+            buf = buf[rows, order]
+            scores = norm.gather(1, order)
+    return buf[:, :, off:].to(torch.int32), scores
 
 
 def _position_generator(seed: int, pos: int, device) -> torch.Generator:

@@ -81,6 +81,7 @@ class _AdmissionMixin:
         # that pass a ttl reach their structured timeout via poll/take
         # instead of the pop-everything results().
         self.last_request_id: int | None = None
+        self._decline_reason: str | None = None
 
     def _deadline_of(self, ttl, deadline):
         """Resolve submit/enqueue's ``ttl`` (seconds from now) /
@@ -165,7 +166,10 @@ class _AdmissionMixin:
     def _decline(self, reason: str) -> None:
         """Record a submit() decline: no request was registered, so a
         stale ``last_request_id`` must not masquerade as this
-        request's."""
+        request's; enqueue/pump read ``_decline_reason`` to tell a
+        storage decline (``"kv_blocks"``, the paged allocator out of
+        blocks: retryable backpressure) from a deadline expiry."""
+        self._decline_reason = reason
         if not self._admitting_internal:
             obs.count("serving.rejected", reason=reason)
             self.last_request_id = None
@@ -233,14 +237,27 @@ class _AdmissionMixin:
                 if self._admit_pending(pend):
                     self._bp_strikes = 0
                     return rid
-                # A lane was free, so submit declined because the
-                # deadline expired between our check and its re-check.
-                self._finish(rid, prompt, "timeout", prompt.size,
-                             born=pend.born)
-                return rid
+                # A lane was free, so submit declined either because
+                # the deadline expired between our check and its
+                # re-check, or (paged engines) because the KV-block
+                # allocator is exhausted — the latter queues like any
+                # other backpressure (blocks free as lanes drain).
+                if self._decline_reason != "kv_blocks":
+                    self._finish(rid, prompt, "timeout", prompt.size,
+                                 born=pend.born)
+                    return rid
             while len(self._pending) >= self.max_queue:
                 if not self._try_scale_up():
                     obs.count("serving.rejected", reason="queue_full")
+                    if self._decline_reason == "kv_blocks":
+                        # Name the real bottleneck: lanes may be free,
+                        # the paged allocator is what ran dry.
+                        raise QueueFull(
+                            f"KV block allocator exhausted and the "
+                            f"admission queue holds "
+                            f"{len(self._pending)}/{self.max_queue} "
+                            "requests; shed load, raise n_blocks, or "
+                            "bound request budgets")
                     raise QueueFull(
                         f"all {self.lanes} lanes busy and the "
                         f"admission queue holds {len(self._pending)}/"
@@ -250,10 +267,12 @@ class _AdmissionMixin:
                 # then this one takes a lane or the queue headroom.
                 self.pump()
                 if self.free_lanes() and not self._pending:
-                    if not self._admit_pending(pend):
+                    if self._admit_pending(pend):
+                        return rid
+                    if self._decline_reason != "kv_blocks":
                         self._finish(rid, prompt, "timeout",
                                      prompt.size, born=pend.born)
-                    return rid
+                        return rid
             self._bp_strikes = 0
             self._pending.append(pend)
             obs.gauge("serving.queue_depth", len(self._pending))
@@ -299,6 +318,7 @@ class _AdmissionMixin:
 
     def _admit_pending(self, pend) -> bool:
         self._admit_rid = pend.request_id
+        self._decline_reason = None
         try:
             lane = self.submit(pend.prompt, pend.max_new,
                                deadline=pend.deadline, **pend.submit_kw)
@@ -355,6 +375,12 @@ class _AdmissionMixin:
                 continue
             if ok:
                 admitted.append(pend.request_id)
+            elif self._decline_reason == "kv_blocks":
+                # Allocator exhausted (paged engine): the request stays
+                # at the queue head — blocks free as running lanes
+                # drain, and FIFO order must hold.
+                self._pending.appendleft(pend)
+                break
             else:
                 # Free lane + declined admission == the deadline
                 # expired between pump's check and submit's re-check.

@@ -103,6 +103,12 @@ class _ElasticLanesMixin:
         at = torch.as_tensor(idx, device=self.device)
         self.cache = {name: a.index_select(1, at)
                       for name, a in self.cache.items()}
+        self._resize_rows(idx)
+
+    def _resize_rows(self, idx) -> None:
+        """The per-lane row state of a resize (the paged engine's whole
+        device move: its slab is lane-count-independent)."""
+        at = torch.as_tensor(idx, device=self.device)
         self.cur, self.pos, self.temps, self.tps, self.mps = (
             a.index_select(0, at)
             for a in (self.cur, self.pos, self.temps, self.tps, self.mps))

@@ -20,6 +20,8 @@ import torch
 
 from distkeras_tpu_torch import obs
 from distkeras_tpu_torch.models.generate import _decode_chunk
+from distkeras_tpu_torch.models.quant import QTensor
+from distkeras_tpu_torch.models.transformer import named_leaves
 from distkeras_tpu_torch.serving.admission import _AdmissionMixin
 from distkeras_tpu_torch.serving.elastic import _ElasticMixin
 
@@ -149,9 +151,8 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
     def _vacate(self, lane) -> None:
         """THE one lane-release path (drain, reap, eviction, shutdown
         cancellation): frees the lane slot, drops it from the chunked-
-        admission queue and releases its prefix-pool pin.  The lane's
-        cache row stays as it is (stale, masked) until its next
-        admission seeds it."""
+        admission queue, releases its prefix-pool pin, and hands the
+        lane's storage back through :meth:`_release_lane_storage`."""
         st = self._lane_state[lane]
         self._lane_state[lane] = None
         if st is None:
@@ -163,6 +164,46 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
                 pass
         if st.prefix_id is not None and self._prefix_pool is not None:
             self._prefix_pool.release(st.prefix_id)
+        self._release_lane_storage(lane, st)
+
+    def _release_lane_storage(self, lane, st) -> None:
+        """Storage hook of :meth:`_vacate`: a monolithic lane owns a
+        fixed cache row (stale and masked until its next admission seeds
+        it: nothing to release); the paged engine drops the lane's block
+        references here, the ONE place, so no eviction path leaks a
+        block."""
+
+    def residency(self) -> dict:
+        """The engine's residency digest: resident prefix-pool ids,
+        resident paged stem hashes (the paged engine fills them) and the
+        live load signals.  Host counters and id lists only (no device
+        work), JSON-safe."""
+        with self._admission_lock:
+            return {
+                "engine": type(self).__name__,
+                "lanes": self.lanes,
+                "model_shards": 1,
+                "lanes_busy": len(self.running()),
+                "queue_depth": len(self._pending),
+                "block": None,
+                "prefix_ids": (self._prefix_pool.ids()
+                               if self._prefix_pool is not None else []),
+                "stem_hashes": [],
+                "param_version": 0,
+            }
+
+    def memory_footprint(self) -> dict:
+        """Param and KV bytes, read from the live tensors (one device,
+        so the per-device figures equal the totals)."""
+        def nbytes(tree):
+            return sum(t.numel() * t.element_size()
+                       for _, leaf in named_leaves(tree)
+                       for t in ((leaf.q, leaf.s) if isinstance(
+                           leaf, QTensor) else (leaf,)))
+
+        p_bytes, kv_bytes = nbytes(self.params), nbytes(self.cache)
+        return {"param_bytes": p_bytes, "param_bytes_per_device": p_bytes,
+                "kv_bytes": kv_bytes, "kv_bytes_per_device": kv_bytes}
 
     def _validate_request_args(self, prompt, max_new_tokens: int):
         """The prompt/budget checks every engine's submit() runs —

@@ -102,8 +102,12 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
     value that two products round to either side of a .5 boundary can
     part them).  An int8 tree (``quantize_params``) serves as is.
 
+    ``kv_int8="prefill"`` is a
+    :class:`~distkeras_tpu_torch.serving.PagedBatcher` admission mode
+    and is refused here.
+
     Not ported yet: ``plan=`` / ``mesh=`` (ROADMAP A7b) and ``hot_swap``
-    (A10); each raises naming its item.  Runs on ``device`` (the card
+    (A10's fleet half); each raises naming its item.  Runs on ``device`` (the card
     unless ``device="cpu"``), where the params must already live.
     """
 
@@ -278,12 +282,20 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
         self._temp_t = torch.full((1,), float(temperature or 1.0),
                                   device=self.device)
         self._init_device_state(lanes)
-        pooled = prefix_pool is not None
-        self._admit = _make_lane_admit(params, cfg,
+        self._build_admission_programs()
+
+    def _build_admission_programs(self) -> None:
+        """The admission steps: the first chunk (seeded from zeros, the
+        engine's prefix or a pool segment), chunked prefill's
+        continuation, and the prefix reseeds of 1-token prompts.  The
+        paged engine overrides this with its block-table admission."""
+        pooled = self._prefix_pool is not None
+        self._admit = _make_lane_admit(self.params, self.cfg,
                                        prefix_lane=self._prefix_lane,
                                        pooled=pooled)
-        self._admit_cont = (_make_lane_admit(params, cfg, seed=False)
-                            if prefill_chunk is not None else None)
+        self._admit_cont = (_make_lane_admit(self.params, self.cfg,
+                                             seed=False)
+                            if self.prefill_chunk is not None else None)
         self._reseed = (_make_lane_reseed(prefix_lane=self._prefix_lane)
                         if self._prefix_lane is not None else None)
         self._reseed_pool = (_make_lane_reseed(pooled=True)
@@ -291,13 +303,19 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
 
     # ------------------------------------------------------ device state
 
+    def _fresh_cache(self, lanes: int):
+        """A zeroed KV store for ``lanes`` decode rows: the ONE
+        cache-layout decision point (monolithic ``[L, lanes, max_len,
+        ...]`` here; the paged engine returns its block slab)."""
+        return init_cache(self.cfg, lanes, kv_int8=self.kv_int8,
+                          device=self.device)
+
     def _init_device_state(self, lanes: int) -> None:
         """One cache, per-lane position and current token (the one the
         next step processes) and per-lane sampling values on the device;
         host mirrors of the positions, temperatures and seeds."""
         dev = self.device
-        self.cache = init_cache(self.cfg, lanes, kv_int8=self.kv_int8,
-                                device=dev)
+        self.cache = self._fresh_cache(lanes)
         self.pos = torch.zeros((lanes,), dtype=torch.long, device=dev)
         self.cur = torch.zeros((lanes,), dtype=torch.long, device=dev)
         t0 = float(self.temperature)
@@ -396,20 +414,28 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
                 "or add a finer width")
         return b
 
-    def _chunk_plan(self, off: int, warm: int) -> list:
+    def _chunk_plan(self, off: int, warm: int, skip: int = 0) -> list:
         """The admission plan for ``warm`` prompt tokens decoding past
         ``off`` cached positions: ``[(start, width)]``.  One bucket-padded
         chunk at ``off`` unless chunked prefill is on and the warm length
         exceeds the chunk width; then full ``W``-wide chunks on the
-        ``off + k*W`` grid plus a bucket-padded tail whose start backs up
-        so its padded end lands exactly at the warm frontier
-        (re-prefilling the overlap writes the same K/V).  Raises if any
-        padded write would overflow the cache."""
+        ``off + skip + k*W`` grid plus a bucket-padded tail whose start
+        backs up so its padded end lands exactly at the warm frontier
+        (re-prefilling the overlap writes the same K/V).  ``skip`` drops
+        the first ``skip`` warm tokens from the plan: the paged engine's
+        stem sharing, whose shared blocks hold those positions already
+        (the backed-up tail never reaches into them: it is at most one
+        chunk wide, and the chunked branch runs only when more than a
+        chunk remains).  Raises if any padded write would overflow the
+        cache."""
+        if warm <= skip:
+            return []
         w_chunk = self.prefill_chunk
-        if self._rolling or w_chunk is None or warm <= w_chunk:
-            return [(off, self._bucket_for(warm, off))]
-        m, rem = divmod(warm, w_chunk)
-        plan = [(off + k * w_chunk, w_chunk) for k in range(m)]
+        lo, span = off + skip, warm - skip
+        if self._rolling or w_chunk is None or span <= w_chunk:
+            return [(lo, self._bucket_for(span, lo))]
+        m, rem = divmod(span, w_chunk)
+        plan = [(lo + k * w_chunk, w_chunk) for k in range(m)]
         if plan[-1][0] + w_chunk > self.cfg.max_len:
             raise ValueError(
                 f"chunked admission grid overflows the cache (chunk at "
@@ -418,6 +444,20 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
             b = next(w for w in self._buckets if w >= rem)
             plan.append((off + warm - b, b))
         return plan
+
+    def _admission_plan(self, lane, prompt, off: int, warm: int):
+        """Stage lane storage for an admission and return its chunk
+        plan, or None to DECLINE for lack of KV storage (the paged
+        engine's allocator-exhausted signal, surfaced as ``kv_blocks``
+        backpressure by enqueue/pump).  A monolithic lane's storage is
+        its cache row, so it never declines here."""
+        del lane, prompt
+        return self._chunk_plan(off, warm)
+
+    def _abort_admission(self, lane) -> None:
+        """Failure between storage staging and lane commit: release what
+        :meth:`_admission_plan` staged (nothing for monolithic lanes;
+        the paged engine frees the staged blocks)."""
 
     def _exec_admit(self, lane, start, rows, slot) -> None:
         """Run the FIRST admission chunk (the one that seeds the lane);
@@ -550,7 +590,15 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
                 obs.event("serving.submit", request_id=rid,
                           prompt_len=p, max_new=int(max_new_tokens))
             warm = p - 1
-            plan = self._chunk_plan(off, warm) if warm else []
+            plan = self._admission_plan(lane, prompt, off, warm)
+            if plan is None:
+                # KV-storage decline (the paged allocator is out of
+                # blocks): no lane is occupied; enqueue/pump treat it as
+                # backpressure, not a timeout.
+                self._decline("kv_blocks")
+                if prefix_id is not None:
+                    self._prefix_pool.release(prefix_id)
+                return None
             chunks = None
             if plan:
                 start0, width0 = plan[0]
@@ -589,8 +637,12 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
             if not self._admitting_internal:
                 self.last_request_id = rid
         except Exception:
+            # A failure between pin and lane commit must leak neither
+            # the prefix reference nor (paged engine) the staged blocks.
             if prefix_id is not None:
                 self._prefix_pool.release(prefix_id)
+            if lane is not None:
+                self._abort_admission(lane)
             raise
         if chunks is not None:
             self._admitting.append(lane)
@@ -636,10 +688,18 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
             return out
 
     def _dispatch_step(self, n: int):
-        """The ``n``-token decode window over every lane: per-row
-        ``_decode_chunk`` (T = 1), the sampling pick, the position
-        advance — all on the device — then ONE device-to-host copy of
-        the ``[lanes, n]`` token matrix."""
+        """The ``n``-token decode window over every lane of the cache,
+        then ONE device-to-host copy of the ``[lanes, n]`` token
+        matrix."""
+        return self._decode_window(self.cache, n).cpu().numpy()
+
+    def _decode_window(self, cache, n: int):
+        """``n`` runs of :meth:`_one_step` over a CONTIGUOUS ``[lanes,
+        max_len]`` cache (written in place); advances ``cur`` / ``pos``
+        and returns the ``[lanes, n]`` token matrix on the device.  The
+        monolithic step runs it over ``self.cache``, the paged step over
+        the page-table-gathered view: one definition, so the two
+        engines' tokens cannot drift."""
         draw_lanes = [lane for lane, st in enumerate(self._lane_state)
                       if st is not None and not st.done
                       and st.chunks is None and self._htemps[lane] > 0]
@@ -648,13 +708,20 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
         cur, pos, hpos = self.cur, self.pos, self._hpos
         with torch.no_grad():
             for j in range(n):
-                logits, _ = _decode_chunk(self.params, self.cache,
-                                          cur[:, None], pos, self.cfg)
-                cur = self._pick(logits[:, 0], draw_lanes, hpos)
+                cur, pos, hpos = self._one_step(cache, cur, pos, hpos,
+                                                draw_lanes)
                 toks[:, j] = cur
-                pos, hpos = self._advance(pos), self._advance(hpos)
         self.cur, self.pos, self._hpos = cur, pos, hpos
-        return toks.cpu().numpy()
+        return toks
+
+    def _one_step(self, cache, cur, pos, hpos, draw_lanes):
+        """The per-token body: ``_decode_chunk`` (T = 1) over every lane
+        at its own position, the sampling pick, the position advance.
+        Returns the next ``(cur, pos, hpos)``."""
+        logits, _ = _decode_chunk(self.params, cache, cur[:, None], pos,
+                                  self.cfg)
+        cur = self._pick(logits[:, 0], draw_lanes, hpos)
+        return cur, self._advance(pos), self._advance(hpos)
 
 
 __all__ = ["ContinuousBatcher"]

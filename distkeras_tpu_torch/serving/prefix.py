@@ -21,8 +21,10 @@ returns for one prefix — a full-``max_len`` batch-1 cache, prefix slots
 filled and the rest zero, so building one runs the flash forward kernel
 on the card.  For :class:`~distkeras_tpu_torch.serving.SpeculativeBatcher`
 pools (``draft_cfg=``) a segment is the ``(target_cache, draft_cache)``
-pair.  The paged engine's ``PinnedStems`` is not ported yet (ROADMAP
-A10).
+pair.
+
+:class:`PinnedStems` is the paged engine's counterpart: a host-side
+registry of pinned block runs in the engine's one slab.
 """
 
 from __future__ import annotations
@@ -210,4 +212,68 @@ class PrefixPool:
         return len(self._entries)
 
 
-__all__ = ["PrefixPool"]
+@dataclasses.dataclass
+class _Stem:
+    blocks: tuple          # block ids pinned for this prefix, in order
+    length: int            # prefix token count (a multiple of block)
+
+
+class PinnedStems:
+    """Host-side registry of PINNED block runs on a paged KV slab: the
+    :class:`PrefixPool` story in the paged engine's one-allocator world.
+
+    A pinned stem is a run of ordinary cache blocks in the engine's slab
+    whose references this registry holds, each block hash-registered
+    like any admitted block, so a prompt that starts with the pinned
+    tokens hits them through ordinary stem sharing (no id at submit).
+    Pure bookkeeping: :meth:`PagedBatcher.pin_prefix` prefills the
+    blocks and takes the references; ``pop`` hands back exactly the
+    blocks of one pin.  Ids are never reused.
+    """
+
+    def __init__(self):
+        self._entries: dict[int, _Stem] = {}
+        self._next_id = 0
+        self._lock = TracedRLock("serving.pinned_stems")
+
+    def add(self, blocks, length: int) -> int:
+        with self._lock:
+            pid = self._next_id
+            self._next_id += 1
+            self._entries[pid] = _Stem(tuple(blocks), int(length))
+            return pid
+
+    def pop(self, prefix_id: int) -> tuple:
+        """Remove the pin and return its block run (the caller releases
+        the references)."""
+        with self._lock:
+            e = self._entries.pop(prefix_id, None)
+            if e is None:
+                raise KeyError(
+                    f"unknown pinned prefix {prefix_id} (unpinned "
+                    "already or never pinned; ids are never reused)")
+            return e.blocks
+
+    def length_of(self, prefix_id: int) -> int:
+        return self._entry(prefix_id).length
+
+    def blocks_of(self, prefix_id: int) -> tuple:
+        return self._entry(prefix_id).blocks
+
+    def _entry(self, prefix_id: int) -> _Stem:
+        e = self._entries.get(prefix_id)
+        if e is None:
+            raise KeyError(f"unknown pinned prefix {prefix_id}")
+        return e
+
+    def ids(self) -> list[int]:
+        return sorted(self._entries)
+
+    def __contains__(self, prefix_id: int) -> bool:
+        return prefix_id in self._entries
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+__all__ = ["PrefixPool", "PinnedStems"]

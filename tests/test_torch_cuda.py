@@ -9,7 +9,11 @@ the model surface (an MoE train step, ``quantize_params`` and a
 preempted and resumed by the Supervisor on the card equals the straight
 run bit for bit, and its checkpoint restores on the CPU); and the
 paper's last workloads (``imdb_lstm`` with both LSTMs and ResNet-50 on
-the card against the CPU, Keras' BatchNorm under bf16 autocast).
+the card against the CPU, Keras' BatchNorm under bf16 autocast); and the
+paged engine (an f32 schedule on the card equal to the monolithic
+engine's and to the CPU's, and a serve phase that allocates no device
+memory) and beam search (the card's beams against the CPU's, its
+prefill through the forward kernel).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports no JAX, so on a machine with
@@ -675,6 +679,126 @@ def test_kv_int8_engine_schedule_on_card_matches_cpu(cuda):
         solo = generate(card_p, p[None], cfg, len(got) - len(p),
                         kv_int8=True, use_prefill=False)
         np.testing.assert_array_equal(got, solo[0].cpu().numpy())
+
+
+def _paged_schedule(cfg, params, device, paged=True, **kw):
+    """Staggered admissions with a shared stem, a chunked long prompt, a
+    fork and a reused lane over 3 lanes; every request's tokens."""
+    from distkeras_tpu_torch.serving import ContinuousBatcher, PagedBatcher
+
+    rng = np.random.default_rng(11)
+    stem = rng.integers(0, cfg.vocab_size, 32)
+    prompts = [np.concatenate([stem, rng.integers(0, cfg.vocab_size, n)])
+               for n in (5, 9)] + [rng.integers(0, cfg.vocab_size, n)
+                                   for n in (50, 7)]
+    if paged:
+        eng = PagedBatcher(params, cfg, lanes=3, block=16,
+                           prefill_chunk=32, device=device, **kw)
+    else:
+        eng = ContinuousBatcher(params, cfg, lanes=3, prefill_chunk=32,
+                                device=device, **kw)
+    outs = {}
+    a = eng.submit(prompts[0], 30)
+    eng.step(4)
+    b = eng.submit(prompts[1], 24)
+    c = eng.submit(prompts[2], 20)       # parks: two chunks
+    for name, lane in zip("abc", (a, b, c)):
+        while lane in eng.running():
+            eng.step(3)
+        outs[name] = eng.drain(lane)
+    d = eng.submit(prompts[3], 12)       # a reused lane
+    while d in eng.running():
+        eng.step(1)
+    outs["d"] = eng.drain(d)
+    if paged:
+        assert eng.stem_hit_blocks == 2
+        assert eng.allocator.stats()["used"] == 0
+    return outs
+
+
+def test_paged_schedule_on_card_matches_monolithic_and_cpu(cuda):
+    """An f32 paged schedule on the card: the monolithic engine's tokens
+    on the card, and the paged engine's on the CPU."""
+    cfg, _, card_p = _serving_model("cuda")
+    _, _, cpu_p = _serving_model("cpu")
+    paged = _paged_schedule(cfg, card_p, "cuda")
+    mono = _paged_schedule(cfg, card_p, "cuda", paged=False)
+    cpu = _paged_schedule(cfg, cpu_p, "cpu")
+    for name in paged:
+        np.testing.assert_array_equal(paged[name], mono[name])
+        np.testing.assert_array_equal(paged[name], cpu[name])
+
+
+def test_paged_kv_int8_prefill_admission_launches_the_kernel(cuda):
+    """kv_int8="prefill": a from-scratch admission runs prefill (one
+    forward launch a layer), and the first token it serves is the
+    decode-built engine's (the two int8 caches differ by rounding: later
+    tokens of this random-weight model may part at near ties)."""
+    from distkeras_tpu_torch.serving import PagedBatcher
+
+    cfg, _, params = _serving_model("cuda")
+    p = np.random.default_rng(2).integers(0, cfg.vocab_size, 40)
+    outs = {}
+    for mode in (True, "prefill"):
+        eng = PagedBatcher(params, cfg, lanes=1, block=16, kv_int8=mode)
+        before = tattn.LAUNCHES["flash_fwd"]
+        lane = eng.submit(p, 16)
+        launched = tattn.LAUNCHES["flash_fwd"] - before
+        assert launched == (cfg.n_layers if mode == "prefill" else 0)
+        while lane in eng.running():
+            eng.step(4)
+        outs[mode] = eng.drain(lane)
+    assert outs[True][len(p)] == outs["prefill"][len(p)]
+
+
+def test_paged_serve_phase_allocates_nothing(cuda):
+    """The counterpart of the reference's zero serve-phase compiles: once
+    warm, step(4) windows over busy lanes leave the allocator's reserved
+    bytes and its device-allocation count unchanged, for the paged and
+    the monolithic engine."""
+    from distkeras_tpu_torch.serving import ContinuousBatcher, PagedBatcher
+
+    cfg, _, params = _serving_model("cuda")
+    rng = np.random.default_rng(5)
+    for cls, kw in ((PagedBatcher, dict(block=16)), (ContinuousBatcher, {})):
+        eng = cls(params, cfg, lanes=4, device="cuda", **kw)
+        for p in rng.integers(0, cfg.vocab_size, (4, 12)):
+            eng.submit(p, 60)
+        eng.step(4)
+        eng.step(4)
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        allocs = torch.cuda.memory_stats()["num_device_alloc"]
+        for _ in range(8):
+            eng.step(4)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_reserved() == reserved, cls.__name__
+        assert (torch.cuda.memory_stats()["num_device_alloc"]
+                == allocs), cls.__name__
+
+
+def test_beam_search_on_card_matches_cpu(cuda):
+    """f32 beams on the card equal the CPU's (sequences exact, scores to
+    1e-5) on both impls; the prompt pass launches the forward kernel once
+    a layer, and width 1 is greedy generate."""
+    from distkeras_tpu_torch.models.generate import beam_search, generate
+
+    cfg, _, card_p = _serving_model("cuda")
+    _, _, cpu_p = _serving_model("cpu")
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 20))
+    for impl in ("ancestry", "physical"):
+        before = tattn.LAUNCHES["flash_fwd"]
+        s, sc = beam_search(card_p, prompt, cfg, 24, beam_width=3,
+                            eos_token=3, beam_impl=impl)
+        assert tattn.LAUNCHES["flash_fwd"] - before == cfg.n_layers
+        cs, csc = beam_search(cpu_p, prompt, cfg, 24, beam_width=3,
+                              eos_token=3, beam_impl=impl, device="cpu")
+        np.testing.assert_array_equal(s.cpu().numpy(), cs.numpy())
+        np.testing.assert_allclose(sc.cpu().numpy(), csc.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+    s1, _ = beam_search(card_p, prompt, cfg, 16, beam_width=1)
+    g = generate(card_p, prompt, cfg, 16)
+    np.testing.assert_array_equal(s1[:, 0].cpu().numpy(), g.cpu().numpy())
 
 
 def test_lm_zero1_in_a_world1_nccl_group_equals_zero_none(cuda, tmp_path):

@@ -190,8 +190,11 @@ def test_sampled_generate_deterministic_and_topk1_is_greedy(rng):
                                          seed=3, kv_int8=True, **kw))
     with pytest.raises(ValueError, match="prompt_cache"):
         tgen.generate(tp, prompt, tcfg, prompt_cache=({}, 1), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.beam_search(tp, prompt, tcfg, 2, 4)
+    # beam_search is ported (tests/test_torch_beam.py holds it to JAX's):
+    # width 1 is greedy decoding.
+    beams, _ = tgen.beam_search(tp, prompt, tcfg, 8, beam_width=1,
+                                device="cpu")
+    assert torch.equal(beams[:, 0], greedy)
 
 
 def test_save_lm_to_load_lm_round_trip(rng, tmp_path):

@@ -14,7 +14,7 @@
 - ``trace`` writes a chrome trace on the CPU, ``annotate`` names a
   region in it;
 - C5: the top-level ``__all__`` holds the reference's minus the names
-  not ported yet (A10, A7b), and ``utils.__all__`` the reference's;
+  not ported yet (A7b), and ``utils.__all__`` the reference's;
   C6: ``ModelAdapter(keras_model=...)``; C7:
   ``CheckpointManager(..., async_save=...)``.
 """
@@ -40,7 +40,6 @@ from tests.torch_dp_ranks import BNMLP
 
 # ROADMAP items whose names the port does not export yet.
 NOT_PORTED = {
-    "A10": {"PagedBatcher"},
     "A7b": {"fsdp_plan", "tp_plan", "serving_plan", "ServingPlan",
             "match_partition_rules"},
 }
