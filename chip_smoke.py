@@ -119,7 +119,35 @@ each went through its kernels:
   round: both hosts restart under epoch 1 and the job's weights must
   equal a straight run's bit for bit.  ``python3 chip_smoke.py
   --cluster-rank SPEC`` is one host of (c).  The script sets
-  ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before CUDA starts.
+  ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before CUDA starts;
+- the serving fleet (phase ``fleet``, its profiled windows
+  ``fleet_lone_wave`` / ``fleet_routed_wave`` at the end): (a) two
+  ``InProcessReplica(PagedBatcher(lanes=8))`` under
+  ``Router(policy="affinity")``, 4 stems of 492 tokens x 8 requests in 4
+  waves, every request ok, tokens against one engine under the same
+  waves (``greedy_agreement``), every request of a stem after its first
+  on the replica that holds it; (b) a ``role="prefill"`` and a
+  ``role="decode"`` ``PagedBatcher(kv_int8="prefill")``: each cold stem
+  exported through the forward kernel, carried through
+  ``encode_shipment`` / ``decode_shipment`` and imported, tokens equal to
+  one engine that pins the same stems first, a warm wave shipping
+  nothing, an export that raises falling back to the raw prompt (tokens
+  equal a cold solo admission), no block in use after shutdown; (c)
+  three replica processes (``python3 chip_smoke.py --replica SPEC``: one
+  prefill, two decode, each an ``EngineEndpoint`` and a federated
+  telemetry session) found by ``discover_replicas``, (b)'s traffic over
+  HTTP with equal tokens, then a decode replica SIGKILLed mid-stream
+  (every accepted request ends ok, ``/metrics/cluster`` drops the dead
+  host); (d) an SLO breach on one replica scaling a warm pool's replica
+  in and a lossless scale-down, the allocator unchanged through the
+  join, and (b)'s request waterfall with its block-transfer hop; and the
+  weight push (phase ``weight_push``): an ``LMTrainer`` at the serving
+  config in f32 publishing 2 rounds into a ``CanaryController`` over two
+  ``ContinuousBatcher(hot_swap=True)`` replicas (each version promoted
+  and equal to a fresh engine on it, a request in flight across a swap,
+  a corrupted snapshot never adopted, a drifting candidate rolled back,
+  swaps that allocate nothing and move no tensor, a refused swap leaving
+  the weights bit for bit; swap ms, publish / load s raw and int8).
 
 Usage: python3 chip_smoke.py [--profile]     (needs one CUDA device)
 
@@ -139,11 +167,15 @@ it under ``"f32_lse_causal"`` and the engine's prefill shapes under
 ``int8_serve`` under ``"f32_causal_spec_int8_warm"``, and its launches
 those of every main-path run: serve, engine, train, long_train, the
 four model-surface phases, ``dp``, ``resume`` (the supervised runs
-of (a) and (b)), ``paged`` (the ``kv_int8="prefill"`` admissions) and
-``beam`` (the bench runs' prompt passes) (``launches_by_path``; a run that only serves a
+of (a) and (b)), ``paged`` (the ``kv_int8="prefill"`` admissions),
+``beam`` (the bench runs' prompt passes), ``fleet`` (the prefill
+replica's exports and the fallback's raw admissions in this process;
+each replica process prints its own) and ``weight_push`` (the
+publishing trainer's rounds) (``launches_by_path``; a run that only serves a
 comparison is not counted); the backward kernels' times are the
 training case (f32, causal) and their launches those of the training
-runs (train, long_train, moe_train, lora_train, dp, resume), with the
+runs (train, long_train, moe_train, lora_train, dp, resume,
+weight_push), with the
 bf16 causal case beside it under ``"bf16_causal"``; each kernel also
 carries its seq-4096 f32 readings (causal, and window 1024).
 """
@@ -3736,6 +3768,1044 @@ def resume_phase(np_params):
     return launches
 
 
+# Phases fleet and weight_push: the serving fleet at the flagship
+# serving width.  The traffic of (a) is bench_paged_shared_stem(8)
+# (scripts/bench_serving.py:1059) times four stems.
+FLEET_STEMS, FLEET_PER_STEM = 4, 8
+FLEET_STEM = 12 * PAGED_BLOCK          # 492 tokens: 12 full blocks
+FLEET_LANES = 8
+FLEET_KILL_REQUESTS = 8
+# The canary gate of weight_push (e): a finite logit-drift budget for the
+# trained versions; the gate test then tightens it to GATE_MARGIN times
+# the largest promoted drift and pushes a candidate whose embedding is
+# scaled by GATE_SCALE (its logits move by many times their size).
+PUSH_MAX_DRIFT = 50.0
+GATE_MARGIN, GATE_SCALE = 4.0, 16.0
+PUSH_PROMPTS = 4
+# A wave of the fleet phase (at most 32 requests of 32 tokens) takes a
+# few seconds on the card; one that is not done in this many has failed.
+FLEET_WAVE_S = 120.0
+
+
+def fleet_prompts(cfg, seed, stems=FLEET_STEMS, per_stem=FLEET_PER_STEM):
+    """``stems`` stems of FLEET_STEM tokens, each with ``per_stem``
+    16-token tails; returned stem-major as (stem index, prompt)."""
+    rng = np.random.default_rng(seed)
+    heads = rng.integers(0, cfg.vocab_size, (stems, FLEET_STEM)).astype(
+        np.int32)
+    tails = rng.integers(0, cfg.vocab_size,
+                         (stems, per_stem, STEM_TAIL)).astype(np.int32)
+    return heads, [(s, np.concatenate([heads[s], tails[s, j]]))
+                   for s in range(stems) for j in range(per_stem)]
+
+
+def fleet_engine(params, cfg, **kw):
+    import warnings
+
+    kw.setdefault("max_queue", 4 * FLEET_LANES)
+    with warnings.catch_warnings():
+        # kv_int8 below 16 lanes: the advisory is about speed, and these
+        # engines are sized for the comparison.
+        warnings.simplefilter("ignore", RuntimeWarning)
+        return paged_engine(params, cfg, lanes=FLEET_LANES, **kw)
+
+
+class StrictReplica(dkt.serving.InProcessReplica):
+    """An in-process replica whose engine faults surface.  ``Router.step``
+    swallows a replica's step exception (health probing's to report, as
+    in the reference), so the first fault is kept here and
+    :func:`strict_step` raises it."""
+
+    fault = None
+
+    def step(self):
+        try:
+            super().step()
+        except Exception as e:
+            self.fault = self.fault or e
+            raise
+
+
+def strict_step(router):
+    """``router.step`` that raises the first engine fault of any
+    :class:`StrictReplica` it stepped."""
+    def step():
+        router.step()
+        for name, h in router.replica_handles().items():
+            if getattr(h, "fault", None) is not None:
+                raise RuntimeError(
+                    f"replica {name}: its engine's step failed") from h.fault
+    return step
+
+
+def drive_waves(submit, step, partial, waves, new, timeout=FLEET_WAVE_S):
+    """Submit each wave at once, then step until every request of it is
+    done; record each request's first-token time from its submission.
+    ``submit(prompt) -> id``, ``partial(id) -> RequestResult | None``.
+    A wave not done within ``timeout`` seconds raises.  Returns (results
+    by id, TTFT seconds by id, wall seconds)."""
+    results, ttft = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for wave in waves:
+        born = {}
+        for prompt in wave:
+            born[submit(prompt)] = (time.perf_counter(), len(prompt))
+        live = set(born)
+        deadline = time.monotonic() + timeout
+        while live:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"requests not done within {timeout} "
+                                     f"s: {sorted(live)}")
+            step()
+            now = time.perf_counter()
+            for rid in list(live):
+                res = partial(rid)
+                if res is None:
+                    continue
+                if rid not in ttft and len(res.tokens) > born[rid][1]:
+                    ttft[rid] = now - born[rid][0]
+                if res.status not in ("queued", "decoding"):
+                    results[rid] = res
+                    live.discard(rid)
+    torch.cuda.synchronize()
+    return results, ttft, time.perf_counter() - t0
+
+
+def pct_ms(values, q):
+    return float(np.percentile(np.asarray(list(values)), q)) * 1e3
+
+
+def router_partial(router):
+    """A routed request's live transcript: its terminal result once the
+    router holds it, else the serving replica's (``Router.stream``'s
+    read, one poll)."""
+    def partial(rid):
+        if router.poll(rid) is not None:
+            return router.take(rid)
+        req = router._requests.get(rid)
+        if req is None or req.replica is None:
+            return None
+        return router.replica_handles()[req.replica].partial(
+            req.replica_rid)
+    return partial
+
+
+def fleet_affinity(params, cfg):
+    """(a) Two InProcessReplica(PagedBatcher(lanes=8)) under
+    Router(policy="affinity"), 32 requests in 4 waves of 2 requests per
+    stem; the same waves through one PagedBatcher.  Every request ends
+    ok, tokens agree with the lone engine's (greedy_agreement), and
+    every request of a stem after its first goes to the replica that
+    holds the stem."""
+    heads, reqs = fleet_prompts(cfg, seed=31)
+    order = [reqs[s * FLEET_PER_STEM + w * 2 + j] for w in range(4)
+             for s in range(FLEET_STEMS) for j in range(2)]
+    waves = [[p for _, p in order[8 * w:8 * (w + 1)]] for w in range(4)]
+    stem_of = [s for s, _ in order]
+    buckets = (STEM_TAIL, FLEET_STEM + STEM_TAIL)
+    warm = fleet_engine(params, cfg, prompt_buckets=buckets)
+    drive_waves(lambda p: warm.enqueue(p, STEM_NEW), warm.step,
+                warm.partial, waves[:1], STEM_NEW)
+    del warm
+    # The lone engine.
+    lone = fleet_engine(params, cfg, prompt_buckets=buckets)
+    res_l, ttft_l, dt_l = drive_waves(
+        lambda p: lone.enqueue(p, STEM_NEW), lone.step, lone.partial,
+        waves, STEM_NEW)
+    lone_out = [np.asarray(res_l[r].tokens) for r in sorted(res_l)]
+    # The router.
+    engines = [fleet_engine(params, cfg, prompt_buckets=buckets)
+               for _ in range(2)]
+    router = dkt.serving.Router([StrictReplica(f"r{i}", e)
+                                 for i, e in enumerate(engines)],
+                                policy="affinity")
+    placed = []
+
+    def submit(prompt):
+        rid = router.enqueue(prompt, STEM_NEW)
+        placed.append(router._requests[rid].replica)
+        return rid
+
+    with dkt.obs.session() as sess:
+        res_r, ttft_r, dt_r = drive_waves(submit, strict_step(router),
+                                          router_partial(router), waves,
+                                          STEM_NEW)
+        hits = sess.registry.counter("router.affinity_hits").value()
+    if not all(r.ok for r in res_r.values()) or len(res_r) != 32:
+        raise AssertionError("fleet (a): a routed request did not end ok")
+    holder = {}
+    for s, rep in zip(stem_of, placed):
+        holder.setdefault(s, rep)
+        if rep != holder[s]:
+            raise AssertionError(f"fleet (a): stem {s} went to {rep} after "
+                                 f"it was resident on {holder[s]}")
+    routed_out = [np.asarray(res_r[r].tokens) for r in sorted(res_r)]
+    agree = [greedy_agreement(a, b, params, cfg, len(order[i][1]))
+             for i, (a, b) in enumerate(zip(routed_out, lone_out))]
+    if router.shutdown() != {} or any(e.allocator.stats()["used"]
+                                      for e in engines):
+        raise AssertionError("fleet (a): shutdown left work or blocks")
+    n_tok = 32 * STEM_NEW
+    return dict(
+        replicas=2, lanes=FLEET_LANES, stems=FLEET_STEMS, stem=FLEET_STEM,
+        tail=STEM_TAIL, new_tokens=STEM_NEW, requests=32, waves=4,
+        affinity_hits=hits, holders=holder,
+        requests_by_replica={n: placed.count(n) for n in ("r0", "r1")},
+        stem_hit_blocks=[e.stem_hit_blocks for e in engines],
+        lone_stem_hit_blocks=lone.stem_hit_blocks,
+        routed=dict(tokens_per_s=n_tok / dt_r,
+                    ttft_p50_ms=pct_ms(ttft_r.values(), 50),
+                    ttft_p99_ms=pct_ms(ttft_r.values(), 99)),
+        lone=dict(tokens_per_s=n_tok / dt_l,
+                  ttft_p50_ms=pct_ms(ttft_l.values(), 50),
+                  ttft_p99_ms=pct_ms(ttft_l.values(), 99)),
+        vs_lone_engine=agreement_summary(agree))
+
+
+class WireReplica(StrictReplica):
+    """An in-process decode replica whose imports cross the wire codec
+    (``encode_shipment`` -> bytes -> ``decode_shipment``), as an HTTP hop
+    would carry them, timing each leg."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.legs = []
+
+    def import_blocks(self, shipment):
+        from distkeras_tpu_torch.serving import (decode_shipment,
+                                                 encode_shipment)
+
+        t0 = time.perf_counter()
+        data = encode_shipment(shipment)
+        back = decode_shipment(data)
+        t1 = time.perf_counter()
+        out = self.engine.import_blocks(back)
+        torch.cuda.synchronize()
+        self.legs.append(dict(bytes=len(data), payload=shipment.nbytes,
+                              codec_ms=1e3 * (t1 - t0),
+                              import_ms=1e3 * (time.perf_counter() - t1)))
+        return out
+
+
+class TimedPrefill(StrictReplica):
+    """The prefill replica, timing each export (synchronous: the host
+    copy is complete when it returns)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.export_ms = []
+
+    def prefill_blocks(self, prompt):
+        t0 = time.perf_counter()
+        ship = super().prefill_blocks(prompt)
+        self.export_ms.append(1e3 * (time.perf_counter() - t0))
+        return ship
+
+
+def pinned_solo(params, cfg, heads, prompts, new):
+    """The disaggregated run's reference: one PagedBatcher(kv_int8=
+    "prefill") that first pins every stem (the same kernel at the same
+    shapes as the prefill replica's export), then serves the requests
+    one wave at a time.  A comparison: its launches are not counted."""
+    def run():
+        eng = fleet_engine(params, cfg, kv_int8="prefill")
+        for h in heads:
+            eng.pin_prefix(h)
+        res, _, _ = drive_waves(lambda p: eng.enqueue(p, new), eng.step,
+                                eng.partial, [prompts], new)
+        return [np.asarray(res[r].tokens) for r in sorted(res)]
+    return expect_fwd(run, cfg.n_layers * len(heads), "pinned solo",
+                      counted=False)
+
+
+def fleet_disagg(params, cfg, trace):
+    """(b) A role="prefill" and a role="decode" PagedBatcher(kv_int8=
+    "prefill") under one Router: each cold stem exported on the prefill
+    replica (the forward kernel), through the wire codec, imported on
+    the decode replica.  Tokens equal the pinned solo engine's exactly;
+    a second wave on the same stems ships nothing; a prefill replica
+    whose export raises falls back to the raw prompt (every request ok,
+    tokens equal a solo engine's cold admission); both allocators hold
+    zero used blocks after shutdown.  Returns (record, tokens)."""
+    heads, reqs = fleet_prompts(cfg, seed=32, per_stem=2)
+    first = [p for s, p in reqs[0::2]]
+    second = [p for s, p in reqs[1::2]]
+    pre_e = fleet_engine(params, cfg, kv_int8="prefill")
+    dec_e = fleet_engine(params, cfg, kv_int8="prefill")
+    pre = TimedPrefill("pre", pre_e, role="prefill")
+    dec = WireReplica("dec", dec_e, role="decode")
+    router = dkt.serving.Router([pre, dec])
+    router.refresh_residency()
+    with dkt.obs.session(trace_path=trace) as sess:
+        cold_ttft = {}
+        res1, ttft1, _ = drive_waves(
+            lambda p: router.enqueue(p, STEM_NEW), strict_step(router),
+            router_partial(router), [first], STEM_NEW)
+        shipped = count_series(sess, "router.disagg_requests")
+        res2, _, _ = drive_waves(
+            lambda p: router.enqueue(p, STEM_NEW), strict_step(router),
+            router_partial(router), [second], STEM_NEW)
+        counters = {n: count_series(sess, n) for n in (
+            "router.disagg_requests", "router.disagg_warm_skips",
+            "router.disagg_fallbacks", "serving.disagg.blocks_out",
+            "serving.disagg.blocks_in", "serving.disagg.adopt_hits",
+            "serving.disagg.bytes_out", "serving.disagg.bytes_in",
+            "router.transfer_bytes")}
+    launches = dict(attn.LAUNCHES)
+    want = cfg.n_layers * FLEET_STEMS
+    if launches["flash_fwd"] != want:
+        raise AssertionError(f"fleet (b): exports launched {launches}, "
+                             f"expected {want} forward launches")
+    if shipped != FLEET_STEMS or \
+            counters["router.disagg_requests"] != FLEET_STEMS:
+        raise AssertionError(f"fleet (b): the second wave shipped "
+                             f"({counters})")
+    got = ([np.asarray(res1[r].tokens) for r in sorted(res1)]
+           + [np.asarray(res2[r].tokens) for r in sorted(res2)])
+    ref = (pinned_solo(params, cfg, heads, first, STEM_NEW)
+           + pinned_solo(params, cfg, heads, second, STEM_NEW))
+    equal_outs(got, ref, "fleet (b): disaggregated vs pinned solo")
+    # The prefill replica dies mid-build: the raw prompt is routed.
+    fheads, freqs = fleet_prompts(cfg, seed=33, stems=2, per_stem=1)
+    fprompts = [p for _, p in freqs]
+
+    def boom(tokens):
+        raise RuntimeError("prefill replica died mid-build")
+
+    pre_e.export_blocks = boom
+    with dkt.obs.session() as sess:
+        res3, ttft3, _ = drive_waves(
+            lambda p: router.enqueue(p, STEM_NEW), strict_step(router),
+            router_partial(router), [fprompts], STEM_NEW)
+        fallbacks = count_series(sess, "router.disagg_fallbacks")
+    del pre_e.export_blocks
+    if fallbacks != len(fprompts) or not all(r.ok for r in res3.values()):
+        raise AssertionError(f"fleet (b): fallback {fallbacks}, "
+                             f"{[r.status for r in res3.values()]}")
+    fell_back = attn.LAUNCHES["flash_fwd"] - launches["flash_fwd"]
+    cold = fleet_engine(params, cfg, kv_int8="prefill")
+    cres, cttft, _ = expect_fwd(lambda: drive_waves(
+        lambda p: cold.enqueue(p, STEM_NEW), cold.step, cold.partial,
+        [fprompts], STEM_NEW), cfg.n_layers * len(fprompts),
+        "cold solo admissions", counted=False)
+    equal_outs([np.asarray(res3[r].tokens) for r in sorted(res3)],
+               [np.asarray(cres[r].tokens) for r in sorted(cres)],
+               "fleet (b): fallback vs cold solo")
+    if router.shutdown() != {}:
+        raise AssertionError("fleet (b): shutdown left results")
+    used = [e.allocator.stats()["used"] for e in (pre_e, dec_e)]
+    if any(used):
+        raise AssertionError(f"fleet (b): blocks in use after shutdown "
+                             f"{used}")
+    legs = dec.legs
+    rec = dict(
+        stems=FLEET_STEMS, stem=FLEET_STEM, new_tokens=STEM_NEW,
+        requests=len(first) + len(second), counters=counters,
+        fallback=dict(requests=len(fprompts), fallbacks=fallbacks,
+                      forward_launches=fell_back,
+                      tokens_equal_cold_solo=True),
+        tokens_equal_pinned_solo=True,
+        bytes_per_stem=[g["payload"] for g in legs],
+        wire_bytes_per_stem=[g["bytes"] for g in legs],
+        export_ms=pre.export_ms, codec_ms=[g["codec_ms"] for g in legs],
+        import_ms=[g["import_ms"] for g in legs],
+        first_token_ms_shipped=[1e3 * ttft1[r] for r in sorted(ttft1)],
+        first_token_ms_cold_local=[1e3 * cttft[r] for r in sorted(cttft)],
+        allocator_used_after_shutdown=used)
+    return rec, got, (heads, first + second), launches["flash_fwd"] \
+        + fell_back
+
+
+def count_series(sess, name):
+    doc = sess.registry.snapshot().get(name)
+    return sum(s["value"] for s in doc["series"]) if doc else 0.0
+
+
+def replica_main(spec_path):
+    """One replica process of fleet (c): an EngineEndpoint over a
+    PagedBatcher(kv_int8="prefill") on the card at the flagship width
+    (seed-0 weights), with a telemetry session federated under the
+    coordination directory.  Serves until SIGTERM, then prints its
+    kernel launches on one line."""
+    import signal
+    import threading
+
+    spec = json.load(open(spec_path))
+    os.environ["DKT_CLUSTER_DIR"] = spec["coord"]
+    os.environ["DKT_CLUSTER_HOST"] = str(spec["host"])
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    cfg = FLAGSHIP
+    params = dkt.params_from_numpy(numpy_params(cfg, seed=0), "cuda",
+                                   dtype=torch.bfloat16)
+    eng = fleet_engine(params, cfg, kv_int8="prefill")
+    # Warm every path the fleet drives before the address is published (a
+    # fresh process's first kernel loads and cuBLAS set-up would outlast
+    # the router's control-plane timeout): an export, an import, an
+    # admission on the imported stem, and a cold admission.
+    rng = np.random.default_rng(1000 + spec["host"])
+    warm = rng.integers(0, cfg.vocab_size, (2, FLEET_STEM + STEM_TAIL))
+    other = fleet_engine(params, cfg, kv_int8="prefill")
+    pin = eng.import_blocks(other.export_blocks(warm[0]))
+    del other
+    rids = [eng.enqueue(p, 4) for p in warm]
+    while any(eng.poll(r) is None for r in rids):
+        eng.step()
+    eng.unpin_prefix(pin["prefix_id"])
+    torch.cuda.synchronize()
+    zero_launches()
+    with dkt.obs.session(serve_port=0):
+        ep = dkt.serving.EngineEndpoint(eng, role=spec["role"])
+        ep.start(step=True)
+        try:
+            while not stop.wait(0.1):
+                pass
+        finally:
+            ep.stop()
+    print(json.dumps({"replica": spec["host"], "role": spec["role"],
+                      "launches": dict(attn.LAUNCHES)}), flush=True)
+    return 0
+
+
+def scrape_cluster(url):
+    """``/metrics/cluster``: {host: up} and the hosts that carry any
+    series besides cluster_scrape_up."""
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics/cluster",
+                                timeout=30) as resp:
+        text = resp.read().decode()
+    up, hosts = {}, set()
+    for line in text.splitlines():
+        m = re.match(r'^(\w+)\{(.*)\} (\S+)$', line)
+        if not m:
+            continue
+        host = re.search(r'host="(\d+)"', m.group(2))
+        if host is None:
+            continue
+        if m.group(1) == "cluster_scrape_up":
+            up[host.group(1)] = float(m.group(3))
+        else:
+            hosts.add(host.group(1))
+    return up, hosts
+
+
+def fleet_processes(cfg, disagg_tokens, disagg_prompts, tmp):
+    """(c) Three replica processes (``--replica SPEC``: one prefill, two
+    decode) on the card, found by discover_replicas; (b)'s traffic over
+    POST /prefill and POST /blocks (tokens equal (b)'s), then one decode
+    replica SIGKILLed mid-stream: every accepted request ends ok on the
+    survivor, none lost or finished twice, and the parent's
+    /metrics/cluster drops the dead host."""
+    import signal
+    import urllib.request
+
+    coord = os.path.join(tmp, "coord")
+    os.makedirs(coord)
+    roles = ["prefill", "decode", "decode"]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for host, role in enumerate(roles):
+            spec = os.path.join(tmp, f"replica{host}.json")
+            with open(spec, "w") as f:
+                json.dump({"coord": coord, "host": host, "role": role}, f)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--replica",
+                 spec], stdout=subprocess.PIPE,
+                stderr=open(os.path.join(tmp, f"replica{host}.err"), "w"),
+                text=True))
+        deadline = time.monotonic() + 300
+        while True:
+            found = dkt.serving.discover_replicas(coord, timeout=2.0)
+            if len(found) == 3 and all(r.healthy() for r in found):
+                break
+            for p in procs:
+                if p.poll() is not None:
+                    raise AssertionError(f"fleet (c): a replica exited "
+                                         f"with {p.returncode}")
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet (c): replicas did not come up")
+            time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        old = {k: os.environ.get(k) for k in ("DKT_CLUSTER_DIR",
+                                              "DKT_CLUSTER_HOST")}
+        os.environ["DKT_CLUSTER_DIR"] = coord
+        os.environ["DKT_CLUSTER_HOST"] = "3"
+        try:
+            with dkt.obs.session(serve_port=0) as sess:
+                rec = fleet_over_http(found, disagg_tokens, disagg_prompts,
+                                      procs, sess)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        rec["replicas_up_s"] = up_s
+        lines = []
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            out, _ = p.communicate(timeout=60)
+            lines += [ln for ln in out.splitlines() if ln.startswith("{")]
+        rec["replica_lines"] = [json.loads(ln) for ln in lines]
+        for ln in rec["replica_lines"]:
+            print(json.dumps({"phase": "fleet_replica", **ln}), flush=True)
+        return rec
+    except BaseException:
+        for host in range(len(procs)):
+            err = os.path.join(tmp, f"replica{host}.err")
+            if os.path.exists(err):
+                with open(err) as f:
+                    print(f"replica {host} stderr:", f.read()[-3000:],
+                          file=sys.stderr, flush=True)
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def fleet_over_http(found, disagg_tokens, disagg_prompts, procs, sess):
+    heads, prompts = disagg_prompts
+    url = sess.server.url
+    for r in found:
+        r.timeout = 5.0             # a killed replica refuses at once
+        r.transfer_timeout = 60.0
+    router = dkt.serving.Router(found, health_interval=0.2)
+    router.refresh_residency()
+    t0 = time.perf_counter()
+    rids = [router.enqueue(p, STEM_NEW) for p in prompts[:FLEET_STEMS]]
+    rids += [router.enqueue(p, STEM_NEW) for p in prompts[FLEET_STEMS:]]
+    results = pump_until(router, rids, 300)
+    dt = time.perf_counter() - t0
+    got = [np.asarray(results[r].tokens) for r in rids]
+    equal_outs(got, disagg_tokens, "fleet (c): HTTP replicas vs (b)")
+    up0, hosts0 = scrape_cluster(url)
+    if up0 != {"0": 1.0, "1": 1.0, "2": 1.0, "3": 1.0}:
+        raise AssertionError(f"fleet (c): cluster scrape {up0}")
+    # Kill one decode replica mid-stream.
+    kheads, kreqs = fleet_prompts(FLAGSHIP, seed=34, stems=2,
+                                  per_stem=FLEET_KILL_REQUESTS // 2)
+    krids = [router.enqueue(p, 2 * STEM_NEW) for _, p in kreqs]
+    on = {}
+    victim = None
+    deadline = time.monotonic() + 120
+    while victim is None:
+        router.pump()
+        for rid in krids:
+            req = router._requests.get(rid)
+            if req is None or req.replica in (None, "host0"):
+                continue
+            part = router.replica_handles()[req.replica].partial(
+                req.replica_rid)
+            if part is not None and len(part.tokens) > len(kreqs[0][1]):
+                victim = req.replica
+                break
+        if time.monotonic() > deadline:
+            raise AssertionError("fleet (c): no request started decoding")
+        time.sleep(0.01)
+    for rid in krids:
+        req = router._requests.get(rid)
+        if req is not None:
+            on[rid] = req.replica
+    vhost = int(victim.removeprefix("host"))
+    procs[vhost].kill()
+    procs[vhost].wait(timeout=30)
+    t_kill = time.perf_counter()
+    reroutes0 = count_series(sess, "router.reroutes")
+    kres = pump_until(router, krids, 300)
+    reroutes = count_series(sess, "router.reroutes") - reroutes0
+    statuses = [kres[r].status for r in krids]
+    if len(kres) != len(krids) or any(s != "ok" for s in statuses):
+        raise AssertionError(f"fleet (c): after the kill {statuses}")
+    if router.replicas_up() != sorted(n for n in ("host0", "host1",
+                                                  "host2") if n != victim):
+        raise AssertionError(f"fleet (c): up {router.replicas_up()}")
+    up1, hosts1 = scrape_cluster(url)
+    if up1.get(str(vhost)) != 0.0 or str(vhost) in hosts1:
+        raise AssertionError(f"fleet (c): the dead host stayed in "
+                             f"/metrics/cluster ({up1}, {hosts1})")
+    leftover = router.shutdown()
+    if leftover:
+        raise AssertionError(f"fleet (c): shutdown returned {leftover}")
+    return dict(
+        replicas=["prefill", "decode", "decode"], requests=len(rids),
+        tokens_equal_in_process=True,
+        tokens_per_s=len(rids) * STEM_NEW / dt,
+        killed=victim, on_victim=sum(1 for v in on.values()
+                                     if v == victim),
+        kill_requests=len(krids), reroutes=reroutes,
+        all_ok_after_kill=True, recovery_s=time.perf_counter() - t_kill,
+        cluster_up_before=up0, cluster_up_after=up1,
+        hosts_with_series_after=sorted(hosts1))
+
+
+def pump_until(router, rids, timeout):
+    deadline = time.monotonic() + timeout
+    out = {}
+    while len(out) < len(rids):
+        router.pump()
+        for rid in rids:
+            if rid not in out:
+                res = router.poll(rid)
+                if res is not None:
+                    out[rid] = router.take(rid)
+        if time.monotonic() > deadline:
+            raise AssertionError(f"requests did not finish: "
+                                 f"{sorted(set(rids) - set(out))}")
+        time.sleep(0.005)
+    return out
+
+
+def fleet_autoscale(params, cfg, trace_b):
+    """(d) One replica plus a WarmPool holding a second, warmed one,
+    under Autoscaler and obs.session(serve_port=0, slo_rules=router.
+    slo_rules(TTFT p99 rule)): a burst the single replica cannot serve
+    within the rule scales the fleet up (the pooled replica joins), then
+    idle scales it back down losslessly.  The allocator's reserved bytes
+    and device allocations are unchanged from the warm-up through the
+    joined replica's first requests.  Also renders (b)'s trace
+    waterfall with its block-transfer hop."""
+    import urllib.request
+
+    from distkeras_tpu_torch.obs.report import (render_waterfall,
+                                                request_waterfall)
+
+    rng = np.random.default_rng(35)
+    prompts = rng.integers(0, cfg.vocab_size, (256, 64)).astype(np.int32)
+    engines = [fleet_engine(params, cfg, max_queue=256) for _ in range(2)]
+    for e in engines:                     # warm both, as a pool holds them
+        run_engine(e, [e.submit(p, 8) for p in prompts[:FLEET_LANES]])
+    r0 = StrictReplica("r0", engines[0])
+    pool = dkt.serving.WarmPool([StrictReplica(
+        "w0", engines[1])])
+    router = dkt.serving.Router([r0])
+    rule = dkt.obs.SloRule("serving.ttft_s", percentile=0.99,
+                           threshold=0.5, window_s=30.0)
+    asc = dkt.serving.Autoscaler(router, pool, policy=dkt.serving.
+                                 AutoscalePolicy(
+                                     min_replicas=1, max_replicas=2,
+                                     up_threshold=1e9, up_after=1,
+                                     down_after=2, cooldown_ticks=0,
+                                     breach_ticks=1))
+    torch.cuda.synchronize()
+    mem0 = (torch.cuda.memory_reserved(),
+            torch.cuda.memory_stats()["num_device_alloc"])
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "autoscale.jsonl")
+        with dkt.obs.session(trace_path=trace, serve_port=0,
+                             slo_rules=router.slo_rules(rule),
+                             slo_tick_s=3600.0) as sess:
+            sess.slo.subscribe(asc.on_breach)
+            # The burst: 4 requests every 4 decode steps (one a step; a
+            # replica of 8 lanes serves 8 every 64), until the pooled
+            # replica has joined and taken 8 of them; then idle.
+            rids, placed = [], {}
+            scaled, down, scrape, ticks = None, None, None, []
+
+            def bursting():
+                on_w0 = list(placed.values()).count("w0")
+                return len(rids) < len(prompts) and (scaled is None
+                                                     or on_w0 < 8)
+
+            step = strict_step(router)
+            deadline = time.monotonic() + 3 * FLEET_WAVE_S
+            while bursting() or any(router.poll(r) is None for r in rids):
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"fleet (d): the burst not served within "
+                        f"{3 * FLEET_WAVE_S} s ({ticks})")
+                for p in (prompts[len(rids):len(rids) + 4]
+                          if bursting() else ()):
+                    rids.append(router.enqueue(p, 64))
+                    placed[rids[-1]] = router._requests[rids[-1]].replica
+                for _ in range(4):
+                    step()
+                sess.slo.tick()
+                rec = asc.tick()
+                ticks.append(rec["action"])
+                if rec["action"] == "up":
+                    scaled = rec
+                    with urllib.request.urlopen(sess.server.url
+                                                + "/metrics") as resp:
+                        scrape = resp.read().decode()
+                elif rec["action"] == "down":
+                    down = rec      # the burst's tail already went cold
+            results = [router.take(r) for r in rids]
+            torch.cuda.synchronize()
+            mem1 = (torch.cuda.memory_reserved(),
+                    torch.cuda.memory_stats()["num_device_alloc"])
+            for _ in range(6):           # idle
+                if down is not None:
+                    break
+                rec = asc.tick()
+                ticks.append(rec["action"])
+                if rec["action"] == "down":
+                    down = rec
+            breaches = sess.registry.counter("slo.breaches").value(
+                metric="serving.ttft_s", q="p99", replica="r0")
+        recs = dkt.obs.read_trace(trace)
+    events = {r["name"] for r in recs if r.get("kind") == "event"}
+    if scaled is None or scaled["replica"] != "w0" or \
+            scaled["reason"] != "breach" or "w0" not in placed.values():
+        raise AssertionError(f"fleet (d): no scale-up ({ticks})")
+    if down is None or pool.names() != (down["replica"],):
+        raise AssertionError(f"fleet (d): no lossless scale-down ({ticks})")
+    if not {"slo.breach", "autoscale.decision"} <= events:
+        raise AssertionError(f"fleet (d): trace events {sorted(events)}")
+    if not all(r.ok for r in results):
+        raise AssertionError("fleet (d): a request did not end ok")
+    samples = [ln for ln in (scrape or "").splitlines()
+               if ln and not ln.startswith("#")]
+    if not (samples and all(re.match(r"^[a-zA-Z_:][\w:]*(\{.*\})? \S+$", ln)
+                            for ln in samples)
+            and "slo_breaches" in scrape
+            and "autoscale_scale_ups" in scrape):
+        raise AssertionError("fleet (d): /metrics during the burst")
+    if mem1 != mem0:
+        raise AssertionError(f"fleet (d): the join changed the allocator's "
+                             f"(reserved, device allocs) {mem0} -> {mem1}")
+    # (b)'s waterfall: the request whose stem shipped.
+    brecs = dkt.obs.read_trace(trace_b)
+    hop = next(r for r in brecs if r.get("name") == "router.block_transfer")
+    wf = request_waterfall(brecs, hop["fields"]["request_id"])
+    text = render_waterfall(wf)
+    names = [s["name"] for s in wf["stages"]]
+    if not ({"router.prefill", "router.block_transfer",
+             "serving.finish"} <= set(names)
+            and "router.block_transfer" in text):
+        raise AssertionError(f"fleet (b) waterfall: {names}")
+    return dict(
+        requests=len(rids), prompt=64, new_tokens=64, rule=dict(
+            metric=rule.metric, percentile=rule.percentile,
+            threshold_s=rule.threshold, window_s=rule.window_s),
+        breaches=breaches, decisions=ticks, scale_up=scaled,
+        requests_by_replica={n: list(placed.values()).count(n)
+                             for n in ("r0", "w0")},
+        scale_down=down, pool_after=list(pool.names()),
+        allocator_constant_through_join=True, reserved_bytes=mem1[0],
+        device_allocs=mem1[1], waterfall_stages=names,
+        waterfall_hop={k: hop["fields"][k] for k in ("src", "dst",
+                                                     "bytes", "blocks")})
+
+
+def fleet_phase(np_params):
+    """Phase fleet: the serving fleet at the flagship serving width
+    (bf16, seed-0 weights, PagedBatcher(block=41)): (a) affinity
+    routing in process against one engine, (b) the disaggregated
+    prefill -> decode hop in process, (c) three replica processes over
+    HTTP with a SIGKILLed decode replica and the federated telemetry,
+    (d) SLO breaches driving the autoscaler.  Returns the forward
+    kernel's in-process launches (the prefill replica's exports and the
+    fallback's raw admissions)."""
+    t0 = time.perf_counter()
+    cfg = FLAGSHIP
+    params = dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16)
+    zero_launches()
+    rec = {"affinity": fleet_affinity(params, cfg)}
+    if attn.LAUNCHES["flash_fwd"]:
+        raise AssertionError(f"fleet (a) launched {attn.LAUNCHES}")
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp()
+    trace_b = os.path.join(tmp, "disagg.jsonl")
+    rec["disagg"], tokens, prompts, fwd = fleet_disagg(params, cfg, trace_b)
+    launches = {"flash_fwd": fwd, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    attn.LAUNCHES.update(launches)
+    torch.cuda.empty_cache()
+    rec["processes"] = fleet_processes(cfg, tokens, prompts, tmp)
+    torch.cuda.empty_cache()
+    rec["autoscale"] = fleet_autoscale(params, cfg, trace_b)
+    if dict(attn.LAUNCHES) != launches:
+        raise AssertionError(f"fleet: launches {attn.LAUNCHES}, expected "
+                             f"{launches}")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("fleet", config=dataclasses.asdict(cfg), block=PAGED_BLOCK,
+        launches=launches, seconds=time.perf_counter() - t0, **rec)
+    return launches
+
+
+def fleet_idle_share(params, cfg):
+    """The device's idle share over one wave of (a) (8 requests, 2 per
+    stem) through the router against the same wave on one engine, both
+    warm (a profiled window, run at the end of the script)."""
+    heads, reqs = fleet_prompts(cfg, seed=31)
+    wave = [p for i, (_, p) in enumerate(reqs) if i % FLEET_PER_STEM < 2]
+    buckets = (STEM_TAIL, FLEET_STEM + STEM_TAIL)
+    lone = fleet_engine(params, cfg, prompt_buckets=buckets)
+    engines = [fleet_engine(params, cfg, prompt_buckets=buckets)
+               for _ in range(2)]
+    router = dkt.serving.Router([StrictReplica(f"r{i}", e)
+                                 for i, e in enumerate(engines)])
+    lone_idle = profile_window("fleet_lone_wave", lambda: drive_waves(
+        lambda p: lone.enqueue(p, STEM_NEW), lone.step, lone.partial,
+        [wave], STEM_NEW))
+    routed_idle = profile_window("fleet_routed_wave", lambda: drive_waves(
+        lambda p: router.enqueue(p, STEM_NEW), strict_step(router),
+        router_partial(router), [wave], STEM_NEW))
+    router.shutdown()
+    return dict(idle_share_routed_wave=routed_idle,
+                idle_share_lone_wave=lone_idle)
+
+
+def leaf_ptrs(params):
+    return [t.data_ptr() for _, t in named_leaves(params)]
+
+
+def swap_checked(handle, swaps):
+    """Wrap a replica's swap_params: the swap must allocate nothing on
+    the device and move no leaf; its ms are recorded."""
+    inner = handle.swap_params
+
+    def swap(tree, version, allow_downgrade=False):
+        eng = handle.engine
+        torch.cuda.synchronize()
+        before = (torch.cuda.memory_reserved(),
+                  torch.cuda.memory_stats()["num_device_alloc"],
+                  leaf_ptrs(eng.params))
+        t0 = time.perf_counter()
+        out = inner(tree, version, allow_downgrade=allow_downgrade)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        after = (torch.cuda.memory_reserved(),
+                 torch.cuda.memory_stats()["num_device_alloc"],
+                 leaf_ptrs(eng.params))
+        if after != before:
+            raise AssertionError(f"swap to v{version} on {handle.name} "
+                                 "allocated or moved a tensor")
+        swaps.append(dict(replica=handle.name, version=version, ms=ms))
+        return out
+    handle.swap_params = swap
+
+
+def greedy_on(eng, prompts, new):
+    lanes = [eng.submit(p, new) for p in prompts]
+    return run_engine(eng, lanes, ())
+
+
+def weight_push_phase(np_params):
+    """Phase weight_push: (e) an LMTrainer at the serving config in f32
+    (the training kernels) takes 2 rounds with attach_publisher(
+    SnapshotPublisher(dir), every=1); each publish is polled by a
+    CanaryController over two ContinuousBatcher(hot_swap=True) replicas
+    under a Router (bf16 compute on the f32 weights the trainer
+    publishes).  Each version goes to the canary (its drift printed) and
+    is promoted; every replica's greedy tokens then equal a fresh
+    engine's on that version; a request in flight across the second swap
+    ends ok with its pre-swap tokens the old version's; a corrupted
+    bucket aborts the poll (SnapshotCorrupt, never adopted); a candidate
+    with a scaled embedding trips the drift gate and rolls back; every
+    swap allocates nothing and moves no leaf; a swap forced to fail
+    leaves the weights bit-identical.  Readings: swap ms, publish / load
+    seconds raw and int8, the int8 coding's max error against its
+    bound.  Returns the training kernels' launches."""
+    from distkeras_tpu_torch.parallel.tree import tree_leaves, tree_map
+    from distkeras_tpu_torch.serving import (CanaryController, Router,
+                                             SnapshotCorrupt,
+                                             SnapshotPublisher,
+                                             SnapshotReader)
+
+    t0 = time.perf_counter()
+    cfg = FLAGSHIP
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tmp = tempfile.mkdtemp()
+    root = os.path.join(tmp, "snapshots")
+    # Both replicas are built on ONE tree, as a deployment builds them:
+    # each hot-swap engine serves its own copy, so a canary's swap must
+    # leave the other replica and this tree alone (checked at the end).
+    served = dkt.params_from_numpy(np_params, "cuda")
+    engines = [dkt.ContinuousBatcher(served, cfg, lanes=8, hot_swap=True)
+               for _ in range(2)]
+    handles = [StrictReplica(f"s{i}", e)
+               for i, e in enumerate(engines)]
+    swaps = []
+    for h in handles:
+        swap_checked(h, swaps)
+    router = Router(handles)
+    template = dkt.params_from_numpy(np_params, "cuda")
+    reader = SnapshotReader(root)
+    ctl = CanaryController(router, reader, cfg, template, canary=1,
+                           max_drift=PUSH_MAX_DRIFT)
+    prompts = np.random.default_rng(36).integers(
+        0, cfg.vocab_size, (PUSH_PROMPTS, 32)).astype(np.int32)
+    rollouts, inflight, loaded = [], {}, {}
+
+    def check_version(version):
+        """Every replica against a fresh engine on that version's
+        weights (loaded by a reader of its own)."""
+        if version not in loaded:
+            loaded[version] = SnapshotReader(root).load(version, template)
+        fresh = dkt.ContinuousBatcher(loaded[version], cfg, lanes=8)
+        ref = greedy_on(fresh, prompts, 16)
+        for e in engines:
+            equal_outs(greedy_on(e, prompts, 16), ref,
+                       f"weight_push: v{version} vs a fresh engine")
+
+    class Polled(SnapshotPublisher):
+        """The trainer's publisher; each publish is polled by the canary
+        controller before the next round."""
+
+        def publish(self, tree, version):
+            t1 = time.perf_counter()
+            out = super().publish(tree, version)
+            pub_s = time.perf_counter() - t1
+            if version == 2:
+                # A request in flight across this swap.
+                old = [np.asarray(greedy_on(dkt.ContinuousBatcher(
+                    loaded[1], cfg, lanes=8), prompts[:1], 24)[0])]
+                rid = engines[0].enqueue(prompts[0], 24)
+                for _ in range(6):
+                    engines[0].step()
+                head = list(engines[0].partial(rid).tokens)
+                inflight.update(rid=rid, head=head, old=old[0])
+            t2 = time.perf_counter()
+            rec = ctl.poll()
+            rec["poll_s"] = time.perf_counter() - t2
+            rec["publish_s"] = pub_s
+            rollouts.append(rec)
+            if rec["action"] != "promote":
+                raise AssertionError(f"weight_push: v{version} {rec}")
+            check_version(version)
+            return out
+
+    rows = np.random.default_rng(37).integers(
+        0, cfg.vocab_size, (16, TRAIN_SHAPE[1] + 1)).astype(np.int32)
+    trainer = dkt.LMTrainer(cfg32, optimizer="adamw", learning_rate=3e-4,
+                            batch_size=8)
+    trainer.attach_publisher(Polled(root), every=1)
+    zero_launches()
+    trained = trainer.train(rows, params=dkt.params_from_numpy(np_params,
+                                                               "cuda"))
+    launches = dict(attn.LAUNCHES)
+    expect_launches(launches, cfg.n_layers * 2, "weight_push trainer")
+    # The in-flight request ends ok, its pre-swap tokens the old
+    # version's.
+    while engines[0].poll(inflight["rid"]) is None:
+        engines[0].step()
+    res = engines[0].take(inflight["rid"])
+    n = len(inflight["head"])
+    if not res.ok or list(res.tokens[:n]) != inflight["head"] or \
+            not np.array_equal(inflight["old"][:n], inflight["head"]):
+        raise AssertionError("weight_push: the in-flight request's "
+                             "pre-swap tokens are not the old version's")
+    if [r["version"] for r in rollouts] != [1, 2] or any(
+            e.param_version != 2 for e in engines):
+        raise AssertionError(f"weight_push: rollouts {rollouts}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(loaded[2]), tree_leaves(trained))):
+        raise AssertionError("weight_push: the fleet's v2 is not the "
+                             "trained weights")
+    # A corrupted bucket: never adopted.
+    pub = SnapshotPublisher(root)
+    pub.publish(trained, 3)
+    vdir = os.path.join(root, "v00000003")
+    with open(os.path.join(vdir, "MANIFEST.json")) as f:
+        first = json.load(f)["buckets"][0]["file"]
+    raw = np.load(os.path.join(vdir, first))["raw"].copy()
+    raw[0] ^= 0xFF
+    np.savez(os.path.join(vdir, first[:-4]), raw=raw)
+    abort = ctl.poll()
+    try:
+        SnapshotReader(root).load(3, template)
+        raise AssertionError("weight_push: a corrupted bucket loaded")
+    except SnapshotCorrupt:
+        pass
+    if abort["action"] != "abort" or any(e.param_version != 2
+                                         for e in engines):
+        raise AssertionError(f"weight_push: corrupted v3 {abort}")
+    # A candidate past the drift gate rolls back.
+    ctl.max_drift = GATE_MARGIN * max(r["drift"] for r in rollouts)
+    far = dict(trained, tok_emb=trained["tok_emb"] * GATE_SCALE)
+    pub.publish(far, 4)
+    back = ctl.poll()
+    if back["action"] != "rollback" or any(e.param_version != 2
+                                           for e in engines):
+        raise AssertionError(f"weight_push: v4 {back}")
+    check_version(2)
+    # A swap forced to fail leaves the weights bit-identical.
+    before = [t.clone() for _, t in named_leaves(engines[1].params)]
+    wrong = tree_map(lambda t: t, trained)
+    wrong["ln_f_scale"] = wrong["ln_f_scale"].double()
+    try:
+        engines[1].swap_params(wrong, 9)
+        raise AssertionError("weight_push: a mistyped swap was taken")
+    except ValueError:
+        pass
+    if not all(torch.equal(a, b) for a, (_, b) in zip(
+            before, named_leaves(engines[1].params))):
+        raise AssertionError("weight_push: a refused swap changed weights")
+    del before
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(served),
+                                                 tree_leaves(template))):
+        raise AssertionError("weight_push: a swap wrote the tree the "
+                             "engines were built on")
+    del served
+    # Readings: publish / load at the snapshot's GB, raw and int8.
+    codings = {}
+    gb = sum(t.numel() * t.element_size()
+             for t in tree_leaves(trained)) / 2**30
+    for coding in (None, "int8"):
+        croot = os.path.join(tmp, f"coding_{coding}")
+        cpub = SnapshotPublisher(croot, coding=coding)
+        t1 = time.perf_counter()
+        cpub.publish(trained, 1)
+        pub_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        got = SnapshotReader(croot).load(1, template)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        with torch.no_grad():
+            errs = [float((a - b).abs().max()) for a, b in zip(
+                tree_leaves(got), tree_leaves(trained))]
+        # The codec's bound, leaf by leaf: half a step of the scale of
+        # the bucket that holds the leaf (one symmetric scale per bucket:
+        # its max |x| / 127), read from the snapshot itself; raw is exact.
+        scales = []
+        vdir = os.path.join(croot, "v00000001")
+        with open(os.path.join(vdir, "MANIFEST.json")) as f:
+            for entry in json.load(f)["buckets"]:
+                scales.append(float(np.load(os.path.join(
+                    vdir, entry["file"]))["scale"].max())
+                    if entry["coding"] == "int8" else 0.0)
+        bounds = [scales[slot.bucket] / 2 for slot in cpub._layout.slots]
+        over = [(e, b) for e, b in zip(errs, bounds) if e > b * (1 + 1e-4)]
+        if over:
+            raise AssertionError(f"weight_push: {coding} coding error past "
+                                 f"its bucket's bound: {over[:4]}")
+        codings[coding or "raw"] = dict(
+            publish_s=pub_s, load_s=load_s, max_abs_err=max(errs),
+            bound=max(bounds), buckets=len(scales),
+            worst_err_over_bound=max((e / b for e, b in zip(errs, bounds)
+                                      if b), default=0.0))
+        del got
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    router.shutdown()
+    log("weight_push", config=dataclasses.asdict(cfg), trainer_dtype="float32",
+        fleet_compute_dtype=cfg.dtype, rounds=2, batch=8,
+        seq=TRAIN_SHAPE[1], launches=launches, snapshot_gb=gb,
+        rollouts=[{k: r.get(k) for k in ("action", "version", "drift",
+                                         "canaries", "promoted", "poll_s",
+                                         "publish_s")} for r in rollouts],
+        corrupted=dict(action=abort["action"]),
+        drift_gate=dict(max_drift=ctl.max_drift, action=back["action"],
+                        drift=back["drift"], reason=back.get("reason"),
+                        embedding_scale=GATE_SCALE),
+        inflight=dict(pre_swap_tokens=n - len(prompts[0]),
+                      ok=True, pre_swap_equal_old_version=True),
+        swaps=swaps, swap_ms=[s["ms"] for s in swaps],
+        swaps_allocate_nothing=True, refused_swap_bit_identical=True,
+        shared_tree_unchanged=True,
+        codings=codings, seconds=time.perf_counter() - t0)
+    return launches
+
 
 def main(profile=False):
     if not torch.cuda.is_available():
@@ -3885,6 +4955,13 @@ def main(profile=False):
     torch.cuda.empty_cache()
     beam_launches = beam_phase(np_params)
 
+    # 5d. The serving fleet (router, disaggregation, replica processes,
+    # autoscaling) and the train -> serve weight push.
+    torch.cuda.empty_cache()
+    fleet_launches = fleet_phase(np_params)
+    torch.cuda.empty_cache()
+    push_launches = weight_push_phase(np_params)
+
     # 6. The training path at full width, and its parity.
     train_np = numpy_params(FLAGSHIP_TRAIN, seed=1)
     torch.cuda.empty_cache()
@@ -3929,6 +5006,7 @@ def main(profile=False):
                                                              FLAGSHIP))
     log("paged_idle", **paged_idle_share(bf16, FLAGSHIP))
     log("beam_idle", idle_share_16_steps=beam_idle_share(bf16, FLAGSHIP))
+    log("fleet_idle", **fleet_idle_share(bf16, FLAGSHIP))
     del bf16
     if profile:
         torch.cuda.empty_cache()
@@ -3957,7 +5035,7 @@ def main(profile=False):
 
     surface = (moe_train_launches, lora_launches, moe_serve_launches,
                int8_launches, dp_launches, resume_launches, paged_launches,
-               beam_launches)
+               beam_launches, fleet_launches, push_launches)
 
     def launch_counts(name, *paths):
         paths = paths + surface
@@ -3965,7 +5043,7 @@ def main(profile=False):
                 "launches_by_path": {k: p[name] for k, p in zip(
                     ("serve", "engine", "train", "long_train", "moe_train",
                      "lora_train", "moe_serve", "int8_serve", "dp",
-                     "resume", "paged", "beam"),
+                     "resume", "paged", "beam", "fleet", "weight_push"),
                     paths)}}
 
     print(json.dumps({"kernels": [{
@@ -4020,4 +5098,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--cluster-rank"]:
         sys.exit(cluster_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--replica"]:
+        sys.exit(replica_main(sys.argv[2]))
     sys.exit(main(profile="--profile" in sys.argv[1:]))

@@ -31,6 +31,7 @@ record through the metrics registry, not the trace).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import threading
@@ -93,7 +94,9 @@ class EventTrace:
         # record); span stacks are thread-local, not locked.
         self._lock = TracedLock("obs.trace")
         self._tls = threading.local()
-        self._next_id = 0
+        # Span ids; ``next`` on a count is atomic, so no lock is taken
+        # to open a span.
+        self._ids = itertools.count(1)
         self.host = _host_index()
         self.pid = os.getpid()
         self._write({"kind": "meta", "run": self.run_id,
@@ -110,11 +113,6 @@ class EventTrace:
                 return
             self._f.write(line + "\n")
 
-    def _alloc_id(self) -> int:
-        with self._lock:
-            self._next_id += 1
-            return self._next_id
-
     def _stack(self) -> list:
         st = getattr(self._tls, "stack", None)
         if st is None:
@@ -123,31 +121,51 @@ class EventTrace:
 
     # -------------------------------------------------------------- API
 
+    def current_span(self) -> int | None:
+        """The id of this thread's innermost open span (None at top
+        level)."""
+        st = self._stack()
+        return st[-1].id if st else None
+
     def event(self, name: str, **fields) -> None:
         """Record a point event now."""
+        self.write_event(name, time.perf_counter(), self.current_span(),
+                         fields)
+
+    def write_event(self, name: str, t: float, span: int | None,
+                    fields: dict) -> None:
+        """Write a point event stamped ``t`` inside span ``span`` (an
+        event taken earlier and written later keeps its own time)."""
+        self._write({"kind": "event", "name": name, "t": t,
+                     "span": span, "fields": fields})
+
+    def open_span(self, name: str, fields: dict) -> Span:
+        """Start a span on this thread's stack; :meth:`close_span` ends
+        it.  Neither writes: :meth:`span` writes the record they make."""
         st = self._stack()
-        self._write({"kind": "event", "name": name,
-                     "t": time.perf_counter(),
-                     "span": st[-1].id if st else None,
-                     "fields": fields})
+        sp = Span(name=name, id=next(self._ids),
+                  parent=st[-1].id if st else None, depth=len(st),
+                  t0=time.perf_counter(), fields=fields)
+        st.append(sp)
+        return sp
+
+    def close_span(self, sp: Span) -> dict:
+        """Pop ``sp`` (this thread's innermost span); its record."""
+        self._stack().pop()
+        return {"kind": "span", "name": sp.name, "t0": sp.t0,
+                "dur": time.perf_counter() - sp.t0, "id": sp.id,
+                "parent": sp.parent, "depth": sp.depth,
+                "fields": sp.fields}
 
     @contextlib.contextmanager
     def span(self, name: str, **fields):
         """Record a closed interval around the block; nests per
         thread.  The record is written at exit (one line per span)."""
-        st = self._stack()
-        parent = st[-1].id if st else None
-        sp = Span(name=name, id=self._alloc_id(), parent=parent,
-                  depth=len(st), t0=time.perf_counter(), fields=fields)
-        st.append(sp)
+        sp = self.open_span(name, fields)
         try:
             yield sp
         finally:
-            st.pop()
-            self._write({"kind": "span", "name": name, "t0": sp.t0,
-                         "dur": time.perf_counter() - sp.t0,
-                         "id": sp.id, "parent": sp.parent,
-                         "depth": sp.depth, "fields": sp.fields})
+            self._write(self.close_span(sp))
 
     def metrics(self, snapshot: dict) -> None:
         """Append a full metrics-registry snapshot record."""

@@ -207,7 +207,7 @@ class _AdmissionMixin:
         sustained overflow steps the lane tier up instead of raising
         (see the ContinuousBatcher docstring).
         """
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             self._check_open()
             prompt = self._validate_request_args(prompt, max_new_tokens)
             self._validate_budget(prompt.size, max_new_tokens,
@@ -345,7 +345,7 @@ class _AdmissionMixin:
         requests whose deadline expired are dropped with a structured
         timeout — they never occupy a lane.  Runs automatically at the
         start of every ``step()``; returns the admitted request ids."""
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             return self._pump_locked()
 
     def _pump_locked(self) -> list[int]:
@@ -442,7 +442,7 @@ class _AdmissionMixin:
         concurrent step's emit — the one rule the streaming relay
         (``/stream``, :meth:`Router.stream`) leans on.
         """
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             res = self._completed.get(request_id)
             if res is not None:
                 return res
@@ -485,7 +485,7 @@ class _AdmissionMixin:
         passed its closed check finishes its insert first (and will be
         drained), and every enqueue after this returns raises
         EngineClosed — never QueueFull (EngineClosed wins)."""
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             self._closed = True
 
     def shutdown(self, max_steps: int | None = None) -> dict:

@@ -49,7 +49,7 @@ class _ElasticMixin:
         admission lock: the resize compacts ``_lane_state``."""
         if self.lane_tiers is None:
             return
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             i = self.lane_tiers.index(self.lanes)
             if i == 0:
                 return

@@ -22,6 +22,7 @@ from distkeras_tpu_torch import obs
 from distkeras_tpu_torch.models.generate import _decode_chunk
 from distkeras_tpu_torch.models.quant import QTensor
 from distkeras_tpu_torch.models.transformer import named_leaves
+from distkeras_tpu_torch.parallel.tree import tree_flatten, tree_unflatten
 from distkeras_tpu_torch.serving.admission import _AdmissionMixin
 from distkeras_tpu_torch.serving.elastic import _ElasticMixin
 
@@ -48,6 +49,34 @@ class _Lane:
     # Engine-clock time of the lane's previous emission (TTFT/TPOT
     # telemetry; None until the first token lands).
     last_emit: float | None = None
+
+
+def _tensor_leaves(tree):
+    """``(tensors, spec)``: a param tree's leaves in JAX's order, an int8
+    :class:`QTensor` contributing its values and then its scales."""
+    leaves, spec = tree_flatten(tree)
+    out = []
+    for x in leaves:
+        out += [x.q, x.s] if isinstance(x, QTensor) else [x]
+    return out, spec
+
+
+def _own_params(tree):
+    """A copy of a param tree that shares no storage with it, where it
+    lives.  A ``hot_swap`` engine serves its own copy: :meth:`_LaneEngine.
+    swap_params` writes into the live leaves, so engines built on one
+    tree (and the caller's tree) must not alias them."""
+    leaves, spec = tree_flatten(tree)
+    return tree_unflatten(spec, [
+        QTensor(x.q.clone(), x.s.clone()) if isinstance(x, QTensor)
+        else x.clone() if isinstance(x, torch.Tensor) else x
+        for x in leaves])
+
+
+def _host_leaf(x) -> torch.Tensor:
+    """A pushed leaf as a tensor: torch tensors as they are, anything
+    else (numpy) copied into a host tensor."""
+    return x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
 
 
 def _lane_view(cache, lane: int):
@@ -128,6 +157,11 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
 
     # Engines without a pool leave this None.
     _prefix_pool = None
+    # Live weight push: engines built with ``hot_swap=True`` take
+    # :meth:`swap_params`.  ``param_version`` is 0 until the first swap;
+    # every engine carries it (the router's fleet snapshot reads it).
+    _hot_swap = False
+    param_version = 0
 
     def free_lanes(self):
         return [i for i, s in enumerate(self._lane_state) if s is None]
@@ -178,7 +212,7 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
         resident paged stem hashes (the paged engine fills them) and the
         live load signals.  Host counters and id lists only (no device
         work), JSON-safe."""
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             return {
                 "engine": type(self).__name__,
                 "lanes": self.lanes,
@@ -189,8 +223,65 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
                 "prefix_ids": (self._prefix_pool.ids()
                                if self._prefix_pool is not None else []),
                 "stem_hashes": [],
-                "param_version": 0,
+                "param_version": self.param_version,
             }
+
+    def swap_params(self, new_params, version: int,
+                    allow_downgrade: bool = False) -> int:
+        """Replace the engine's weights BETWEEN steps, in place.
+
+        Every new leaf is copied into the live leaf tensor, so the swap
+        allocates nothing on the device and no tensor changes address.
+        The live leaves are the engine's own (``hot_swap=True`` copies
+        the tree it was built on, once, at construction), so a swap
+        changes no other engine and not the caller's tree
+        (the admission and decode paths hold the same tensors and read
+        the new values; a captured decode step stays valid).  In-flight
+        requests continue on the new weights over their existing K/V:
+        tokens emitted under version N are functions of version N.
+
+        ``version`` must be strictly greater than ``param_version``
+        unless ``allow_downgrade=True`` (the canary rollback).  The tree
+        is validated leaf for leaf (structure, shape, dtype) and every
+        leaf is staged as a tensor before the first copy, so a refused
+        swap leaves the engine on its old weights bit for bit.  Returns
+        the new ``param_version``."""
+        if not self._hot_swap:
+            raise ValueError(
+                "engine was built without hot_swap=True: rebuild with "
+                "hot_swap=True for live weight push")
+        version = int(version)
+        with obs.held(self._admission_lock):
+            if version <= self.param_version and not allow_downgrade:
+                raise ValueError(
+                    f"swap_params(version={version}) <= live version "
+                    f"{self.param_version}: versions are monotone "
+                    "(rollback passes allow_downgrade=True)")
+            old_leaves, old_spec = _tensor_leaves(self.params)
+            new_leaves, new_spec = _tensor_leaves(new_params)
+            if old_spec != new_spec or len(old_leaves) != len(new_leaves):
+                raise ValueError(
+                    "swap_params: param tree structure changed — a push "
+                    "must carry the exact geometry the engine serves")
+            staged = []
+            for i, (o, nw) in enumerate(zip(old_leaves, new_leaves)):
+                t = _host_leaf(nw)
+                if tuple(t.shape) != tuple(o.shape) or t.dtype != o.dtype:
+                    raise ValueError(
+                        f"swap_params: leaf {i} is [{tuple(t.shape)} "
+                        f"{t.dtype}], the engine serves [{tuple(o.shape)} "
+                        f"{o.dtype}]")
+                staged.append(t)
+            with torch.no_grad():
+                for o, t in zip(old_leaves, staged):
+                    if t.data_ptr() != o.data_ptr():
+                        o.copy_(t)
+            old = self.param_version
+            self.param_version = version
+            obs.count("serving.param_swaps")
+            obs.event("serving.param_swap", version=version,
+                      from_version=old, engine=type(self).__name__)
+            return version
 
     def memory_footprint(self) -> dict:
         """Param and KV bytes, read from the live tensors (one device,

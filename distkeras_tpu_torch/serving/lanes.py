@@ -27,6 +27,8 @@ the sampling streams without reading the device.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -43,9 +45,15 @@ from distkeras_tpu_torch.resilience import chaos
 from distkeras_tpu_torch.serving.elastic import _ElasticLanesMixin
 from distkeras_tpu_torch.serving.engine import (_Lane, _LaneEngine,
                                                 _make_lane_admit,
-                                                _make_lane_reseed)
+                                                _make_lane_reseed,
+                                                _own_params)
 from distkeras_tpu_torch.serving.prefix import _spec
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
+
+# Below this many lanes (at the largest tier) a kv_int8 cache earns an
+# advisory at construction: decode is weight-bound there, and on the
+# H100 the int8 cache's decode was measured no faster than bf16's.
+KV_INT8_LANE_ADVISORY = 16
 
 
 class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
@@ -106,9 +114,16 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
     :class:`~distkeras_tpu_torch.serving.PagedBatcher` admission mode
     and is refused here.
 
-    Not ported yet: ``plan=`` / ``mesh=`` (ROADMAP A7b) and ``hot_swap``
-    (A10's fleet half); each raises naming its item.  Runs on ``device`` (the card
-    unless ``device="cpu"``), where the params must already live.
+    ``hot_swap=True``: live weight push through :meth:`swap_params`
+    (copied into the live weight tensors in place; ``param_version``
+    counts the pushes).  The engine then serves its own copy of
+    ``params``, made once here, so engines built on one tree swap
+    independently and the caller's tree never changes.  Refused with ``prompt_cache=`` / ``prefix_pool=``:
+    their K/V was computed under the weights they were prefilled with.
+
+    Not ported yet: ``plan=`` / ``mesh=`` (ROADMAP A7b), which raises
+    naming its item.  Runs on ``device`` (the card unless
+    ``device="cpu"``), where the params must already live.
     """
 
     def __init__(self, params, cfg: TransformerConfig, lanes: int = 8,
@@ -125,8 +140,6 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
                  device=None):
         if plan is not None or mesh is not None:
             raise _not_ported("pod-sharded serving (plan= / mesh=)", "A7b")
-        if hot_swap:
-            raise _not_ported("hot_swap", "A10")
         if not isinstance(kv_int8, bool):
             raise ValueError(
                 f"kv_int8 must be a bool here (got {kv_int8!r}); "
@@ -190,6 +203,15 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
             raise ValueError(
                 f"shared prefix length {prompt_cache[1]} must leave "
                 f"room under max_len={cfg.max_len}")
+        self._hot_swap = bool(hot_swap)
+        if self._hot_swap and (prompt_cache is not None
+                               or prefix_pool is not None):
+            raise ValueError(
+                "hot_swap=True does not compose with "
+                "prompt_cache=/prefix_pool=: prefix K/V is baked from "
+                "the params it was prefilled with, so a weight swap "
+                "would silently mix param versions mid-sequence — "
+                "rebuild the prefix under the new version instead")
         if (temperature <= 0
                 and (top_k
                      or (top_p is not None and top_p < 1.0)
@@ -215,10 +237,21 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
             raise ValueError(
                 f"eos_token {eos_token} outside vocab [0, "
                 f"{cfg.vocab_size})")
-        self.params = params
+        # A hot-swap engine serves its own copy (``_own_params``).
+        self.params = _own_params(params) if self._hot_swap else params
         self.cfg = cfg
         self.lanes = lanes
         self.kv_int8 = kv_int8
+        top = max(_tiers or (lanes,))
+        if kv_int8 and top < KV_INT8_LANE_ADVISORY:
+            msg = (f"kv_int8=True with {top} lanes: below "
+                   f"~{KV_INT8_LANE_ADVISORY} lanes decode is "
+                   "weight-bound, so the int8 cache's byte saving cannot "
+                   "pay for the dequant (on the H100 its decode was "
+                   "measured no faster than bf16's)")
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+            obs.event("serving.advisory", kind="kv_int8_small_lanes",
+                      lanes=top, detail=msg)
         # Shared prefix: admission seeds the lane from it instead of
         # zeros, and every position shifts by its length.
         self._off = 0
@@ -522,7 +555,7 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
         prompt longer than the chunk returns its lane PARKED: the other
         chunks run one per ``step()``.  Elastic engines admit through
         :meth:`enqueue` only.  Runs under the engine lock."""
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             return self._submit_locked(prompt, max_new_tokens, seed,
                                        temperature, top_p, min_p,
                                        eos_token, ttl, deadline, prefix_id)
@@ -665,7 +698,7 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
                 f"elastic engines run declared decode windows only; "
                 f"step({n}) is not in step_windows={self._step_windows}"
                 " — declare it at construction")
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             self.pump()
             # Tier hysteresis BEFORE the idle early-out: an idle
             # elastic engine must still step its lane count back down.
@@ -724,4 +757,4 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
         return cur, self._advance(pos), self._advance(hpos)
 
 
-__all__ = ["ContinuousBatcher"]
+__all__ = ["ContinuousBatcher", "KV_INT8_LANE_ADVISORY"]

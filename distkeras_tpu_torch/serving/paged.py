@@ -63,11 +63,15 @@ from distkeras_tpu_torch.models.generate import (_decode_chunk, _not_ported,
                                                  init_cache, prefill)
 from distkeras_tpu_torch.models.quant import is_quantized
 from distkeras_tpu_torch.models.transformer import TransformerConfig
+from distkeras_tpu_torch.serving.disagg import (BlockShipment,
+                                                leaf_dtype_names)
 from distkeras_tpu_torch.serving.engine import _Lane
 from distkeras_tpu_torch.serving.lanes import ContinuousBatcher
 from distkeras_tpu_torch.serving.prefix import PinnedStems
-from distkeras_tpu_torch.serving.residency import chain_hash
+from distkeras_tpu_torch.serving.residency import chain_hash, stem_hashes
 from distkeras_tpu_torch.utils.locks import TracedRLock
+from distkeras_tpu_torch.utils.serialization import (dtype_name, from_words,
+                                                     host_words)
 
 # Physical block 0 is never handed out: unallocated page-table entries
 # read it (masked anyway) and redirected pad/clamp writes land in it.
@@ -239,10 +243,12 @@ class PagedBatcher(ContinuousBatcher):
 
     Not supported: ``attention_window`` (a ring slot has no stable block
     identity), ``prompt_cache=`` / ``prefix_pool=`` (pinned stems subsume
-    them).  Not ported yet: ``plan=`` / ``mesh=`` (ROADMAP A7b),
-    ``export_blocks`` / ``import_blocks`` (A10's fleet half) and
-    ``traced_for_analysis`` (A11).  Runs on ``device`` (the card unless
-    ``device="cpu"``), where the params must already live.
+    them).  :meth:`export_blocks` / :meth:`import_blocks`: the two halves
+    of disaggregated serving (a stem's blocks read off one slab, shipped,
+    and spliced into another).  Not ported yet: ``plan=`` / ``mesh=``
+    (ROADMAP A7b) and ``traced_for_analysis`` (A11).  Runs on ``device``
+    (the card unless ``device="cpu"``), where the params must already
+    live.
     """
 
     def __init__(self, params, cfg: TransformerConfig, lanes: int = 8,
@@ -646,7 +652,7 @@ class PagedBatcher(ContinuousBatcher):
                 "engines: a tier resize compacts lane ids, so the lane id "
                 "fork returns could silently dangle — use a fixed lanes= "
                 "engine to fork")
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             self._check_open()
             st = self._lane_state[lane]
             if st is None:
@@ -734,7 +740,7 @@ class PagedBatcher(ContinuousBatcher):
         block multiple (a partial tail block is mutable, so it cannot be
         shared).  Returns the ``prefix_id`` for :meth:`unpin_prefix`;
         raises ``RuntimeError`` when the allocator cannot hold the run."""
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             self._check_open()
             tokens = np.asarray(tokens, np.int64).reshape(-1)
             B = self.block
@@ -791,7 +797,7 @@ class PagedBatcher(ContinuousBatcher):
         """Release a pinned prefix's block references.  Lanes sharing
         the blocks keep theirs; the blocks stay hash-resident until the
         free list recycles them."""
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             for bid in self._stems.pop(prefix_id):
                 self._alloc.free(bid)
             self._obs_blocks()
@@ -816,11 +822,137 @@ class PagedBatcher(ContinuousBatcher):
     def allocator(self) -> BlockAllocator:
         return self._alloc
 
-    def export_blocks(self, tokens):
-        raise _not_ported("disaggregated serving (export_blocks)", "A10")
+    # ------------------------------------- disaggregated block transfer
 
-    def import_blocks(self, shipment):
-        raise _not_ported("disaggregated serving (import_blocks)", "A10")
+    def _block_template(self) -> dict:
+        """The shape of ONE slab block per leaf (``[L, 1, block, ...]``,
+        no storage): what a shipped block's leaves must match."""
+        return {n: torch.empty((a.shape[0], 1) + tuple(a.shape[2:]),
+                               dtype=a.dtype, device="meta")
+                for n, a in self.cache.items()}
+
+    def export_blocks(self, tokens) -> BlockShipment:
+        """Prefill ``tokens``' full blocks and read them off the slab into
+        a host-side :class:`BlockShipment`: the prefill half of
+        disaggregated serving.
+
+        Staging goes through :meth:`pin_prefix` (the ONE share-and-
+        allocate path): resident stems are reused, only the cold
+        remainder prefills.  The blocks are gathered on the device and
+        copied to the host synchronously (the bytes are final when this
+        returns); the pin is released before returning, and the blocks
+        stay hash-resident until the free list recycles them.  Raises
+        ``ValueError`` for spans below one block and ``RuntimeError`` when
+        the allocator cannot hold the run (the router's fallback
+        signals)."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        pid = self.pin_prefix(tokens)
+        try:
+            with obs.held(self._admission_lock):
+                blocks = self._stems.blocks_of(pid)
+                span = self._stems.length_of(pid)
+                hashes = stem_hashes(tokens[:span], self.block)
+                names = sorted(self.cache)
+                idx = torch.as_tensor(list(blocks), device=self.device)
+                host = {n: self.cache[n].index_select(1, idx).cpu()
+                        for n in names}
+        finally:
+            self.unpin_prefix(pid)
+        runs = tuple(tuple(host_words(host[n][:, j:j + 1]) for n in names)
+                     for j in range(len(blocks)))
+        ship = BlockShipment(
+            block=self.block, hashes=tuple(hashes), blocks=runs,
+            dtypes=tuple(dtype_name(host[n].dtype) for n in names))
+        obs.count("serving.disagg.blocks_out", len(ship))
+        obs.count("serving.disagg.bytes_out", ship.nbytes)
+        obs.event("serving.block_export", blocks=len(ship),
+                  bytes=ship.nbytes, span=span)
+        return ship
+
+    def import_blocks(self, shipment: BlockShipment) -> dict | None:
+        """Adopt a shipped block run by page-table splice and PIN it (the
+        reference held through :class:`PinnedStems`, as
+        :meth:`pin_prefix` holds it): the decode half of disaggregated
+        serving.
+
+        Blocks whose chain digest is already resident are refcounted in
+        place, with no device write (adopt hits); cold blocks are
+        allocated, copied into the slab (``slab[:, bid].copy_(block)``
+        under the admission lock, between step windows) and
+        hash-registered so later prompts and re-imports hit them.
+
+        Returns ``{"prefix_id", "blocks", "hits", "bytes"}`` — the caller
+        owns the pin and must :meth:`unpin_prefix` it when the consuming
+        request goes terminal — or ``None`` when the allocator cannot
+        hold the run (backpressure: the router routes the raw prompt
+        instead).  Any failure mid-adopt hands back every reference this
+        import took."""
+        with obs.held(self._admission_lock):
+            self._check_open()
+            if shipment.block != self.block:
+                raise ValueError(
+                    f"shipment carries {shipment.block}-token blocks; "
+                    f"this slab is paged at {self.block}")
+            if not len(shipment):
+                raise ValueError("refusing to adopt an empty shipment")
+            if shipment.span > self.cfg.max_len - 2:
+                raise ValueError(
+                    f"shipment spans {shipment.span} tokens; pinned "
+                    f"runs must leave room for a tail token and one "
+                    f"generated token under max_len={self.cfg.max_len}")
+            names = sorted(self.cache)
+            tmpl = self._block_template()
+            dtypes = leaf_dtype_names(shipment)
+            taken: list[int] = []
+            hits = 0
+            try:
+                for h, leaves in zip(shipment.hashes, shipment.blocks):
+                    bid = self._alloc.share_by_hash(h)
+                    if bid is not None:
+                        # Content already resident: refcount, no write.
+                        taken.append(bid)
+                        hits += 1
+                        continue
+                    if len(leaves) != len(names):
+                        raise ValueError(
+                            f"shipment blocks carry {len(leaves)} "
+                            f"leaves; this slab has {len(names)}")
+                    for a, dt, n in zip(leaves, dtypes, names):
+                        want = tuple(tmpl[n].shape)
+                        want_dt = dtype_name(tmpl[n].dtype)
+                        if tuple(a.shape) != want or dt != want_dt:
+                            raise ValueError(
+                                f"shipment leaf {tuple(a.shape)}/{dt} "
+                                f"does not match slab block "
+                                f"{want}/{want_dt} (model config or "
+                                "kv_int8 mode mismatch)")
+                    bid = self._alloc.alloc()
+                    if bid is None:
+                        for b in taken:
+                            self._alloc.free(b)
+                        taken = []
+                        obs.count("serving.disagg.import_declines")
+                        return None
+                    taken.append(bid)
+                    with torch.no_grad():
+                        for a, n in zip(leaves, names):
+                            slab = self.cache[n]
+                            slab[:, bid].copy_(
+                                from_words(a, slab.dtype)[:, 0])
+                    self._alloc.register(bid, h)
+                pid = self._stems.add(taken, shipment.span)
+            except Exception:
+                for b in taken:
+                    self._alloc.free(b)
+                raise
+            obs.count("serving.disagg.blocks_in", len(taken))
+            obs.count("serving.disagg.adopt_hits", hits)
+            obs.count("serving.disagg.bytes_in", shipment.nbytes)
+            obs.event("serving.block_import", prefix_id=pid,
+                      blocks=len(taken), hits=hits, bytes=shipment.nbytes)
+            self._obs_blocks()
+            return {"prefix_id": pid, "blocks": len(taken),
+                    "hits": hits, "bytes": shipment.nbytes}
 
     def traced_for_analysis(self):
         raise _not_ported("the IR lint's trace targets", "A11")

@@ -222,7 +222,7 @@ class SpeculativeBatcher(_LaneEngine):
         samples).  ``ttl`` / ``deadline`` and the engine lock as in
         :meth:`ContinuousBatcher.submit`; ``prefix_id``: decode past a
         pooled (target, draft) prefix pair."""
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             return self._submit_locked(prompt, max_new_tokens, seed,
                                        eos_token, ttl, deadline, prefix_id)
 
@@ -458,7 +458,7 @@ class SpeculativeBatcher(_LaneEngine):
         [tokens...]}`` — up to ``n_draft + 1`` tokens per lane (exactly 1
         once degraded).  One read of the device per round (the window
         and the advances).  Runs under the engine lock."""
-        with self._admission_lock:
+        with obs.held(self._admission_lock):
             self.pump()
             if all(s is None or s.done for s in self._lane_state):
                 return {}

@@ -176,15 +176,47 @@ class CheckpointingBase:
         return restored, step
 
     def attach_publisher(self, publisher, every: int = 1):
-        """The live train -> serve weight push
-        (``serving/publish.py``) is not ported yet (ROADMAP A10)."""
-        raise NotImplementedError(
-            "attach_publisher is not ported yet (ROADMAP A10: "
-            "serving/publish.py, the snapshot publisher)")
+        """Wire a :class:`~distkeras_tpu_torch.serving.publish.
+        SnapshotPublisher` into the round loop: every ``every`` rounds
+        (and on the final round) the trainer publishes its current
+        weights as snapshot version ``round_idx`` — the trainer side of
+        the live train -> serve weight push.  Independent of
+        checkpointing (a trainer without ``checkpoint_dir`` publishes
+        too).  In a process group rank 0 writes.  Returns ``self``."""
+        if every < 1:
+            raise ValueError(f"every must be >= 1, got {every}")
+        self._publisher = publisher
+        self._publish_every = int(every)
+        self._last_published = 0
+        return self
+
+    def _publish_tree(self, tree_fn):
+        """The weights to publish, out of the round-loop state
+        (``tree_fn()`` builds the checkpoint tree).  Subclasses override
+        to publish their parameter leaves; the base publishes the tree
+        as-is."""
+        return tree_fn()
+
+    def _maybe_publish(self, tree_fn, round_idx: int,
+                       final: bool = False) -> None:
+        pub = getattr(self, "_publisher", None)
+        if pub is None or round_idx == self._last_published:
+            return
+        if final or round_idx % self._publish_every == 0:
+            with obs.span("publish.snapshot", step=round_idx):
+                # Every rank builds the tree (it may gather across the
+                # group); rank 0 writes it.
+                tree = self._publish_tree(tree_fn)
+                if not (dist.is_available() and dist.is_initialized()
+                        and dist.get_rank() != 0):
+                    pub.publish(tree, round_idx)
+            self._last_published = round_idx
 
     def _checkpoint(self, tree_fn, round_idx: int,
                     final: bool = False) -> None:
-        """Persist training state after round ``round_idx`` (1-based).
+        """Persist training state after round ``round_idx`` (1-based), and
+        publish the weights (:meth:`_publish_tree`) when a publisher is
+        attached.
 
         ``tree_fn()`` builds the tree to save.  The save is synchronous:
         the round loop updates the state in place next round.  Every
@@ -193,6 +225,7 @@ class CheckpointingBase:
         :class:`Preempted`.
         """
         chaos.probe("train.round", step=round_idx)
+        self._maybe_publish(tree_fn, round_idx, final)
         if self.preempt_event is not None and self.preempt_event.is_set():
             # Graceful preemption (SIGTERM via a Supervisor, or any
             # orchestrator flipping the event): persist THIS round's
@@ -300,6 +333,11 @@ class Trainer(CheckpointingBase):
         return self._export(state)
 
     # -- checkpoint trees --------------------------------------------------
+    def _publish_tree(self, tree_fn):
+        """Live weight push: the parameter leaves (``tv`` / ``ntv``)."""
+        tree = tree_fn()
+        return {"tv": tree["tv"], "ntv": tree["ntv"]}
+
     def _state_tree(self, state: TrainState) -> dict:
         """The checkpoint tree of a TrainState (``tv`` full, the
         optimizer state gathered; see ``trainers/carry.py``)."""

@@ -190,6 +190,13 @@ class ReplicaTrainer(DistributedTrainer):
         return {"stacked": stack_tree(self._state_tree(state), self.mesh),
                 "center_tv": list(center)}
 
+    def _publish_tree(self, tree_fn):
+        """Live weight push: the center variable (the algorithm's
+        product) and replica 0's ``ntv``, as the reference publishes."""
+        tree = tree_fn()
+        return {"tv": tree["center_tv"],
+                "ntv": [a[0] for a in tree["stacked"]["ntv"]]}
+
     def _fit(self, dataset: Dataset):
         window = self._window(dataset)
         state = self._replica_state()

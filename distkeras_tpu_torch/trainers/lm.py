@@ -541,6 +541,11 @@ class LMTrainer(CheckpointingBase):
         self.training_time = time.perf_counter() - t0
         return params
 
+    def _publish_tree(self, tree_fn):
+        """Live weight push: the full parameters of the running round (a
+        gather under ZeRO-3, only on publish rounds)."""
+        return self._publish_params()
+
     def _carry_tree(self, carry, drop, full_params) -> dict:
         """The checkpoint tree of the round carry: the full parameters,
         the optimizer state (``trainers/carry.py``: ZeRO shards gathered,
@@ -605,6 +610,10 @@ class LMTrainer(CheckpointingBase):
             if self.zero >= 3:
                 return gather_tree(opt_state.layout, opt_state.shards, mesh)
             return params
+
+        # What _publish_tree publishes: the parameters alone, with no
+        # optimizer tree built for it.
+        self._publish_params = full_params
 
         eval_fn = None
         if eval_tokens is not None:

@@ -21,6 +21,12 @@ either package loads in the other; ``params_from_numpy`` carries a
 nested dict of arrays across as tensors (MoE leaves and int8
 ``QTensor`` leaves included), ``lora_from_numpy`` an adapter tree, and
 ``params_to_numpy`` back.
+
+Raw bytes across the host: ``host_words`` / ``from_words`` carry a tensor
+as a numpy array and back bit for bit, a bfloat16 tensor (which numpy
+cannot spell) as its raw 16-bit words, and ``dtype_name`` gives numpy's
+name of a torch dtype (``"bfloat16"`` included) — the spelling of the
+block shipments' headers and the weight snapshots' manifests.
 """
 
 from __future__ import annotations
@@ -76,6 +82,38 @@ def lora_from_numpy(tree, device):
                 "an adapter tree is {'attn' / 'ffn': {target: {'a', "
                 f"'b'}}}}, got group {group!r} with {sub.keys()}")
     return params_from_numpy(tree, device, torch.float32)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype (``torch.bfloat16`` ->
+    ``"bfloat16"``)."""
+    return str(dtype).removeprefix("torch.")
+
+
+def words_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype :func:`host_words` carries a ``dtype`` tensor in:
+    the dtype itself, or ``uint16`` words for bfloat16."""
+    return np.dtype(np.uint16 if dtype == torch.bfloat16
+                    else dtype_name(dtype))
+
+
+def host_words(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bytes as a contiguous numpy array on the host (a
+    synchronous copy off a device), bfloat16 as its raw 16-bit words."""
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def from_words(a, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of :func:`host_words`: a host tensor of ``dtype``
+    holding a COPY of ``a`` (which may be a read-only buffer, or one its
+    producer reuses)."""
+    a = np.asarray(a)
+    if dtype == torch.bfloat16:
+        return torch.tensor(a.view(np.int16)).view(torch.bfloat16)
+    return torch.tensor(a)
 
 
 def params_to_numpy(tree):

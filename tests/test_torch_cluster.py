@@ -436,10 +436,25 @@ def test_hung_child_timeout_kills_never_refund(tmp_path):
 # ------------------------------------------------ the real thing (torch)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def _free_port(span: int = 4) -> int:
+    """A base port whose next ``span`` ports are free, below the
+    kernel's ephemeral range (32768 and up): the cluster binds ``base +
+    epoch`` at each restart, and an ephemeral port taken between the
+    pick and that bind (a gloo pair, another test's connection) would
+    fail the restart's rendezvous."""
+    import random
+
+    rng = random.Random(os.getpid() ^ time.monotonic_ns())
+    for _ in range(200):
+        base = rng.randrange(20000, 32000 - span)
+        try:
+            for port in range(base, base + span):
+                with socket.socket() as s:
+                    s.bind(("localhost", port))
+        except OSError:
+            continue
+        return base
+    raise RuntimeError("no free port range below 32000")
 
 
 def _cluster_job(tmp, kill):

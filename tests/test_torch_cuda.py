@@ -13,7 +13,9 @@ the card against the CPU, Keras' BatchNorm under bf16 autocast); and the
 paged engine (an f32 schedule on the card equal to the monolithic
 engine's and to the CPU's, and a serve phase that allocates no device
 memory) and beam search (the card's beams against the CPU's, its
-prefill through the forward kernel).
+prefill through the forward kernel); and the fleet (the disaggregated
+hop equal to a pinned solo engine, and a hot swap that allocates
+nothing and moves no weight tensor).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports no JAX, so on a machine with
@@ -28,7 +30,10 @@ import torch
 
 from distkeras_tpu_torch.ops import attention as tattn
 
-pytestmark = pytest.mark.cuda
+# The kv_int8 engines here run at few lanes by design (their construction
+# advisory is tested in tests/test_torch_fleet_contract.py).
+pytestmark = [pytest.mark.cuda, pytest.mark.filterwarnings(
+    "ignore:kv_int8=True with:RuntimeWarning")]
 
 
 @pytest.fixture()
@@ -1004,3 +1009,105 @@ def test_keras_batchnorm_under_bf16_autocast_on_card(cuda):
                                atol=1e-6)
     torch.testing.assert_close(bn.moving_variance, 0.99 + 0.01 * var,
                                rtol=1e-5, atol=1e-6)
+
+
+def test_disagg_on_card_equals_pinned_solo(cuda):
+    """The disaggregated hop on the card (f32, 2 layers): a
+    role="prefill" PagedBatcher(kv_int8="prefill") exports each cold stem
+    through the forward kernel (one launch a layer), the blocks cross the
+    wire codec into a role="decode" one, and every request's tokens equal
+    one engine that pins the same stems first; a warm stem ships
+    nothing, and no block stays in use after shutdown."""
+    import warnings
+
+    from distkeras_tpu_torch.serving import (InProcessReplica, PagedBatcher,
+                                             Router, decode_shipment,
+                                             encode_shipment)
+
+    class Wire(InProcessReplica):
+        def import_blocks(self, shipment):
+            return self.engine.import_blocks(
+                decode_shipment(encode_shipment(shipment)))
+
+    cfg, _, params = _serving_model("cuda")
+    rng = np.random.default_rng(11)
+    stems = rng.integers(0, cfg.vocab_size, (2, 32))
+    prompts = [np.concatenate([stems[i % 2], rng.integers(
+        0, cfg.vocab_size, 5)]) for i in range(4)]
+
+    def engine():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            return PagedBatcher(params, cfg, lanes=2, block=16,
+                                kv_int8="prefill", max_queue=8)
+
+    def serve(submit, step, poll, ps):
+        rids = [submit(p) for p in ps]
+        while any(poll(r) is None for r in rids):
+            step()
+        return [np.asarray(poll(r).tokens) for r in rids]
+
+    solo = engine()
+    before = tattn.LAUNCHES["flash_fwd"]
+    for s in stems:
+        solo.pin_prefix(s)
+    assert tattn.LAUNCHES["flash_fwd"] - before == 2 * cfg.n_layers
+    want = serve(lambda p: solo.enqueue(p, 12), solo.step, solo.poll,
+                 prompts)
+    pre, dec = engine(), engine()
+    router = Router([InProcessReplica("pre", pre, role="prefill"),
+                     Wire("dec", dec, role="decode")])
+    router.refresh_residency()
+    before = tattn.LAUNCHES["flash_fwd"]
+    got = serve(lambda p: router.enqueue(p, 12), router.step, router.poll,
+                prompts)
+    assert tattn.LAUNCHES["flash_fwd"] - before == 2 * cfg.n_layers
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert dec.stem_hit_blocks == 4 * 2
+    router.shutdown()
+    assert pre.allocator.stats()["used"] == dec.allocator.stats()["used"] \
+        == 0
+
+
+def test_hot_swap_allocates_nothing_and_keeps_every_pointer(cuda):
+    """``swap_params`` on the card copies into the live weight tensors:
+    the allocator's reserved bytes and device allocations and every
+    leaf's ``data_ptr()`` are unchanged, the engine then serves the new
+    version's tokens (a fresh engine's on those weights), and a refused
+    swap leaves the weights bit for bit."""
+    from distkeras_tpu_torch.models.transformer import named_leaves
+    from distkeras_tpu_torch.serving import ContinuousBatcher
+
+    cfg, _, params = _serving_model("cuda")
+    new = {k: v for k, v in _serving_model("cuda")[2].items()}
+    new["tok_emb"] = new["tok_emb"].flip(0).contiguous()
+    prompts = np.random.default_rng(12).integers(0, cfg.vocab_size, (2, 9))
+
+    def serve(eng):
+        lanes = [eng.submit(p, 10) for p in prompts]
+        while eng.running():
+            eng.step()
+        return [eng.drain(la) for la in lanes]
+
+    eng = ContinuousBatcher(params, cfg, lanes=2, hot_swap=True)
+    serve(eng)
+    torch.cuda.synchronize()
+    ptrs = [t.data_ptr() for _, t in named_leaves(eng.params)]
+    mem = (torch.cuda.memory_reserved(),
+           torch.cuda.memory_stats()["num_device_alloc"])
+    eng.swap_params(new, 1)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for _, t in named_leaves(eng.params)] == ptrs
+    assert (torch.cuda.memory_reserved(),
+            torch.cuda.memory_stats()["num_device_alloc"]) == mem
+    fresh = ContinuousBatcher(new, cfg, lanes=2)
+    for a, b in zip(serve(eng), serve(fresh)):
+        np.testing.assert_array_equal(a, b)
+    keep = [t.clone() for _, t in named_leaves(eng.params)]
+    bad = dict(new, ln_f_scale=new["ln_f_scale"].double())
+    with pytest.raises(ValueError, match="leaf"):
+        eng.swap_params(bad, 2)
+    assert all(torch.equal(a, b) for a, (_, b) in
+               zip(keep, named_leaves(eng.params)))
+    assert eng.param_version == 1

@@ -44,8 +44,15 @@ from distkeras_tpu_torch.serving.paged import (KV_INT8_PREFILL_LOGIT_TOL,
                                                TRASH_BLOCK)
 from distkeras_tpu_torch.utils.serialization import params_from_numpy
 
+# The kv_int8 engines here run at few lanes by design; the
+# construction advisory they earn is tested in
+# tests/test_torch_fleet_contract.py.
+pytestmark = pytest.mark.filterwarnings(
+    "ignore:kv_int8=True with:RuntimeWarning")
+
 KW = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
           max_len=32, rope=True)
+
 BLOCK = 8
 MB = KW["max_len"] // BLOCK
 
@@ -810,10 +817,13 @@ def test_paged_constructor_validation(m):
     with pytest.raises(NotImplementedError, match="A7b"):
         PagedBatcher(m["p"], cfg, block=8, plan=object(), device="cpu")
     pb = paged(m, lanes=1)
-    for call in (lambda: pb.export_blocks([1] * 8),
-                 lambda: pb.import_blocks(None)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            call()
+    # Disaggregated serving is ported: a one-block export round-trips
+    # into another slab; below one block is the reference's ValueError.
+    ship = pb.export_blocks([1] * 8)
+    assert len(ship) == 1 and ship.hexes() == stem_hexes([1] * 8, 8)
+    assert paged(m, lanes=1).import_blocks(ship)["blocks"] == 1
+    with pytest.raises(ValueError, match="full block"):
+        pb.export_blocks([1] * 7)
     with pytest.raises(NotImplementedError, match="A11"):
         pb.traced_for_analysis()
 

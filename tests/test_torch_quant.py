@@ -36,8 +36,15 @@ from distkeras_tpu_torch.serving import (ContinuousBatcher, PrefixPool,
 from distkeras_tpu_torch.utils.serialization import (params_from_numpy,
                                                      params_to_numpy)
 
+# The kv_int8 engines here run at few lanes by design; the
+# construction advisory they earn is tested in
+# tests/test_torch_fleet_contract.py.
+pytestmark = pytest.mark.filterwarnings(
+    "ignore:kv_int8=True with:RuntimeWarning")
+
 BASE = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
             max_len=32)
+
 ROPE_GQA = dict(rope=True, n_kv_heads=1)
 ROLL = dict(rope=True, attention_window=6, max_len=16)
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -24,8 +24,15 @@ from distkeras_tpu_torch.models import transformer as ttfm
 from distkeras_tpu_torch.serving import ContinuousBatcher
 from distkeras_tpu_torch.utils.serialization import params_from_numpy
 
+# The kv_int8 engines here run at few lanes by design; the
+# construction advisory they earn is tested in
+# tests/test_torch_fleet_contract.py.
+pytestmark = pytest.mark.filterwarnings(
+    "ignore:kv_int8=True with:RuntimeWarning")
+
 KW = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
           max_len=32, rope=True)
+
 ROLL_KW = dict(KW, max_len=12, attention_window=5)
 
 
@@ -145,10 +152,13 @@ def test_capacity_and_validation(m, rng):
 
 
 def test_unported_knobs_raise_naming_their_item(m):
-    for kw, item in ((dict(plan=object()), "A7"),
-                     (dict(hot_swap=True), "A10")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            engine(m, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        engine(m, plan=object())
+    # hot_swap is ported: the engine takes swap_params and counts the
+    # versions it served.
+    eng = engine(m, hot_swap=True)
+    assert eng.param_version == 0
+    assert eng.swap_params(m["p"], 1) == 1 == eng.param_version
     with pytest.raises(ValueError, match="PagedBatcher"):
         engine(m, kv_int8="prefill")
 

@@ -398,8 +398,11 @@ def test_obs_session_metrics_and_trace(m, rng, tmp_path):
     names = {r.get("name") for r in recs}
     assert {"serving.submit", "serving.admit", "serving.step",
             "serving.emit", "serving.finish"} <= names
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        obs.enable(serve_port=0)
+    # The live telemetry plane is ported: serve_port=0 starts a server
+    # on a free port, and disable() stops it.
+    sess = obs.enable(serve_port=0)
+    assert sess.server.port > 0 and sess.slo is not None
+    obs.disable()
     assert obs.active() is None
 
 
