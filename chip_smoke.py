@@ -24,7 +24,7 @@ each went through its kernels:
 - the paper's other workloads (phase ``keras_zoo``): ``imdb_lstm``
   (``FusedLSTM`` and the stock LSTM on cuDNN's fused kernel), ``resnet50``
   and the two MLPs at their bench configs (mixed bf16, sgd 0.01, device
-  data: step ms over two timed windows of ~1.5 s, samples/s, idle
+  data: step ms over two timed windows of ~1 s, samples/s, idle
   share, peak GB; ResNet-50's FLOP share of the bf16 peak), card runs
   against the CPU's (f32 ``imdb_lstm`` both ways; ResNet-50 at 64 x 64
   in float64, and its f32 loss and moving statistics), the reference's
@@ -147,7 +147,21 @@ each went through its kernels:
   and equal to a fresh engine on it, a request in flight across a swap,
   a corrupted snapshot never adopted, a drifting candidate rolled back,
   swaps that allocate nothing and move no tensor, a refused swap leaving
-  the weights bit for bit; swap ms, publish / load s raw and int8).
+  the weights bit for bit; swap ms, publish / load s raw and int8);
+- the model axis (phase ``tp``): two gloo ranks sharing the card
+  (``python3 chip_smoke.py --tp-rank DIR`` is one), a ``MeshSpec(data=1,
+  model=2)`` grid holding half the flagship's heads each: (a) bf16
+  ``generate`` on the 8 x 512 prompt under ``serving_plan()``, held to
+  phase serve's one-process tokens by ``greedy_agreement``; (b)
+  ``ContinuousBatcher`` and ``PagedBatcher(block=41)`` at 8 lanes under
+  the plan on 8 requests, each held to its one-process engine; (c) the
+  training cell in f32, 3 ``LMTrainer`` steps under ``tp_rules`` and 3
+  under ``fsdp=True`` at data=2, plus one sgd step at rate 1 each, the
+  losses and gradients held to world 1 within 1e-3 x max|g|; every rank
+  picking the same tokens and launching the forward (and in training the
+  backward) kernels on its own heads; (d) the kernels at the half-head
+  shapes ([8, 512, 4, 128] and [8, 512, 2, 128] bf16, [8, 1024, 4, 128]
+  f32 with lse and the backward pair) against their plain versions.
 
 Usage: python3 chip_smoke.py [--profile]     (needs one CUDA device)
 
@@ -170,14 +184,17 @@ four model-surface phases, ``dp``, ``resume`` (the supervised runs
 of (a) and (b)), ``paged`` (the ``kv_int8="prefill"`` admissions),
 ``beam`` (the bench runs' prompt passes), ``fleet`` (the prefill
 replica's exports and the fallback's raw admissions in this process;
-each replica process prints its own) and ``weight_push`` (the
-publishing trainer's rounds) (``launches_by_path``; a run that only serves a
+each replica process prints its own), ``weight_push`` (the
+publishing trainer's rounds) and ``tp`` (both ranks' launches summed;
+the phase line has them by rank and by run) (``launches_by_path``; a
+run that only serves a
 comparison is not counted); the backward kernels' times are the
 training case (f32, causal) and their launches those of the training
 runs (train, long_train, moe_train, lora_train, dp, resume,
-weight_push), with the
+weight_push, tp), with the
 bf16 causal case beside it under ``"bf16_causal"``; each kernel also
-carries its seq-4096 f32 readings (causal, and window 1024).
+carries its seq-4096 f32 readings (causal, and window 1024) and its
+half-head readings of phase ``tp`` (``*_half_heads``).
 """
 
 import dataclasses
@@ -274,8 +291,15 @@ def ptxas_summary(build_log):
     return out
 
 
+T_START = time.perf_counter()
+
+
 def log(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the script
+    started (``t_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -875,7 +899,7 @@ LSTM_BATCH = 512
 RESNET_BATCH = 128
 MLP_BATCH = 4096
 PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
-ZOO_WINDOW_S = 1.5      # seconds of steps in each timed window
+ZOO_WINDOW_S = 1.0      # seconds of steps in each timed window
 
 
 def zoo_throughput(name, model, x, y, loss, batch, preprocess=None,
@@ -1333,7 +1357,7 @@ def trace_device_time(path):
 
 def long_text_phase(np_params, tmp):
     """Text -> tokens -> rows -> trainer: a seeded 1 MiB corpus, the
-    native BPE trainer on its first 256 KiB at vocab 2048, the corpus
+    native BPE trainer on its first 128 KiB at vocab 2048, the corpus
     encoded into rows of 4096 + 1, and LMTrainer(_long_cfg) over a
     Dataset of 48 of them (shuffled, device-resident, profiled rounds
     2-4): the loss must fall and every step go through the kernels."""
@@ -1342,7 +1366,7 @@ def long_text_phase(np_params, tmp):
     text = text_corpus(1 << 20)
     corpus_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tok = dkt.BPETokenizer.train(text[:256 << 10], vocab_size=2048)
+    tok = dkt.BPETokenizer.train(text[:128 << 10], vocab_size=2048)
     bpe_train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows = tok.encode_corpus(text, seq_len=LONG_SHAPE[1])
@@ -4807,6 +4831,250 @@ def weight_push_phase(np_params):
     return launches
 
 
+# Phase tp: two gloo ranks sharing the card, the model axis of 2.
+TP_REQUESTS = 8
+TP_PROMPT_LENS = (100, 60, 140, 80, 120, 90, 70, 110)
+TP_NEW = 32
+TP_TRAIN_STEPS = 3
+TP_HALF_HEADS = (8, 512, 4, 128)          # bf16 serving, 4 heads a rank
+TP_TRAIN_HALF = (8, 1024, 4, 128)         # f32 training, 4 heads a rank
+# The training cell in f32 (embeddings included): the ranks' gradients
+# are held to world 1's at f32's summation-order level.
+TP_TRAIN_CFG = dataclasses.replace(FLAGSHIP_TRAIN, dtype="float32")
+
+
+def tp_requests(cfg, seed=31):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+            for n in TP_PROMPT_LENS[:TP_REQUESTS]]
+
+
+def tp_serve_engines(params, cfg, **kw):
+    """(a ContinuousBatcher, a PagedBatcher) over ``params`` at 8
+    lanes, ``kw`` their placement (plan= / mesh=)."""
+    return (dkt.ContinuousBatcher(params, cfg, lanes=ENGINE_LANES, **kw),
+            dkt.PagedBatcher(params, cfg, lanes=ENGINE_LANES,
+                             block=PAGED_BLOCK, **kw))
+
+
+def tp_serve(eng, prompts):
+    lanes = [eng.submit(p, TP_NEW) for p in prompts]
+    while eng.running():
+        eng.step(4)
+    return [eng.drain(lane) for lane in lanes]
+
+
+def tp_trainers(cfg, **kw):
+    """The phase's two LM runs: TP_TRAIN_STEPS adamw steps (losses), and
+    one sgd step at rate 1 (the gradient is p0 - p1)."""
+    return (dkt.LMTrainer(cfg, batch_size=TRAIN_SHAPE[0], **kw),
+            dkt.LMTrainer(cfg, batch_size=TRAIN_SHAPE[0], optimizer="sgd",
+                          learning_rate=1.0, **kw))
+
+
+def tp_train_rows(cfg):
+    return np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (TP_TRAIN_STEPS * TRAIN_SHAPE[0],
+                            TRAIN_SHAPE[1] + 1)).astype(np.int32)
+
+
+def tp_rank_main(tmp):
+    """One rank of phase tp (``deploy.Job``, gloo over CUDA tensors on
+    the one card): (a) bf16 ``generate`` and (b) the two engines under
+    ``serving_plan()`` at model=2, (c) ``LMTrainer`` under ``tp_rules``
+    at model=2 and under ``fsdp=True`` at data=2.  Each rank writes its
+    results and its kernel launches; rank 0 also the gathered trees."""
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch.parallel import collectives as C
+    from distkeras_tpu_torch.parallel import mesh as M
+    from distkeras_tpu_torch.parallel.layout import place
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dkt.deploy.init_from_env(device="cuda:0", backend="gloo", timeout=600)
+    rank = dist.get_rank()
+    tp = M.make_mesh(M.MeshSpec(data=1, model=2))
+    cfg = FLAGSHIP
+    full = dkt.params_from_numpy(numpy_params(cfg, seed=0), "cuda",
+                                 dtype=torch.bfloat16)
+    sp = place(full, dkt.serving_plan(), tp)
+    del full
+    torch.cuda.empty_cache()
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (8, 512)).astype(np.int32)
+    res, launches = {}, {}
+
+    def counted(name, fn):
+        for k in attn.LAUNCHES:
+            attn.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = dict(attn.LAUNCHES)
+        res[f"{name}_s"] = time.perf_counter() - t0
+        return out
+
+    def agree(x):
+        t = torch.as_tensor(np.asarray(x, np.int64)).reshape(-1)
+        rows = C.all_gather(t, tp.whole())
+        return bool((rows == rows[0]).all())
+
+    counted("generate", lambda: dkt.generate(sp, prompt, cfg, NEW_TOKENS))
+    out = counted("generate", lambda: dkt.generate(sp, prompt, cfg,
+                                                   NEW_TOKENS))
+    res["generate_ranks_agree"] = agree(out.cpu().numpy())
+    res["generate_model_shards_heads"] = [
+        int(sp["layers"]["attn"]["wq"].shape[2]), cfg.n_heads]
+    prompts = tp_requests(cfg)
+    engines = {}
+    for name, eng in zip(("cb", "paged"), tp_serve_engines(
+            sp, cfg, plan=dkt.serving_plan(), mesh=tp)):
+        outs = counted(name, lambda: tp_serve(eng, prompts))
+        res[f"{name}_ranks_agree"] = agree(np.concatenate(outs))
+        res[f"{name}_footprint"] = eng.memory_footprint()
+        engines[name] = outs
+    del sp, eng
+    torch.cuda.empty_cache()
+    np_train = numpy_params(TP_TRAIN_CFG, seed=1)
+    rows = tp_train_rows(TP_TRAIN_CFG)
+    trees = {}
+    for name, mesh_kw, kw in (("tp", dict(data=1, model=2), {}),
+                              ("fsdp", dict(data=2), dict(fsdp=True))):
+        mesh = M.make_mesh(M.MeshSpec(**mesh_kw))
+        steps, grad = tp_trainers(TP_TRAIN_CFG, mesh=mesh, **kw)
+        p0 = dkt.params_from_numpy(np_train, "cuda")
+        counted(f"train_{name}", lambda: steps.train(rows, params=p0))
+        res[f"train_{name}_losses"] = steps.history
+        res[f"train_{name}_step_s"] = res[f"train_{name}_s"] / TP_TRAIN_STEPS
+        p1 = counted(f"grad_{name}", lambda: grad.train(
+            rows[:TRAIN_SHAPE[0]], params=p0))
+        after = dict(named_leaves(p1))
+        trees[name] = {k: (v - after[k]).cpu().numpy()
+                       for k, v in named_leaves(p0)}
+        del p0, p1, steps, grad
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    with open(os.path.join(tmp, f"tp_r{rank}.json"), "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        np.savez(os.path.join(tmp, "tp_tokens.npz"), generate=out.cpu(),
+                 **{f"{n}_{i}": o for n, outs in engines.items()
+                    for i, o in enumerate(outs)})
+        for name, tree in trees.items():
+            np.savez(os.path.join(tmp, f"tp_grad_{name}.npz"), **tree)
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_phase(np_params, serve_out):
+    """The model axis on the card: two ranks share it over gloo (NCCL
+    refuses two ranks on one device, phase dp_keras), each holding half
+    the flagship's heads (``tp_rank_main``).  (a) and (b) are held to
+    the one-process runs by ``greedy_agreement`` (``serve_out`` is phase
+    serve's generate of the same prompt), (c) to world 1 within the
+    card's gradient bound, 1e-3 x max|g|; (d) the kernels at the
+    half-head shapes against their plain versions.  Returns the ranks'
+    summed launches and the (d) cases."""
+    half = {"bf16_causal_half_heads": kernel_case(
+        torch.bfloat16, True, None, shape=TP_HALF_HEADS),
+        "bf16_causal_quarter_heads": kernel_case(
+        torch.bfloat16, True, None, shape=TP_HALF_HEADS[:2] + (2, 128))}
+    for c in half.values():
+        log("kernel_vs_plain", kernel="flash_fwd", **c)
+    train_half = train_kernel_case(torch.float32, True, None, False,
+                                   shape=TP_TRAIN_HALF)
+    log("kernel_vs_plain", kernel="flash_fwd(lse)+flash_bwd", **train_half)
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    dkt.deploy.Job("chip_smoke.py", world=2,
+                   init_method=f"file://{tmp}/rdv_tp",
+                   args=("--tp-rank", tmp)).run_local(timeout=900,
+                                                      capture=True)
+    wall = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(tmp, f"tp_r{r}.json")))
+             for r in range(2)]
+    got = np.load(os.path.join(tmp, "tp_tokens.npz"))
+    cfg = FLAGSHIP
+    params = dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16)
+    prompt_len = 512
+    for r in ranks:
+        for k in ("generate", "cb", "paged"):
+            if not r[f"{k}_ranks_agree"]:
+                raise AssertionError(f"tp: the ranks picked different "
+                                     f"tokens in {k}")
+        for path, c in r["launches"].items():
+            want = ["flash_fwd"] + (["flash_bwd_dq", "flash_bwd_dkv"]
+                                    if path.startswith(("train", "grad"))
+                                    else [])
+            if path in ("generate", *(p for p in r["launches"]
+                                      if p.startswith(("train", "grad")))):
+                for k in want:
+                    if not c[k] > 0:
+                        raise AssertionError(
+                            f"tp: {path} launched no {k} on a rank: {c}")
+    gen = [greedy_agreement(a, b, params, cfg, prompt_len)
+           for a, b in zip(got["generate"], np.asarray(serve_out.cpu()))]
+    prompts = tp_requests(cfg)
+    solo = {}
+    for name, eng in zip(("cb", "paged"), tp_serve_engines(params, cfg)):
+        solo[name] = [greedy_agreement(got[f"{name}_{i}"], o, params, cfg,
+                                       len(p))
+                      for i, (o, p) in enumerate(zip(tp_serve(eng, prompts),
+                                                     prompts))]
+    del params, eng
+    torch.cuda.empty_cache()
+    # (c) world 1: the same rows and starting weights.
+    np_train = numpy_params(TP_TRAIN_CFG, seed=1)
+    rows = tp_train_rows(TP_TRAIN_CFG)
+    steps, grad = tp_trainers(TP_TRAIN_CFG)
+    p0 = dkt.params_from_numpy(np_train, "cuda")
+    steps.train(rows, params=p0)
+    p1 = grad.train(rows[:TRAIN_SHAPE[0]], params=p0)
+    after = dict(named_leaves(p1))
+    want = {k: (v - after[k]).detach() for k, v in named_leaves(p0)}
+    del p0, p1
+    train = {}
+    for name in ("tp", "fsdp"):
+        g = np.load(os.path.join(tmp, f"tp_grad_{name}.npz"))
+        gmax = max(float(v.detach().abs().max()) for v in want.values())
+        err = max(float((torch.from_numpy(g[k]).cuda() - v).abs().max())
+                  for k, v in want.items())
+        loss_err = float(np.abs(np.asarray(ranks[0][f"train_{name}_losses"])
+                                - np.asarray(steps.history)).max())
+        if not (err <= 1e-3 * gmax and loss_err <= 1e-3):
+            raise AssertionError(f"tp: {name} training differs from world "
+                                 f"1: grads {err} (max|g| {gmax}), losses "
+                                 f"{loss_err}")
+        train[name] = dict(grad_max_abs_err=err, grad_max_abs=gmax,
+                           loss_max_abs_err=loss_err,
+                           step_s=[r[f"train_{name}_step_s"]
+                                   for r in ranks],
+                           losses=ranks[0][f"train_{name}_losses"])
+    del want
+    fp = ranks[0]["cb_footprint"]
+    launches = {k: sum(r["launches"][p][k] for r in ranks
+                       for p in r["launches"])
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    # Every collective the ranks ran took CUDA tensors on gloo: f / g
+    # (all_reduce), the gathers on use (all_gather_into_tensor) and their
+    # gradients (reduce_scatter_tensor); none is staged by the port.
+    log("tp", ranks=2, backend="gloo", tensors="cuda",
+        gloo_cuda_collectives=["all_reduce", "all_gather_into_tensor",
+                               "reduce_scatter_tensor"],
+        mesh={"serve": "data=1 x model=2", "train": "model=2; data=2 fsdp"},
+        heads_per_rank=ranks[0]["generate_model_shards_heads"],
+        generate=agreement_summary(gen), engines={
+            k: agreement_summary(v) for k, v in solo.items()},
+        serve_s={k: [r[f"{k}_s"] for r in ranks]
+                 for k in ("generate", "cb", "paged")},
+        footprint_rank0=fp, training=train,
+        world1_step_s=steps.training_time / TP_TRAIN_STEPS,
+        launches_by_rank=[r["launches"] for r in ranks],
+        launches=launches, job_wall_s=wall)
+    return launches, half, train_half
+
+
 def main(profile=False):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4882,6 +5150,7 @@ def main(profile=False):
                              f"{launches['flash_fwd']} times, expected "
                              f"{cfg.n_layers}")
     expect_tokens(out, prompt, NEW_TOKENS, cfg.vocab_size, "generate")
+    serve_out = out
     # Steady-state times (the first call above paid the warm-up).
     _, prefill_s = wall_s(lambda: dkt.prefill(params, prompt, cfg,
                                               last_logits=False))
@@ -4962,6 +5231,11 @@ def main(profile=False):
     torch.cuda.empty_cache()
     push_launches = weight_push_phase(np_params)
 
+    # 5e. The model axis: two ranks sharing the card, half the heads
+    # each (serving and training), and the kernels at those shapes.
+    torch.cuda.empty_cache()
+    tp_launches, tp_half, tp_train_half = tp_phase(np_params, serve_out)
+
     # 6. The training path at full width, and its parity.
     train_np = numpy_params(FLAGSHIP_TRAIN, seed=1)
     torch.cuda.empty_cache()
@@ -5035,7 +5309,7 @@ def main(profile=False):
 
     surface = (moe_train_launches, lora_launches, moe_serve_launches,
                int8_launches, dp_launches, resume_launches, paged_launches,
-               beam_launches, fleet_launches, push_launches)
+               beam_launches, fleet_launches, push_launches, tp_launches)
 
     def launch_counts(name, *paths):
         paths = paths + surface
@@ -5043,7 +5317,8 @@ def main(profile=False):
                 "launches_by_path": {k: p[name] for k, p in zip(
                     ("serve", "engine", "train", "long_train", "moe_train",
                      "lora_train", "moe_serve", "int8_serve", "dp",
-                     "resume", "paged", "beam", "fleet", "weight_push"),
+                     "resume", "paged", "beam", "fleet", "weight_push",
+                     "tp"),
                     paths)}}
 
     print(json.dumps({"kernels": [{
@@ -5066,6 +5341,10 @@ def main(profile=False):
         "f32_causal_spec_int8_warm": {k: spec32[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
+        **{name: {k: c[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")} for name, c in tp_half.items()},
+        "f32_lse_causal_half_heads": fwd_times(tp_train_half),
         "f32_lse_causal": fwd_times(tmain),
         "f32_lse_causal_seq4096": fwd_times(lcausal),
         "f32_lse_window1024_seq4096": fwd_times(lwindow)}, {
@@ -5074,6 +5353,7 @@ def main(profile=False):
         **launch_counts("flash_bwd_dq", {"flash_bwd_dq": 0},
                         {"flash_bwd_dq": 0}, train_launches, long_launches),
         **bwd_times(tmain, "dq", ("dq",)),
+        "f32_causal_half_heads": bwd_times(tp_train_half, "dq", ("dq",)),
         "bf16_causal": bwd_times(tbf16, "dq", ("dq",)),
         "f32_causal_seq4096": bwd_times(lcausal, "dq", ("dq",)),
         "f32_window1024_seq4096": bwd_times(lwindow, "dq", ("dq",))}, {
@@ -5082,6 +5362,8 @@ def main(profile=False):
         **launch_counts("flash_bwd_dkv", {"flash_bwd_dkv": 0},
                         {"flash_bwd_dkv": 0}, train_launches, long_launches),
         **bwd_times(tmain, "dkv", ("dk", "dv")),
+        "f32_causal_half_heads": bwd_times(tp_train_half, "dkv",
+                                           ("dk", "dv")),
         "bf16_causal": bwd_times(tbf16, "dkv", ("dk", "dv")),
         "f32_causal_seq4096": bwd_times(lcausal, "dkv", ("dk", "dv")),
         "f32_window1024_seq4096": bwd_times(lwindow, "dkv",
@@ -5100,4 +5382,6 @@ if __name__ == "__main__":
         sys.exit(cluster_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--replica"]:
         sys.exit(replica_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(sys.argv[2]))
     sys.exit(main(profile="--profile" in sys.argv[1:]))

@@ -126,7 +126,10 @@ from distkeras_tpu_torch.parallel import collectives, exchange, rules
 from distkeras_tpu_torch.parallel.collectives import zero1_optimizer
 from distkeras_tpu_torch.parallel.exchange import (ExchangeConfig,
                                                    exchange_optimizer)
-from distkeras_tpu_torch.parallel.sharding import (ShardingPlan, dp_plan,
+from distkeras_tpu_torch.parallel.rules import match_partition_rules
+from distkeras_tpu_torch.parallel.sharding import (ServingPlan, ShardingPlan,
+                                                   dp_plan, fsdp_plan,
+                                                   serving_plan, tp_plan,
                                                    zero1_plan, zero3_plan)
 from distkeras_tpu_torch.trainers.async_dp import AsyncDP
 from distkeras_tpu_torch.trainers.base import SingleTrainer, Trainer
@@ -147,6 +150,7 @@ from distkeras_tpu_torch.utils.serialization import (
     params_from_numpy,
     params_to_numpy,
     save_lm,
+    sharded_params_from_numpy,
     serialize_keras_model,
     set_weights,
 )
@@ -162,6 +166,11 @@ __all__ = [
     "uniform_weights",
     "ShardingPlan",
     "dp_plan",
+    "fsdp_plan",
+    "tp_plan",
+    "ServingPlan",
+    "serving_plan",
+    "match_partition_rules",
     "zero1_plan",
     "zero3_plan",
     "zero1_optimizer",
@@ -251,6 +260,7 @@ __all__ = [
     "packing_efficiency",
     "params_from_numpy",
     "params_to_numpy",
+    "sharded_params_from_numpy",
     "prefill",
     "quantize_params",
     "save_lm",

@@ -143,12 +143,18 @@ class ModelAdapter:
 
         return compute_loss
 
+    # ``tv_view(tv) -> tv``: the trainable variables the loss runs on,
+    # from the state's (a placed state's slices gathered on use, their
+    # gradients reduce-scattered back); None runs on ``tv`` itself.
+    tv_view = None
+
     def _value_and_grad(self):
         compute_loss = self.make_loss_fn()
 
         def vag(tv, ntv, x, y):
             with torch.enable_grad():
-                loss, ntv2 = compute_loss(tv, ntv, x, y)
+                full = tv if self.tv_view is None else self.tv_view(tv)
+                loss, ntv2 = compute_loss(full, ntv, x, y)
                 grads = torch.autograd.grad(loss, tv)
             return loss.detach(), ntv2, grads
 

@@ -26,6 +26,14 @@ slot-indexed ancestor map (ancestry attention, the cache never
 reordered) or reorders the cache rows by parent (``beam_impl=
 "physical"``).  Its prompt pass is :func:`prefill`, the flash kernel on
 the card.
+
+Sharded params (``parallel/layout.py``) decode through the same code on
+every rank of the mesh: the cache holds this rank's kv heads
+(``[L, B, max_len, kv_heads / m, head_dim]`` under a head split, every
+head when the heads are whole), each layer's attention and FFN outputs
+are all-reduced over the model axis, and the logits after the last
+all-reduce are alike on every rank, so every rank picks the same token.
+A call gathers the tree's compute view once and decodes with it.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from distkeras_tpu_torch.models.transformer import (
     rope_rotate,
 )
 from distkeras_tpu_torch.ops.attention import flash_attention
+from distkeras_tpu_torch.parallel.layout import tp_of, views
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
 
 
@@ -61,15 +70,24 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def local_kv_heads(params, cfg: TransformerConfig) -> int:
+    """The kv heads this rank caches: ``wk``'s heads dimension in the
+    compute view (``cfg.kv_heads`` unless the model axis splits them)."""
+    wk = params["layers"]["attn"]["wk"]
+    return int((wk.q if hasattr(wk, "q") else wk).shape[2])
+
+
 def init_cache(cfg: TransformerConfig, batch: int, dtype=None,
-               kv_int8: bool = False, device=None):
+               kv_int8: bool = False, device=None, kv_heads=None):
     """Per-layer KV buffers [L, B, max_len, kv_heads, head_dim] (GQA
-    configs cache only the shared K/V heads).  ``kv_int8``: int8 K/V
+    configs cache only the shared K/V heads; ``kv_heads`` overrides the
+    count: a rank's share under a head split).  ``kv_int8``: int8 K/V
     plus f32 ``k_scale`` / ``v_scale`` [L, B, max_len, kv_heads]; the
     scale leaves are what switches the decode attention to the
     dequantizing form."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.max_len, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, cfg.max_len, kv_heads or cfg.kv_heads,
+             cfg.head_dim)
     dtype = torch.int8 if kv_int8 else (dtype or cfg.torch_dtype)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -96,13 +114,16 @@ def prefill(params, prompt, cfg: TransformerConfig,
             "prefill runs the batched forward, which needs full-precision "
             "params; an int8 tree decodes on the sequential path "
             "(generate picks it)")
+    params = views(params)
+    tp = tp_of(params)
     prompt = torch.as_tensor(prompt, device=device).long()
     b, p_len = prompt.shape
     if p_len > cfg.max_len:
         raise ValueError(
             f"prompt length {p_len} exceeds max_len={cfg.max_len} "
             "(the KV cache size)")
-    cache = init_cache(cfg, b, kv_int8=kv_int8, device=device)
+    cache = init_cache(cfg, b, kv_int8=kv_int8, device=device,
+                       kv_heads=local_kv_heads(params, cfg))
     attention_fn = lambda q, k, v: flash_attention(
         q, k, v, True, window=cfg.attention_window)
     with torch.no_grad():
@@ -110,7 +131,7 @@ def prefill(params, prompt, cfg: TransformerConfig,
         for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
             x, _, (k, v) = block_apply(lp, x, cfg, attention_fn, rope_ang,
                                        return_kv=True,
-                                       moe_dense_routing=True)
+                                       moe_dense_routing=True, tp=tp)
             if kv_int8:
                 (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
                 cache["k_scale"][i, :, :p_len].copy_(ks)
@@ -160,14 +181,15 @@ def _ancestry_attend(qg, ck, cv, anc_oh, mask_b, cfg: TransformerConfig,
     ``kv_scales = (k_scale, v_scale) [B, S, kv]``: an int8 cache.
     Returns ``attn [B, n_heads, hd]`` f32."""
     b, s_len = qg.shape[0], ck.shape[1]
+    kvh, groups = qg.shape[1], qg.shape[2]  # this rank's heads
     bt = b // w_beams
-    qb = qg.reshape(bt, w_beams, cfg.kv_heads, -1, cfg.head_dim)
-    kb = ck.float().reshape(bt, w_beams, s_len, cfg.kv_heads, cfg.head_dim)
-    vb = cv.float().reshape(bt, w_beams, s_len, cfg.kv_heads, cfg.head_dim)
+    qb = qg.reshape(bt, w_beams, kvh, -1, cfg.head_dim)
+    kb = ck.float().reshape(bt, w_beams, s_len, kvh, cfg.head_dim)
+    vb = cv.float().reshape(bt, w_beams, s_len, kvh, cfg.head_dim)
     la = torch.einsum("bwcgk,bvsck->bwcgvs", qb, kb)
     if kv_scales is not None:
         # [B, S, C] -> [bt, 1, C, 1, v(=w), S] over la's dims.
-        bsc = lambda sc: sc.reshape(bt, w_beams, s_len, cfg.kv_heads
+        bsc = lambda sc: sc.reshape(bt, w_beams, s_len, kvh
                                     ).permute(0, 3, 1, 2)[:, None, :, None]
         la = la * bsc(kv_scales[0])
     logits = torch.einsum("bwcgvs,bwsv->bwcgs", la, anc_oh)
@@ -179,7 +201,7 @@ def _ancestry_attend(qg, ck, cv, anc_oh, mask_b, cfg: TransformerConfig,
     if kv_scales is not None:
         pm = pm * bsc(kv_scales[1])
     return torch.einsum("bwcgvs,bvsck->bwcgk", pm, vb).reshape(
-        b, cfg.n_heads, cfg.head_dim)
+        b, kvh * groups, cfg.head_dim)
 
 
 def _rows_update(cache_layer, rows, pos0):
@@ -253,6 +275,7 @@ def _decode_chunk(params, cache, tokens, pos0, cfg: TransformerConfig,
     in place, and lane ``w`` reads slot ``s`` from lane ``anc[b, w, s]``
     (:func:`_ancestry_attend`).
     """
+    params = views(params)
     dtype = cfg.torch_dtype
     b, t_len = tokens.shape
     dev = tokens.device
@@ -317,6 +340,7 @@ def _decode_layers(params, cache, x, rope_ang, write, mask,
     b, t_len = x.shape[:2]
     groups = cfg.n_heads // cfg.kv_heads
     kv_q = "k_scale" in cache
+    tp = tp_of(params)
     for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         h = _rms_norm(x, lp["ln1_scale"])
         q = _dot(h, deq(lp["attn"]["wq"]))
@@ -330,17 +354,21 @@ def _decode_layers(params, cache, x, rope_ang, write, mask,
             scales = (write(cache["k_scale"][i], ks),
                       write(cache["v_scale"][i], vs))
         ck, cv = write(cache["k"][i], k), write(cache["v"][i], v)
-        # GQA: grouped einsums read only the kv-head cache.
-        qg = q.float().reshape(b, t_len, cfg.kv_heads, groups, cfg.head_dim)
+        # GQA: grouped einsums read only the kv-head cache (this rank's
+        # kv heads under a head split).
+        kvh = k.shape[2]
+        qg = q.float().reshape(b, t_len, kvh, groups, cfg.head_dim)
         if beam is not None:
             anc_oh, w_beams, mask_b = beam
             attn = _ancestry_attend(qg[:, 0], ck, cv, anc_oh, mask_b, cfg,
                                     w_beams, scales)[:, None]
         else:
             attn = _attend(qg, ck, cv, mask, cfg, scales).reshape(
-                b, t_len, cfg.n_heads, cfg.head_dim)
-        x = x + _dot(attn.to(dtype), deq(lp["attn"]["wo"]), n=2)
-        x = x + _decode_ffn(lp, _rms_norm(x, lp["ln2_scale"]), cfg)
+                b, t_len, kvh * groups, cfg.head_dim)
+        a = _dot(attn.to(dtype), deq(lp["attn"]["wo"]), n=2)
+        x = x + (tp.leave(a, tp.attn) if tp else a)
+        y = _decode_ffn(lp, _rms_norm(x, lp["ln2_scale"]), cfg)
+        x = x + (tp.leave(y, tp.ffn) if tp else y)
     x = _rms_norm(x, params["ln_f_scale"])
     return unembed_logits(x, params["tok_emb"], dtype).float()
 
@@ -386,6 +414,7 @@ def _decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig,
     if beam_anc is not None:
         raise ValueError("beam ancestry attention does not compose with "
                          "pad_lens (beam search is uniform-prompt only)")
+    params = views(params)
     dtype = cfg.torch_dtype
     x = embed_rows(params["tok_emb"], tokens, dtype)[:, None]     # [B, 1, D]
     pos_ids = torch.clamp(pos - pad_lens, min=0)                   # [B]
@@ -539,7 +568,7 @@ def _resolve_prefill(params, cfg: TransformerConfig, p: int,
 
 def _resolve_prompt_cache(prompt_cache, cfg: TransformerConfig, b: int,
                           p: int, max_new_tokens: int, use_prefill,
-                          device, kv_int8: bool = False):
+                          device, kv_int8: bool = False, kv_heads=None):
     """The ``prompt_cache`` contract (the reference's
     ``_resolve_prompt_cache``): validates the config, budget and batch,
     and returns ``(cache, cached_len)`` -- a COPY of the segment, fanned
@@ -565,7 +594,8 @@ def _resolve_prompt_cache(prompt_cache, cfg: TransformerConfig, b: int,
         raise ValueError(
             "prompt_cache quantization must match kv_int8= (build the "
             "prefix cache with prefill(..., kv_int8=...))")
-    want = (cfg.n_layers, cfg.max_len, cfg.kv_heads, cfg.head_dim)
+    want = (cfg.n_layers, cfg.max_len, kv_heads or cfg.kv_heads,
+            cfg.head_dim)
     names = {"k", "v"} | ({"k_scale", "v_scale"} if kv_int8 else set())
     if (set(pc_cache) != names
             or any(tuple(a.shape[:1] + a.shape[2:])
@@ -655,6 +685,8 @@ def beam_search(params, prompt, cfg: TransformerConfig,
     """
     device = resolve_device(device)
     check_on_device(params, device)
+    params = views(params)
+    kvh = local_kv_heads(params, cfg)
     prompt = torch.as_tensor(prompt, device=device).long()
     b, p = prompt.shape
     w = beam_width
@@ -702,7 +734,7 @@ def beam_search(params, prompt, cfg: TransformerConfig,
         if prompt_cache is not None:
             cache, off = _resolve_prompt_cache(
                 prompt_cache, cfg, b, p, max_new_tokens, use_prefill,
-                device, kv_int8)
+                device, kv_int8, kvh)
             _decode_chunk(params, cache, prompt,
                           torch.full((b,), off, dtype=torch.long,
                                      device=device), cfg, uniform_pos=True)
@@ -710,7 +742,8 @@ def beam_search(params, prompt, cfg: TransformerConfig,
             cache, _ = prefill(params, prompt, cfg, last_logits=False,
                                kv_int8=kv_int8, device=device)
         else:
-            cache = init_cache(cfg, b, kv_int8=kv_int8, device=device)
+            cache = init_cache(cfg, b, kv_int8=kv_int8, device=device,
+                               kv_heads=kvh)
             for q in range(p - 1):
                 _decode_step(params, cache, prompt[:, q], q, cfg)
         # Logits of the first generated position (recomputes the last
@@ -841,6 +874,8 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
     """
     device = resolve_device(device)
     check_on_device(params, device)
+    params = views(params)
+    kvh = local_kv_heads(params, cfg)
     prompt = torch.as_tensor(prompt, device=device).long()
     b, p = prompt.shape
     total = _check_decode_budget(p, max_new_tokens, cfg, eos_token,
@@ -868,7 +903,7 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
                              "(no prompt_lengths)")
         cache, cached_len = _resolve_prompt_cache(
             prompt_cache, cfg, b, p, max_new_tokens, use_prefill, device,
-            kv_int8)
+            kv_int8, kvh)
 
     pad_lens = None
     if prompt_lengths is not None:
@@ -909,7 +944,8 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
                                kv_int8=kv_int8, device=device)
             start = p - 1
         else:
-            cache = init_cache(cfg, b, kv_int8=kv_int8, device=device)
+            cache = init_cache(cfg, b, kv_int8=kv_int8, device=device,
+                               kv_heads=kvh)
             start = 0
         done = torch.zeros(b, dtype=torch.bool, device=device)
         for pos in range(start, total - 1):

@@ -20,6 +20,13 @@ MoE (``num_experts > 0``): training runs the reference's top-k capacity
 dispatch (:func:`_moe_block`, computed by index instead of one-hot
 einsums, with the load-balancing aux loss); ``moe_dense_routing=True``
 and the KV-cached decode run the capacity-free :func:`_moe_dense_block`.
+
+Sharded params (``parallel/layout.py``: a tree placed by a plan such as
+:func:`tp_rules`) run through the same functions: :func:`apply_hidden`,
+:func:`apply` and the losses take the tree's compute view, each block
+runs its split attention heads and FFN columns between Megatron's f and
+g over the model axis (the flash kernel on the local heads), and the
+tied embedding is gathered whole for the lookup and the unembedding.
 Not ported yet: the pipelined trunk (ROADMAP A7b).
 """
 
@@ -37,6 +44,8 @@ from torch.utils.checkpoint import (checkpoint,
 
 from distkeras_tpu_torch.models.quant import QTensor
 from distkeras_tpu_torch.ops.attention import flash_attention
+from distkeras_tpu_torch.parallel.layout import Sharded, tp_of, views
+from distkeras_tpu_torch.parallel.rules import P
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
 
 
@@ -175,6 +184,9 @@ def _leaves(tree):
 
 
 def _map_leaves(fn, tree):
+    if isinstance(tree, Sharded):  # a placed tree keeps its layout
+        return Sharded({k: _map_leaves(fn, v) for k, v in tree.items()},
+                       tree.layout)
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -256,6 +268,25 @@ def init_params(rng, cfg: TransformerConfig, device=None):
             else t.to(device)
 
     return place(params)
+
+
+def tp_rules():
+    """The Megatron layout over the ``model`` axis, keyed on the params'
+    key paths (the [L] stack axis first for per-layer leaves): attention
+    split on heads, the FFN column-parallel in and row-parallel out, the
+    embeddings on d_model.  The reference's rules, spec for spec."""
+    return [
+        (r"attn/w[qkv]$", P(None, None, "model", None)),
+        (r"attn/wo$", P(None, "model", None, None)),
+        (r"ffn/w1$", P(None, None, "model")),
+        (r"ffn/w2$", P(None, "model", None)),
+        # MoE: experts over 'expert', their matmuls over 'model'.
+        (r"moe/wg$", P()),
+        (r"moe/w1$", P(None, "expert", None, "model")),
+        (r"moe/w2$", P(None, "expert", "model", None)),
+        (r"tok_emb$", P(None, "model")),
+        (r"pos_emb$", P(None, "model")),
+    ]
 
 
 def _resolve_attention_fn(cfg: TransformerConfig, attention_fn,
@@ -449,7 +480,7 @@ def _moe_dense_block(lp, x, cfg: TransformerConfig):
 
 def block_apply(layer_params, x, cfg: TransformerConfig,
                 attention_fn: Callable, rope_ang=None, drop_rng=None,
-                return_kv=False, moe_dense_routing=False):
+                return_kv=False, moe_dense_routing=False, tp=None):
     """One pre-norm block.  Returns (x, aux_loss), or
     (x, aux_loss, (k, v)) with ``return_kv`` (post-rope, kv-heads-only —
     the decode-cache layout that ``generate.prefill`` consumes).
@@ -457,14 +488,19 @@ def block_apply(layer_params, x, cfg: TransformerConfig,
     attention and FFN outputs.  MoE configs run the capacity dispatch
     (:func:`_moe_block`, with its aux loss), or with
     ``moe_dense_routing`` the capacity-free :func:`_moe_dense_block`
-    (aux 0)."""
+    (aux 0).  ``tp`` (a ``parallel.layout.ModelAxis``): the attention
+    and FFN run their local split between f and g over the model axis,
+    and ``(k, v)`` are this rank's kv heads."""
     h = _rms_norm(x, layer_params["ln1_scale"])
-    a = _attention_block(layer_params["attn"], h, attention_fn, rope_ang,
-                         kv_groups=cfg.n_heads // cfg.kv_heads,
+    a = _attention_block(layer_params["attn"],
+                         tp.enter(h, tp.attn) if tp else h, attention_fn,
+                         rope_ang, kv_groups=cfg.n_heads // cfg.kv_heads,
                          return_kv=return_kv)
     kv = None
     if return_kv:
         a, kv = a
+    if tp:
+        a = tp.leave(a, tp.attn)
     if drop_rng is not None:
         a = _dropout(a, cfg.dropout, drop_rng)
     x = x + a
@@ -474,6 +510,9 @@ def block_apply(layer_params, x, cfg: TransformerConfig,
         y = _moe_dense_block(layer_params["moe"], h, cfg)
     elif cfg.num_experts:
         y, aux = _moe_block(layer_params["moe"], h, cfg)
+    elif tp:
+        y = tp.leave(_ffn(layer_params["ffn"], tp.enter(h, tp.ffn)),
+                     tp.ffn)
     else:
         y = _ffn(layer_params["ffn"], h)
     if drop_rng is not None:
@@ -505,9 +544,10 @@ def _remat_block(cfg: TransformerConfig, moe_dense_routing: bool = False):
     kw = {} if ops is None else {"context_fn": functools.partial(
         create_selective_checkpoint_contexts, ops)}
 
-    def block(lp, x, cfg, attention_fn, rope_ang=None, drop_rng=None):
+    def block(lp, x, cfg, attention_fn, rope_ang=None, drop_rng=None,
+              tp=None):
         if not torch.is_grad_enabled():
-            return fn(lp, x, cfg, attention_fn, rope_ang, drop_rng)
+            return fn(lp, x, cfg, attention_fn, rope_ang, drop_rng, tp=tp)
         state = None if drop_rng is None else drop_rng.get_state()
         calls = []
 
@@ -517,7 +557,7 @@ def _remat_block(cfg: TransformerConfig, moe_dense_routing: bool = False):
                 gen = torch.Generator(drop_rng.device)
                 gen.set_state(state)
             calls.append(True)
-            return fn(lp, x, cfg, attention_fn, rope_ang, gen)
+            return fn(lp, x, cfg, attention_fn, rope_ang, gen, tp=tp)
 
         return checkpoint(run, lp, x, rope_ang, use_reentrant=False, **kw)
 
@@ -553,8 +593,11 @@ def apply_hidden(params, tokens, cfg: TransformerConfig,
     ``cfg.remat`` each block is recomputed in the backward
     (:func:`_remat_block`).  ``moe_dense_routing=True`` scores MoE
     configs with the capacity-free routing of ``prefill`` and the decode
-    (the inference semantics; aux comes back 0).
+    (the inference semantics; aux comes back 0).  Sharded ``params``
+    run through their compute view (``parallel.layout.views``).
     """
+    params = views(params)
+    tp = tp_of(params)
     _check_generator(dropout_rng)
     attention_fn = _resolve_attention_fn(cfg, attention_fn, segment_ids)
     _check_len(tokens.shape[1], cfg)
@@ -565,7 +608,7 @@ def apply_hidden(params, tokens, cfg: TransformerConfig,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     block = _remat_block(cfg, moe_dense_routing)
     for lp in _layers(params["layers"], cfg.n_layers):
-        x, aux = block(lp, x, cfg, attention_fn, rope_ang, drop)
+        x, aux = block(lp, x, cfg, attention_fn, rope_ang, drop, tp=tp)
         aux_total = aux_total + aux
     return _rms_norm(x, params["ln_f_scale"]), aux_total
 
@@ -591,6 +634,7 @@ def apply(params, tokens, cfg: TransformerConfig,
     check_on_device(params, device)
     tokens = _as_ids(tokens, device, torch.long)
     with torch.no_grad():
+        params = views(params)
         x, aux_total = apply_hidden(params, tokens, cfg, attention_fn,
                                     dropout_rng, moe_dense_routing)
         return _unembed(x, params, cfg), aux_total
@@ -671,6 +715,7 @@ def _forward_nll(params, tokens, cfg: TransformerConfig,
     """
     if apply_fn is not None and hidden_fn is not None:
         raise ValueError("pass apply_fn or hidden_fn, not both")
+    params = views(params)
     device = params["tok_emb"].device
     tokens = _as_ids(tokens, device, torch.long)
     targets = tokens[:, 1:]

@@ -1,7 +1,8 @@
-"""Data parallelism over ``torch.distributed``: the mesh of processes,
-the bucketed collectives and ZeRO stages, the gradient-exchange
-policies and the bounded-staleness async tier (counterpart of
-``distkeras_tpu/parallel``, data axis only)."""
+"""Data and model parallelism over ``torch.distributed``: the mesh of
+processes, the placement plans and layouts, the bucketed collectives
+and ZeRO stages, the gradient-exchange policies and the
+bounded-staleness async tier (counterpart of ``distkeras_tpu/parallel``,
+the data and model axes)."""
 
 from distkeras_tpu_torch.parallel import collectives, rules
 from distkeras_tpu_torch.parallel.async_tier import (AsyncConfig, AsyncPlane,

@@ -48,8 +48,9 @@ import torch
 import torch.distributed as dist
 
 from distkeras_tpu_torch import obs
-from distkeras_tpu_torch.parallel.tree import (tree_flatten, tree_leaves,
-                                               tree_unflatten)
+from distkeras_tpu_torch.parallel.tree import (tree_flatten,
+                                               tree_flatten_with_names,
+                                               tree_leaves, tree_unflatten)
 
 # ~4 MB buckets, as the reference.
 DEFAULT_BUCKET_MB = 4.0
@@ -353,6 +354,90 @@ def sum_over_group(t, mesh):
     return _SumOverGroup.apply(t, mesh)
 
 
+def gather_dim(x, dim: int, mesh):
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (a
+    ``[.., n * c, ..]`` tensor from each rank's ``[.., c, ..]``)."""
+    if mesh.group is None:
+        return x.clone()
+    rows = all_gather(x.movedim(dim, 0).contiguous(), mesh)
+    return rows.reshape(mesh.size * x.shape[dim], *x.movedim(dim, 0)
+                        .shape[1:]).movedim(0, dim)
+
+
+def scatter_dim(x, dim: int, mesh):
+    """Reduce-scatter along ``dim``: the sum over ranks of this rank's
+    block of ``x`` (``dim`` split into ``n`` blocks in rank order)."""
+    if mesh.group is None:
+        return x.clone()
+    xm = x.movedim(dim, 0).contiguous()
+    row = scatter(xm.reshape(mesh.size, -1), mesh)
+    return row.reshape(xm.shape[0] // mesh.size, *xm.shape[1:]).movedim(
+        0, dim)
+
+
+def block_of(x, dim: int, mesh):
+    """This rank's block of ``x`` along ``dim`` (no communication)."""
+    c = x.shape[dim] // mesh.size
+    return x.narrow(dim, mesh.rank * c, c)
+
+
+class _GatherOnUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, summed):
+        ctx.dim, ctx.mesh, ctx.summed = dim, mesh, summed
+        return gather_dim(x, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.summed:
+            return scatter_dim(grad, ctx.dim, ctx.mesh), None, None, None
+        return (block_of(grad, ctx.dim, ctx.mesh).contiguous(), None, None,
+                None)
+
+
+def gather_on_use(x, dim: int, mesh, summed: bool = True):
+    """Gather-on-use of a leaf split along ``dim`` over ``mesh``'s axis:
+    the forward all-gathers the whole leaf; the backward reduce-scatters
+    its gradient to this rank's block (``summed``: ranks that compute on
+    different rows, as the data axis does), or takes this rank's block
+    of it (``summed=False``: ranks whose computation with the gathered
+    leaf is replicated, as a model axis's outside its split layers)."""
+    return _GatherOnUse.apply(x, dim, mesh, summed)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous().clone(), ctx.mesh), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_group(x, mesh):
+    """Megatron's f: the identity forward, an all-reduce of the gradient
+    backward (the input of a block whose weights the group splits)."""
+    return _CopyToGroup.apply(x, mesh)
+
+
+def reduce_from_group(x, mesh):
+    """Megatron's g: the all-reduce of the group's partial sums forward,
+    the identity backward (the output of a split block)."""
+    return _ReduceFromGroup.apply(x, mesh)
+
+
 def adasum_reduce(x, mesh):
     """Adasum merge of every rank's ``[C]`` contribution (rule in
     ``parallel/exchange.py``): identical contributions give the value
@@ -417,21 +502,39 @@ class DPOptimizer:
 class DataParallel(DPOptimizer):
     """The plain exchange: the local gradients' mean over the group, one
     in-place all-reduce per ~``bucket_mb`` bucket, then the replicated
-    update."""
+    update.  With a ``layout`` (``parallel/layout.py``: params placed
+    over a mesh) the group is the data axis's, a leaf split over the
+    data axis arrives summed by its gather's reduce-scatter and is only
+    divided, and the clip's and the probe's norms count each element of
+    the placed tree once over the whole mesh."""
 
-    def __init__(self, inner, mesh, bucket_mb: float = DEFAULT_BUCKET_MB):
+    def __init__(self, inner, mesh, bucket_mb: float = DEFAULT_BUCKET_MB,
+                 layout=None):
         super().__init__(inner, mesh)
         self.bucket_mb = bucket_mb
+        self.layout = layout
 
     def init(self, params):
         return self.inner.init(params)
+
+    def _named_grads(self, params):
+        return [(n, p.grad) for n, p in
+                tree_flatten_with_names(params)[0] if p.grad is not None]
 
     def exchange(self, params, state) -> None:
         if self.mesh.group is None:
             return
         # Leaves without a gradient (a frozen base) are alike on every
         # rank and stay out of the exchange.
-        leaves = [p for p in tree_leaves(params) if p.grad is not None]
+        named = [(n, p) for n, p in tree_flatten_with_names(params)[0]
+                 if p.grad is not None]
+        lay = self.layout
+        summed = [p for n, p in named if lay is not None
+                  and lay.splits_data(n)]
+        for p in summed:
+            p.grad = true_div(p.grad, self.mesh.size)
+        leaves = [p for n, p in named if lay is None
+                  or not lay.splits_data(n)]
         if not leaves:
             return
         grads = [p.grad for p in leaves]
@@ -441,11 +544,21 @@ class DataParallel(DPOptimizer):
         for p, g in zip(leaves, layout.unpack(buckets)):
             p.grad = g
 
+    def _norm_fn(self, params):
+        if self.layout is None:
+            return None
+        names = {id(p.grad): n for n, p in
+                 tree_flatten_with_names(params)[0] if p.grad is not None}
+        return lambda grads: self.layout.norm(
+            [(names[id(g)], g) for g in grads])
+
     def grad_norm(self, params, state):
+        if self.layout is not None:
+            return self.layout.norm(self._named_grads(params))
         return self.inner.grad_norm(params, state)
 
     def update(self, params, state) -> None:
-        self.inner.update(params, state)
+        self.inner.update(params, state, norm_fn=self._norm_fn(params))
 
 
 @dataclasses.dataclass
@@ -562,4 +675,6 @@ __all__ = ["Zero1Layout", "scatter", "reduce_scatter", "all_gather",
            "all_reduce", "gather_bucket", "adasum_reduce", "dist_norm",
            "zero_validate", "zero1_optimizer", "zero1_enable",
            "DPOptimizer", "DataParallel", "ZeroOptimizer", "ZeroState",
-           "gather_tree", "true_div", "DEFAULT_BUCKET_MB"]
+           "gather_tree", "true_div", "DEFAULT_BUCKET_MB", "gather_dim",
+           "scatter_dim", "gather_on_use", "copy_to_group",
+           "reduce_from_group"]

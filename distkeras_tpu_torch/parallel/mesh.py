@@ -3,18 +3,23 @@
 Counterpart of ``distkeras_tpu/parallel/mesh.py``.  The reference builds
 a ``jax.sharding.Mesh`` over every device the (multi-host) runtime sees
 and lets XLA insert the collectives; the port runs one process per
-device, joined by ``torch.distributed``, and the ``data`` axis of a
-:class:`Mesh` is the process group: its size is the world size and this
-process is replica ``rank``.  The collectives are explicit
-``torch.distributed`` calls (``parallel/collectives.py``).
+device, joined by ``torch.distributed``.  The processes form a grid in
+the reference's mesh order (``data`` major, then ``model``): rank ``r``
+sits at ``np.unravel_index(r, shape)``, and each axis above 1 has one
+sub-group per line of the grid (``dist.new_group``).  A :class:`Mesh`
+keeps the data-parallel view the trainers were written against —
+``group`` / ``rank`` / ``size`` are the ``data`` axis's — and
+:meth:`Mesh.sub` gives the same view of any other axis, so the explicit
+collectives (``parallel/collectives.py``) run over whichever axis a
+caller names.
 
 :func:`initialize_multihost` joins the group from the environment a
 launcher sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
 / ``MASTER_PORT``, or a ``file://`` ``init_method``).  The backend
 follows the device: NCCL on ``cuda:LOCAL_RANK`` (the default), gloo when
 the caller passes ``device="cpu"``; there is no silent switch from one
-to the other, and no card without ``device="cpu"`` raises.  Only the
-``data`` axis may exceed 1: tensor, sequence, pipeline and expert
+to the other, and no card without ``device="cpu"`` raises.  The
+``data`` and ``model`` axes may exceed 1; sequence, pipeline and expert
 parallelism are ROADMAP A7b.
 """
 
@@ -24,14 +29,15 @@ import dataclasses
 import datetime
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 # Canonical axis names, in mesh order (the reference's).
 AXES = ("data", "model", "pipeline", "seq", "expert")
 
-_A7B = ("is not ported yet (ROADMAP A7b: tensor, sequence, pipeline and "
-        "expert parallelism); the port's mesh has the data axis only")
+_A7B = ("is not ported yet (ROADMAP A7b: the seq, pipeline and expert "
+        "axes); the port's mesh has the data and model axes")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,14 +66,19 @@ class MeshSpec:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """The data-parallel mesh of this process: ``shape`` (every axis of
-    :data:`AXES`, only ``data`` above 1), the process ``group`` (None
-    for a single process outside any group), and this process's
-    ``rank`` on the data axis."""
+    """This process's place in the mesh: ``shape`` (every axis of
+    :data:`AXES`), ``coords`` (its coordinate on each), ``groups`` (the
+    sub-group of each axis above 1 that holds this process; None for a
+    single process) and ``world`` (the whole grid's group).  ``group``
+    / ``rank`` / ``size`` are the ``data`` axis's: the data-parallel
+    exchange, the batch split and the per-rank state run over it."""
 
     shape: dict
     group: object = None
     rank: int = 0
+    coords: dict = None
+    groups: dict = None
+    world: object = None
 
     @property
     def size(self) -> int:
@@ -77,17 +88,43 @@ class Mesh:
     def backend(self) -> str | None:
         return None if self.group is None else dist.get_backend(self.group)
 
+    @property
+    def world_size(self) -> int:
+        return int(np.prod([int(v) for v in self.shape.values()]))
+
+    def sub(self, axis: str) -> "Mesh":
+        """The one-axis view of ``axis``: a mesh whose data axis is
+        ``axis`` (its size, this process's coordinate, its sub-group),
+        so every collective of ``parallel/collectives.py`` runs over
+        it."""
+        if axis == "data":
+            return self
+        n = int(self.shape[axis])
+        return Mesh(shape=dict({a: 1 for a in AXES}, data=n),
+                    group=(self.groups or {}).get(axis),
+                    rank=int((self.coords or {}).get(axis, 0)))
+
+
+    def whole(self) -> "Mesh":
+        """The one-axis view of the whole grid (the world group)."""
+        return Mesh(shape=dict({a: 1 for a in AXES}, data=self.world_size),
+                    group=self.world if self.world_size > 1 else None,
+                    rank=0 if self.world is None
+                    else dist.get_rank(self.world))
+
 
 def check_axes(shape) -> None:
-    """Raise for a non-data axis above 1 (ROADMAP A7b)."""
-    for ax in AXES[1:]:
+    """Raise for a seq, pipeline or expert axis above 1 (ROADMAP A7b)."""
+    for ax in ("pipeline", "seq", "expert"):
         if int(shape.get(ax, 1)) > 1:
             raise NotImplementedError(f"a mesh with {ax}={shape[ax]} {_A7B}")
 
 
 def make_mesh(spec: MeshSpec | None = None, group=None) -> Mesh:
     """The mesh over ``group`` (default: the initialized default group,
-    else this process alone)."""
+    else this process alone).  Every process of the group must call it with the same ``spec``: an
+    axis whose lines are not the whole group gets its sub-groups from
+    ``dist.new_group``, a collective call."""
     spec = spec or MeshSpec()
     if group is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
@@ -95,9 +132,31 @@ def make_mesh(spec: MeshSpec | None = None, group=None) -> Mesh:
         world, rank = 1, 0
     else:
         world, rank = dist.get_world_size(group), dist.get_rank(group)
-    shape = dict(zip(AXES, spec.resolve(world)))
+    dims = spec.resolve(world)
+    shape = dict(zip(AXES, dims))
     check_axes(shape)
-    return Mesh(shape=shape, group=group, rank=rank)
+    coords = dict(zip(AXES, (int(c) for c in np.unravel_index(rank, dims))))
+    groups = {}
+    grid = np.arange(world).reshape(dims)
+    for i, ax in enumerate(AXES):
+        if dims[i] == 1 or group is None:
+            continue
+        if dims[i] == world:  # the whole group is this axis's one line
+            groups[ax] = group
+            continue
+        lines = np.moveaxis(grid, i, -1).reshape(-1, dims[i])
+        ranks = dist.get_process_group_ranks(group) \
+            if group is not dist.group.WORLD else list(range(world))
+        for line in lines:  # every process creates every line's group
+            g = dist.new_group([ranks[int(r)] for r in line])
+            if rank in line:
+                groups[ax] = g
+    return Mesh(shape=shape, group=groups.get("data"), rank=coords["data"],
+                coords=coords, groups=groups, world=group)
+
+
+def mesh_axis_size(mesh, axis: str) -> int:
+    return int(mesh.shape[axis])
 
 
 def local_device_count() -> int:
@@ -211,6 +270,7 @@ def global_batch(arr, mesh: Mesh, axis: int = 0):
     return arr[tuple(idx)]
 
 
-__all__ = ["AXES", "MeshSpec", "Mesh", "make_mesh", "local_device_count",
+__all__ = ["AXES", "MeshSpec", "Mesh", "make_mesh", "mesh_axis_size",
+           "local_device_count",
            "initialize_multihost", "equal_across_hosts", "per_host_rows",
            "global_batch", "check_axes"]

@@ -2,9 +2,11 @@
 
 The parallel layer lays leaves into fusion buckets in flatten order, so
 the port flattens the way ``jax.tree_util`` does: dict keys sorted,
-lists and tuples by index, ``None`` an empty subtree.  The leaf names
-are the reference's key paths (``"layers/attn/wq"``, ``"0"``), which the
-rule engine (``parallel/rules.py``) matches against.
+lists and tuples by index (a tuple class marked ``_tree_leaf``, the
+port's ``PartitionSpec``, is a leaf), ``None`` an empty subtree.  The
+leaf names are the reference's key paths (``"layers/attn/wq"``,
+``"0"``), which the rule engine (``parallel/rules.py``) matches
+against.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ def tree_flatten_with_names(tree, prefix: str = ""):
             sub, spec[k] = tree_flatten_with_names(tree[k], f"{prefix}{k}/")
             out += sub
         return out, spec
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not getattr(tree, "_tree_leaf",
+                                                       False):
         out, spec = [], []
         for i, v in enumerate(tree):
             sub, s = tree_flatten_with_names(v, f"{prefix}{i}/")

@@ -37,8 +37,9 @@ The port's counterpart of ``distkeras_tpu/serving``:
   snapshots and the canary rollout over ``hot_swap=True`` engines.
 
 Contract (every engine): every request's emitted tokens are exactly what
-its solo ``generate`` / ``speculative_generate`` run emits.  Not ported
-yet: ``plan=`` / ``mesh=`` (A7b).
+its solo ``generate`` / ``speculative_generate`` run emits.  With
+``plan=`` / ``mesh=`` an engine runs sharded over the model axis, SPMD
+on every rank of the mesh (``serving/engine.py``).
 """
 
 from distkeras_tpu_torch.serving.admission import (EngineClosed, QueueFull,

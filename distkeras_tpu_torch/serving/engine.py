@@ -14,15 +14,23 @@ one-lane admission step lives here too, shared by
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import math
 
 import numpy as np
 import torch
 
 from distkeras_tpu_torch import obs
-from distkeras_tpu_torch.models.generate import _decode_chunk
+from distkeras_tpu_torch.models.generate import _decode_chunk, local_kv_heads
 from distkeras_tpu_torch.models.quant import QTensor
 from distkeras_tpu_torch.models.transformer import named_leaves
-from distkeras_tpu_torch.parallel.tree import tree_flatten, tree_unflatten
+from distkeras_tpu_torch.parallel import collectives as C
+from distkeras_tpu_torch.parallel.layout import Layout, Sharded, Views, views
+from distkeras_tpu_torch.parallel.mesh import _backend_device
+from distkeras_tpu_torch.parallel.rules import serving_kv_axis
+from distkeras_tpu_torch.parallel.tree import (tree_flatten,
+                                               tree_flatten_with_names,
+                                               tree_unflatten)
 from distkeras_tpu_torch.serving.admission import _AdmissionMixin
 from distkeras_tpu_torch.serving.elastic import _ElasticMixin
 
@@ -67,10 +75,14 @@ def _own_params(tree):
     swap_params` writes into the live leaves, so engines built on one
     tree (and the caller's tree) must not alias them."""
     leaves, spec = tree_flatten(tree)
-    return tree_unflatten(spec, [
+    out = tree_unflatten(spec, [
         QTensor(x.q.clone(), x.s.clone()) if isinstance(x, QTensor)
         else x.clone() if isinstance(x, torch.Tensor) else x
         for x in leaves])
+    if isinstance(tree, Views):  # a sharded engine's view keeps its axis
+        out = Views(out)
+        out.tp = tree.tp
+    return out
 
 
 def _host_leaf(x) -> torch.Tensor:
@@ -207,6 +219,63 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
         references here, the ONE place, so no eviction path leaks a
         block."""
 
+    # Sharded serving: set by _setup_plan for plan= / mesh= engines.
+    mesh = None
+    plan = None
+    _kv_axis = None
+    _placed = None
+
+    def _setup_plan(self, params, cfg, plan, mesh):
+        """Validate ``plan=`` / ``mesh=`` (the reference's checks) and
+        return the params the engine computes with: ``params`` itself
+        unsharded, else the compute view of their placement under the
+        plan (a tree placed already keeps its layout)."""
+        if (plan is None) != (mesh is None):
+            raise ValueError(
+                "pass plan= and mesh= together: the plan's rules only "
+                "mean something against a concrete mesh (use "
+                "parallel.sharding.serving_plan() for the standard TP "
+                "layout)")
+        self.plan, self.mesh = plan, mesh
+        if plan is None:
+            return params
+        if cfg.attention_window is not None:
+            raise ValueError(
+                "pod-sharded serving needs a full-cache config "
+                "(no attention_window): the ring slab's rolling "
+                "scatter has no stable sharded layout to pin")
+        self._kv_axis = serving_kv_axis(plan, mesh, cfg)
+        self._placed = (params if isinstance(params, Sharded)
+                        else Layout(plan, mesh, params).shard(params))
+        return views(self._placed)
+
+    def _kv_heads(self):
+        """The kv heads of this rank's cache (every head unsharded)."""
+        return local_kv_heads(self.params, self.cfg)
+
+    def _check_same_call(self, what: str, *values) -> None:
+        """SPMD guard of a sharded engine: every rank must make the same
+        call with the same values; a digest compared over the mesh
+        raises on every rank, naming the call, when they differ (a
+        diverged stream would otherwise hang in a collective)."""
+        if self.mesh is None or self.mesh.world_size == 1:
+            return
+        blob = repr([np.asarray(v).tolist() if isinstance(
+            v, (np.ndarray, list, tuple)) else v for v in values])
+        h = int.from_bytes(hashlib.blake2b(blob.encode(),
+                                           digest_size=7).digest(), "big")
+        world = self.mesh.whole()
+        dev = _backend_device(world.group)
+        lo = C.all_reduce(torch.tensor([h], device=dev), world,
+                          torch.distributed.ReduceOp.MIN)
+        hi = C.all_reduce(torch.tensor([h], device=dev), world,
+                          torch.distributed.ReduceOp.MAX)
+        if int(lo) != int(hi):
+            raise ValueError(
+                f"{type(self).__name__}.{what}: the ranks of the mesh made "
+                "different calls (a sharded engine runs SPMD: every rank "
+                "must submit the same requests in the same order)")
+
     def residency(self) -> dict:
         """The engine's residency digest: resident prefix-pool ids,
         resident paged stem hashes (the paged engine fills them) and the
@@ -216,7 +285,8 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
             return {
                 "engine": type(self).__name__,
                 "lanes": self.lanes,
-                "model_shards": 1,
+                "model_shards": (int(self.mesh.shape[self._kv_axis])
+                                 if self._kv_axis is not None else 1),
                 "lanes_busy": len(self.running()),
                 "queue_depth": len(self._pending),
                 "block": None,
@@ -232,6 +302,9 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
 
         Every new leaf is copied into the live leaf tensor, so the swap
         allocates nothing on the device and no tensor changes address.
+        A sharded engine takes the full tree (every rank the same, in
+        the same call) and copies into its compute view: this rank's
+        block of each natively split leaf, every other leaf whole.
         The live leaves are the engine's own (``hot_swap=True`` copies
         the tree it was built on, once, at construction), so a swap
         changes no other engine and not the caller's tree
@@ -257,6 +330,12 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
                     f"swap_params(version={version}) <= live version "
                     f"{self.param_version}: versions are monotone "
                     "(rollback passes allow_downgrade=True)")
+            if self._placed is not None:  # the full tree -> the view
+                lay = self._placed.layout
+                named, spec = tree_flatten_with_names(new_params)
+                new_params = tree_unflatten(spec, [
+                    lay.view_leaf(n, _host_leaf(x)) if n in lay.specs
+                    else x for n, x in named])
             old_leaves, old_spec = _tensor_leaves(self.params)
             new_leaves, new_spec = _tensor_leaves(new_params)
             if old_spec != new_spec or len(old_leaves) != len(new_leaves):
@@ -284,17 +363,32 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
             return version
 
     def memory_footprint(self) -> dict:
-        """Param and KV bytes, read from the live tensors (one device,
-        so the per-device figures equal the totals)."""
+        """Param and KV bytes, total and on this device, read from the
+        live tensors.  Unsharded, the per-device figures equal the
+        totals; sharded, the per-device ones are this rank's placed
+        slices and cache heads (the reference's addressable-shard
+        count; the compute view's gathered embeddings are not part of
+        the placement)."""
         def nbytes(tree):
             return sum(t.numel() * t.element_size()
                        for _, leaf in named_leaves(tree)
                        for t in ((leaf.q, leaf.s) if isinstance(
                            leaf, QTensor) else (leaf,)))
 
-        p_bytes, kv_bytes = nbytes(self.params), nbytes(self.cache)
-        return {"param_bytes": p_bytes, "param_bytes_per_device": p_bytes,
-                "kv_bytes": kv_bytes, "kv_bytes_per_device": kv_bytes}
+        if self._placed is None:
+            p_bytes, kv_bytes = nbytes(self.params), nbytes(self.cache)
+            return {"param_bytes": p_bytes,
+                    "param_bytes_per_device": p_bytes,
+                    "kv_bytes": kv_bytes, "kv_bytes_per_device": kv_bytes}
+        lay = self._placed.layout
+        p_total = sum(math.prod(lay.full_shapes[n]) * t.element_size()
+                      for n, t in named_leaves(self._placed))
+        kv_dev = nbytes(self.cache)
+        split = (int(self.mesh.shape[self._kv_axis])
+                 if self._kv_axis is not None else 1)
+        return {"param_bytes": p_total,
+                "param_bytes_per_device": nbytes(self._placed),
+                "kv_bytes": kv_dev * split, "kv_bytes_per_device": kv_dev}
 
     def _validate_request_args(self, prompt, max_new_tokens: int):
         """The prompt/budget checks every engine's submit() runs —

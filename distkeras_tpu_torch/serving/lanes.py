@@ -34,10 +34,10 @@ import torch
 
 from distkeras_tpu_torch import obs
 from distkeras_tpu_torch.models.generate import (_decode_chunk, _min_p_mask,
-                                                 _not_ported,
                                                  _position_generator,
                                                  _resolve_prompt_cache,
                                                  _top_p_mask, init_cache,
+                                                 local_kv_heads,
                                                  rolling_eligible,
                                                  top_k_mask)
 from distkeras_tpu_torch.models.transformer import TransformerConfig
@@ -121,9 +121,14 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
     independently and the caller's tree never changes.  Refused with ``prompt_cache=`` / ``prefix_pool=``:
     their K/V was computed under the weights they were prefilled with.
 
-    Not ported yet: ``plan=`` / ``mesh=`` (ROADMAP A7b), which raises
-    naming its item.  Runs on ``device`` (the card unless
-    ``device="cpu"``), where the params must already live.
+    ``plan=`` / ``mesh=``: sharded serving, SPMD on every rank of the
+    mesh (``serving/engine.py``); ``params`` is the full tree (or a
+    placed one), the cache holds this rank's kv heads.  Full-cache
+    configs only; ``prompt_cache=`` is refused, a ``prefix_pool=`` must
+    be built with the same mesh and KV axis, and ``hot_swap=True`` takes
+    full trees (every rank the same).
+    Runs on ``device`` (the card unless ``device="cpu"``), where the
+    params must already live.
     """
 
     def __init__(self, params, cfg: TransformerConfig, lanes: int = 8,
@@ -138,14 +143,18 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
                  prefill_chunk: int | None = None, prefix_pool=None,
                  plan=None, mesh=None, hot_swap: bool = False,
                  device=None):
-        if plan is not None or mesh is not None:
-            raise _not_ported("pod-sharded serving (plan= / mesh=)", "A7b")
+        if plan is not None and prompt_cache is not None:
+            raise ValueError(
+                "plan= does not compose with prompt_cache= (one "
+                "baked-in prefix); use prefix_pool= built with "
+                "the same mesh, or a PagedBatcher pinned stem")
         if not isinstance(kv_int8, bool):
             raise ValueError(
                 f"kv_int8 must be a bool here (got {kv_int8!r}); "
                 'kv_int8="prefill" is a PagedBatcher admission mode')
         self.device = resolve_device(device)
         check_on_device(params, self.device)
+        params = self._setup_plan(params, cfg, plan, mesh)
         self._rolling = False
         if cfg.attention_window is not None:
             if not rolling_eligible(cfg):
@@ -269,8 +278,24 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
                 raise ValueError(
                     "prefix_pool quantization must match kv_int8= "
                     "(build the pool with the engine's kv_int8)")
+            if getattr(prefix_pool, "mesh", None) is not mesh:
+                raise ValueError(
+                    "prefix_pool placement must match the engine's: "
+                    "build the pool with PrefixPool(..., mesh=, "
+                    "kv_axis=) matching plan=/mesh= (a slab placed "
+                    "differently from the cache would make every "
+                    "pooled admission reshard the segment)")
+            if (mesh is not None
+                    and getattr(prefix_pool, "kv_axis", None)
+                    != self._kv_axis):
+                raise ValueError(
+                    f"prefix_pool kv_axis="
+                    f"{getattr(prefix_pool, 'kv_axis', None)!r} does "
+                    f"not match the plan-derived KV axis "
+                    f"{self._kv_axis!r}")
             want = _spec(init_cache(cfg, 1, kv_int8=kv_int8,
-                                    device=self.device))
+                                    device=self.device,
+                                    kv_heads=local_kv_heads(params, cfg)))
             got = {n: (tuple(a.shape[1:]), a.dtype)
                    for n, a in prefix_pool.slab.items()}
             if want != got or prefix_pool.device != self.device:
@@ -341,7 +366,7 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
         cache-layout decision point (monolithic ``[L, lanes, max_len,
         ...]`` here; the paged engine returns its block slab)."""
         return init_cache(self.cfg, lanes, kv_int8=self.kv_int8,
-                          device=self.device)
+                          device=self.device, kv_heads=self._kv_heads())
 
     def _init_device_state(self, lanes: int) -> None:
         """One cache, per-lane position and current token (the one the
@@ -555,6 +580,9 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
         prompt longer than the chunk returns its lane PARKED: the other
         chunks run one per ``step()``.  Elastic engines admit through
         :meth:`enqueue` only.  Runs under the engine lock."""
+        self._check_same_call("submit", prompt, max_new_tokens, seed,
+                              temperature, top_p, min_p, eos_token,
+                              prefix_id)
         with obs.held(self._admission_lock):
             return self._submit_locked(prompt, max_new_tokens, seed,
                                        temperature, top_p, min_p,

@@ -245,8 +245,10 @@ class PagedBatcher(ContinuousBatcher):
     identity), ``prompt_cache=`` / ``prefix_pool=`` (pinned stems subsume
     them).  :meth:`export_blocks` / :meth:`import_blocks`: the two halves
     of disaggregated serving (a stem's blocks read off one slab, shipped,
-    and spliced into another).  Not ported yet: ``plan=`` / ``mesh=``
-    (ROADMAP A7b) and ``traced_for_analysis`` (A11).  Runs on ``device``
+    and spliced into another).  ``plan=`` / ``mesh=``: sharded paging,
+    SPMD on every rank of the mesh; the block slab holds this rank's kv
+    heads (``ContinuousBatcher``'s contract).  Not ported yet:
+    ``traced_for_analysis`` (A11).  Runs on ``device``
     (the card unless ``device="cpu"``), where the params must already
     live.
     """
@@ -262,8 +264,6 @@ class PagedBatcher(ContinuousBatcher):
                  scale_down_after: int = 8, step_windows=(1,),
                  prefill_chunk: int | None = None, plan=None,
                  mesh=None, device=None):
-        if plan is not None or mesh is not None:
-            raise _not_ported("pod-sharded paging (plan= / mesh=)", "A7b")
         if cfg.attention_window is not None:
             raise ValueError(
                 "paged KV needs a full-cache config (no "
@@ -319,7 +319,8 @@ class PagedBatcher(ContinuousBatcher):
                          scale_up_after=scale_up_after,
                          scale_down_after=scale_down_after,
                          step_windows=step_windows,
-                         prefill_chunk=prefill_chunk, device=device)
+                         prefill_chunk=prefill_chunk, plan=plan,
+                         mesh=mesh, device=device)
 
     # ------------------------------------------------ storage layout
 
@@ -329,7 +330,7 @@ class PagedBatcher(ContinuousBatcher):
         del lanes
         slab_cfg = dataclasses.replace(self.cfg, max_len=self.block)
         return init_cache(slab_cfg, self.n_blocks, kv_int8=self.kv_int8,
-                          device=self.device)
+                          device=self.device, kv_heads=self._kv_heads())
 
     def _init_device_state(self, lanes: int) -> None:
         super()._init_device_state(lanes)

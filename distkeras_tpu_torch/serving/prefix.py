@@ -67,6 +67,12 @@ class PrefixPool:
     for a ``ContinuousBatcher(kv_int8=True)``; speculative pools hold
     full-precision caches.
 
+    ``mesh=`` / ``kv_axis=`` (default ``"model"``): a pool for a sharded
+    ``ContinuousBatcher(plan=, mesh=)``, whose slab holds this rank's kv
+    heads, split over ``kv_axis`` as the engine's cache is (``None``:
+    every head); its segments come from ``prefill`` on the engine's
+    sharded params.
+
     Thread-safe: one leaf lock serializes ``put`` / ``acquire`` /
     ``release`` (engines call acquire/release under their own admission
     locks; nothing is acquired under this one).
@@ -74,9 +80,15 @@ class PrefixPool:
 
     def __init__(self, cfg: TransformerConfig, slots: int = 4,
                  kv_int8: bool = False,
-                 draft_cfg: TransformerConfig | None = None, device=None):
+                 draft_cfg: TransformerConfig | None = None, device=None,
+                 mesh=None, kv_axis: str | None = "model"):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if mesh is not None and draft_cfg is not None:
+            raise ValueError(
+                "sharded pools serve pod-sharded ContinuousBatchers; "
+                "SpeculativeBatcher has no plan= mode, so a sharded "
+                "speculative pool has no consumer")
         if cfg.attention_window is not None or (
                 draft_cfg is not None
                 and draft_cfg.attention_window is not None):
@@ -93,8 +105,19 @@ class PrefixPool:
         self.draft_cfg = draft_cfg
         self.kv_int8 = kv_int8
         self.slots = slots
+        self.mesh = mesh
+        self.kv_axis = kv_axis if mesh is not None else None
+        kv_heads = None
+        if self.kv_axis is not None:
+            n = int(mesh.shape[self.kv_axis])
+            if cfg.kv_heads % n:
+                raise ValueError(
+                    f"kv_heads={cfg.kv_heads} is not divisible by "
+                    f"mesh axis {self.kv_axis!r} (size {n})")
+            kv_heads = cfg.kv_heads // n
         if draft_cfg is None:
-            seg = init_cache(cfg, 1, kv_int8=kv_int8, device=self.device)
+            seg = init_cache(cfg, 1, kv_int8=kv_int8, device=self.device,
+                             kv_heads=kv_heads)
             self.slab = {n: a.new_zeros((slots,) + a.shape)
                          for n, a in seg.items()}
         else:

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch import obs
-from distkeras_tpu_torch.models.generate import (_decode_chunk, _not_ported,
+from distkeras_tpu_torch.models.generate import (_decode_chunk,
+                                                 local_kv_heads,
                                                  _position_generator,
                                                  init_cache,
                                                  rolling_eligible)
@@ -65,7 +66,10 @@ class SpeculativeBatcher(_LaneEngine):
     degrades the engine for good to a target-only decode step: requests
     still complete, and greedy ones keep their tokens.  Either tree may be
     int8 (``quantize_params``); the engine has no ``kv_int8`` mode, as in
-    the reference.  ``plan=`` / ``mesh=`` raise (ROADMAP A7b).
+    the reference.  ``plan=`` / ``mesh=``: the target model runs
+    sharded (SPMD on every rank, ``tcache`` holding this rank's kv
+    heads) while the draft runs whole on every rank; full-cache configs
+    only, no ``prefix_pool=``.
     """
 
     def __init__(self, params, draft_params, cfg: TransformerConfig,
@@ -74,11 +78,31 @@ class SpeculativeBatcher(_LaneEngine):
                  eos_token=None, prompt_buckets=(8, 32, 128, 512),
                  max_queue: int = 0, clock=None, prefix_pool=None,
                  plan=None, mesh=None, device=None):
-        if plan is not None or mesh is not None:
-            raise _not_ported("pod-sharded serving (plan= / mesh=)", "A7b")
+        if (plan is None) != (mesh is None):
+            raise ValueError(
+                "pass plan= and mesh= together: the plan's rules only "
+                "mean something against a concrete mesh (use "
+                "parallel.sharding.serving_plan() for the standard TP "
+                "layout)")
+        if plan is not None:
+            if cfg.attention_window is not None:
+                raise ValueError(
+                    "pod-sharded speculative serving needs full-cache "
+                    "configs (no attention_window): the ring slab's "
+                    "rolling scatter has no stable sharded layout to "
+                    "pin")
+            if prefix_pool is not None:
+                raise ValueError(
+                    "plan= does not compose with prefix_pool= on the "
+                    "speculative engine: pooled segments are (target, "
+                    "draft) cache pairs and the draft half replicates "
+                    "while the target shards — one slab placement "
+                    "cannot satisfy both; use the dense engine for "
+                    "pooled sharded serving")
         self.device = resolve_device(device)
         check_on_device(params, self.device)
         check_on_device(draft_params, self.device)
+        params = self._setup_plan(params, cfg, plan, mesh)
         self._rolling = False
         if (cfg.attention_window is None) != (draft_cfg.attention_window
                                               is None):
@@ -167,7 +191,8 @@ class SpeculativeBatcher(_LaneEngine):
         self.degraded_error = None
 
         dev = self.device
-        self.tcache = init_cache(cfg, lanes, device=dev)
+        self.tcache = init_cache(cfg, lanes, device=dev,
+                                 kv_heads=local_kv_heads(params, cfg))
         self.dcache = init_cache(draft_cfg, lanes, device=dev)
         self.pos = torch.zeros((lanes,), dtype=torch.long, device=dev)
         self.cur = torch.zeros_like(self.pos)     # token at pos
@@ -222,6 +247,8 @@ class SpeculativeBatcher(_LaneEngine):
         samples).  ``ttl`` / ``deadline`` and the engine lock as in
         :meth:`ContinuousBatcher.submit`; ``prefix_id``: decode past a
         pooled (target, draft) prefix pair."""
+        self._check_same_call("submit", prompt, max_new_tokens, seed,
+                              eos_token, prefix_id)
         with obs.held(self._admission_lock):
             return self._submit_locked(prompt, max_new_tokens, seed,
                                        eos_token, ttl, deadline, prefix_id)

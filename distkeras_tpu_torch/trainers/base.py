@@ -343,7 +343,8 @@ class Trainer(CheckpointingBase):
         optimizer state gathered; see ``trainers/carry.py``)."""
         return {"tv": list(state.tv), "ntv": list(state.ntv),
                 "opt": opt_tree(state.opt_state, state.tv,
-                                getattr(self, "mesh", None)),
+                                getattr(self, "mesh", None),
+                                getattr(self, "layout", None)),
                 "step": state.step}
 
     def _load_state(self, state: TrainState, tree) -> None:

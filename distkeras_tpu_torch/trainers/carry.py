@@ -14,7 +14,9 @@ trained under.
   each rank's shard back out of them by its layout.  An exchange state
   adds its error-feedback residuals ``e1`` / ``e2``, which are this
   rank's own and so are stacked over the ranks (``[n, ...]``), and its
-  ``residual_norm``.
+  ``residual_norm``.  Under a placed tree (``parallel/layout.py``) each
+  moment and the EMA are gathered whole by their leaf's spec, and
+  restore cuts this rank's slices back out.
 - **Per-rank state** (:func:`stack_tree` / :func:`unstack_tree`): a
   replica's state (the replica family) and a rank's dropout generator
   differ by rank; each tensor leaf is stacked ``[n, ...]`` over the
@@ -92,30 +94,38 @@ def _slot_value(v, like):
     return v
 
 
-def _plain_tree(state, params) -> dict:
+def _plain_tree(state, params, layout=None) -> dict:
     names = {id(t): n for n, t in named_leaves(params)}
+    whole = (lambda n, v: v) if layout is None else layout.gather_leaf
     slots = {}
     for p in state.leaves:
         st = state.torch_opt.state.get(p)
         if st:
-            slots[names[id(p)]] = dict(st)
-    ema = None if state.ema is None else dict(named_leaves(state.ema))
+            n = names[id(p)]
+            slots[n] = {k: whole(n, v) if _is_moment(v) else v
+                        for k, v in st.items()}
+    ema = None if state.ema is None else {
+        n: whole(n, v) for n, v in named_leaves(state.ema)}
     return {"count": state.count, "slots": slots, "ema": ema}
 
 
-def _load_plain(state, params, tree) -> None:
+def _load_plain(state, params, tree, layout=None) -> None:
     names = {id(t): n for n, t in named_leaves(params)}
+    cut = (lambda n, v: v) if layout is None else layout.local_leaf
     state.count = tree["count"]
     opt = state.torch_opt
     for p in state.leaves:
-        st = tree["slots"].get(names[id(p)])
+        n = names[id(p)]
+        st = tree["slots"].get(n)
         if st is not None:
-            opt.state[p] = {k: _slot_value(v, p) for k, v in st.items()}
+            opt.state[p] = {k: _slot_value(cut(n, v) if _is_moment(v)
+                                           else v, p)
+                            for k, v in st.items()}
     if state.ema is not None:
         saved = tree["ema"]
         with torch.no_grad():
             for n, s in named_leaves(state.ema):
-                s.copy_(saved[n])
+                s.copy_(cut(n, saved[n]))
 
 
 def _zero_names(zs: ZeroState) -> list:
@@ -175,9 +185,10 @@ def _load_zero(zs: ZeroState, tree, full_params) -> None:
                 s.copy_(v)
 
 
-def opt_tree(opt_state, params, mesh) -> dict | None:
+def opt_tree(opt_state, params, mesh, layout=None) -> dict | None:
     """The full tree of ``opt_state`` (an ``OptState`` over ``params``,
-    a ``ZeroState``, or an ``ExchangeState``); None for no state."""
+    a ``ZeroState``, or an ``ExchangeState``); None for no state.
+    ``layout``: the placement of ``params`` (its moments gathered)."""
     if opt_state is None:
         return None
     if isinstance(opt_state, ExchangeState):
@@ -192,13 +203,15 @@ def opt_tree(opt_state, params, mesh) -> dict | None:
                 "residual_norm": opt_state.residual_norm.detach().clone()}
     if isinstance(opt_state, ZeroState):
         return _zero_tree(opt_state)
-    return _plain_tree(opt_state, params)
+    return _plain_tree(opt_state, params, layout)
 
 
-def load_opt_tree(opt_state, params, tree, mesh, full_params=None) -> None:
+def load_opt_tree(opt_state, params, tree, mesh, full_params=None,
+                  layout=None) -> None:
     """Load ``tree`` (from :func:`opt_tree`) into the fresh ``opt_state``
     in place.  ``full_params``: the restored parameters by key path, for
-    a ZeRO state's parameter shards."""
+    a ZeRO state's parameter shards; ``layout``: the placement of
+    ``params`` (each moment cut to this rank's slice)."""
     if opt_state is None:
         return
     if isinstance(opt_state, ExchangeState):
@@ -216,7 +229,7 @@ def load_opt_tree(opt_state, params, tree, mesh, full_params=None) -> None:
     if isinstance(opt_state, ZeroState):
         _load_zero(opt_state, tree, full_params)
         return
-    _load_plain(opt_state, params, tree)
+    _load_plain(opt_state, params, tree, layout)
 
 
 def copy_leaves(dst, src) -> None:

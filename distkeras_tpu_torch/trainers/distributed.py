@@ -21,8 +21,11 @@ means, from one all-reduce at the end of the run.  A BatchNorm model's
 batch statistics are the global batch's under the default synchronous
 exchange (``models/batchnorm.py::synchronized`` around every step), so
 ``num_workers`` ranks train as one device on the global batch; the
-exchange policies refuse such models, as the reference does.  ``fsdp=True``, a
-mesh with a non-data axis and rule-driven plans are ROADMAP A7b.
+exchange policies refuse such models, as the reference does.
+``fsdp=True`` (or ``plan=fsdp_plan()``) places each trainable variable
+by the reference's ``_augment_fsdp`` spec over the data axis (its
+Keras-layout shape): a rank holds its slices, the step gathers them on
+use and reduce-scatters their gradients (``parallel/layout.py``).
 """
 
 from __future__ import annotations
@@ -42,17 +45,19 @@ from distkeras_tpu_torch.parallel.collectives import (DataParallel,
 from distkeras_tpu_torch.parallel.exchange import (ExchangeConfig,
                                                    ExchangeOptimizer,
                                                    residual_norm_of)
+from distkeras_tpu_torch.parallel.collectives import gather_on_use
+from distkeras_tpu_torch.parallel.layout import Layout, SpecList
 from distkeras_tpu_torch.parallel.mesh import check_axes, global_batch, \
     make_mesh
+from distkeras_tpu_torch.parallel.rules import P
 from distkeras_tpu_torch.parallel.sharding import (ExchangePlan,
                                                    ShardingPlan, Zero1Plan,
-                                                   dp_plan, zero1_plan,
-                                                   zero3_plan)
+                                                   dp_plan, fsdp_plan,
+                                                   zero1_plan, zero3_plan)
 from distkeras_tpu_torch.trainers.base import (Trainer,
                                                normalize_zero_args)
 from distkeras_tpu_torch.trainers.carry import copy_leaves, load_opt_tree
 
-_A7B = "(ROADMAP A7b: rule-driven parameter sharding, tensor parallelism)"
 
 
 class DistributedTrainer(Trainer):
@@ -93,14 +98,11 @@ class DistributedTrainer(Trainer):
                          num_epoch=num_epoch, **kw)
         zero, zero1, zero_bucket_mb = normalize_zero_args(
             zero, zero1, zero_bucket_mb, zero1_bucket_mb)
-        if fsdp:
-            raise NotImplementedError(
-                f"{type(self).__name__}(fsdp=True) is not ported yet {_A7B};"
-                " zero=3 shards the parameters over the data axis")
         if plan is not None and not isinstance(plan, ShardingPlan):
-            raise NotImplementedError(
-                f"plan={plan!r} is not ported yet {_A7B}; the port takes "
-                "dp_plan() / zero1_plan() / zero3_plan()")
+            raise TypeError(
+                f"plan={plan!r}: a plan is a parallel.sharding."
+                "ShardingPlan (dp_plan(), fsdp_plan(), zero1_plan(), "
+                "zero3_plan(), ...)")
         if device_data and not self._supports_device_data:
             raise ValueError(
                 f"device_data=True is not supported by "
@@ -133,7 +135,7 @@ class DistributedTrainer(Trainer):
                     "device_data=True: the exchange layer computes "
                     "per-replica gradients in a shard_map the indexed "
                     "data plane does not route through")
-            if plan is not None:
+            if fsdp or plan is not None:
                 raise ValueError(
                     "merge_rule/sync_every/compress build their own "
                     "placement plan; they do not compose with fsdp=True "
@@ -163,7 +165,7 @@ class DistributedTrainer(Trainer):
                 "probe_metrics does not compose with device_data=True "
                 "(the indexed data plane's scanned step has no probe "
                 "output slot)")
-        if zero and plan is not None:
+        if sum((fsdp, bool(zero), plan is not None)) > 1:
             raise ValueError(
                 "pass only one of plan=, fsdp=True, zero=/zero1=True — "
                 "they are alternative placement policies for the same "
@@ -176,7 +178,9 @@ class DistributedTrainer(Trainer):
         if not exchange.is_default:
             self.plan = ExchangePlan(exchange, zero1=zero1)
         else:
-            self.plan = plan or (zero1_plan(zero_bucket_mb) if zero == 1
+            self.plan = plan or (fsdp_plan() if fsdp
+                                 else zero1_plan(zero_bucket_mb)
+                                 if zero == 1
                                  else Zero1Plan(zero_bucket_mb) if zero == 2
                                  else zero3_plan(zero_bucket_mb)
                                  if zero == 3 else dp_plan())
@@ -224,21 +228,71 @@ class DistributedTrainer(Trainer):
         elif (self._supports_exchange and exchange.sync_every == 1
               and self.mesh.group is not None):
             # The replica family exchanges parameters in its own rules.
-            self.adapter.optimizer = DataParallel(inner, self.mesh)
+            self.layout = self._placement()
+            self.adapter.optimizer = DataParallel(inner, self.mesh,
+                                                  layout=self.layout)
+
+    def _placement(self):
+        """The layout of the trainable variables under a rule-driven
+        plan (each leaf's spec from its Keras-layout shape and path,
+        carried to the torch layout through the variable's
+        permutation), or None when the plan splits nothing."""
+        plan = self.plan
+        if not (plan.rules or plan.fsdp_axis):
+            return None
+        specs = []
+        for path, perm, p in zip(self.adapter.tv_paths,
+                                 self.adapter.ref_perms(),
+                                 self.adapter.model.parameters()):
+            shape = tuple(p.shape) if perm is None else tuple(
+                p.shape[i] for i in perm)
+            ref = tuple(plan.spec_for(path, shape=shape, mesh=self.mesh))
+            ref += (None,) * (len(shape) - len(ref))
+            entries = list(ref) if perm is None else [None] * len(shape)
+            if perm is not None:  # torch dim perm[j] is Keras dim j
+                for j, e in enumerate(ref):
+                    entries[perm[j]] = e
+            specs.append(P(*entries))
+        layout = Layout(SpecList(specs), self.mesh,
+                        list(self.adapter.model.parameters()))
+        if not any(layout.gathers.values()):
+            return None
+        mesh = self.mesh
+
+        def tv_view(tv):
+            out = []
+            for i, x in enumerate(tv):
+                for d, ax in layout.gathers[str(i)]:
+                    x = gather_on_use(x, d, mesh.sub(ax))
+                out.append(x)
+            return out
+
+        self.adapter.tv_view = tv_view
+        return layout
 
     # ------------------------------------------------------------ helpers
 
+    # The placement of the trainable variables (fsdp / a rule-driven
+    # plan), or None: every variable whole on every rank.
+    layout = None
+
     def _init_state(self):
-        """A fresh state; under stage 3 ``tv`` is this rank's shards."""
+        """A fresh state; under stage 3 ``tv`` is this rank's shards, and
+        under a placement this rank's slices."""
         state = self.adapter.init_state()
         if self.zero >= 3:
             state.tv = state.opt_state.shards
+        if self.layout is not None:
+            state.tv = self.layout.shard(state.tv)
+            state.opt_state = self.adapter.optimizer.init(state.tv)
         return state
 
     def _full_tv(self, state) -> list:
         if self.zero >= 3:
             zs = state.opt_state
             return gather_tree(zs.layout, zs.shards, self.mesh)
+        if self.layout is not None:
+            return self.layout.gather(list(state.tv))
         return state.tv
 
     def _state_tree(self, state) -> dict:
@@ -254,20 +308,23 @@ class DistributedTrainer(Trainer):
         (of the parameters under stage 3, of the optimizer state under
         every stage) cut back out of it by this rank's layout."""
         full = {str(i): t for i, t in enumerate(tree["tv"])}
-        if self.zero < 3:
+        if self.layout is not None:
+            copy_leaves(state.tv, self.layout.shard(list(tree["tv"])))
+        elif self.zero < 3:
             copy_leaves(state.tv, tree["tv"])
         copy_leaves(state.ntv, tree["ntv"])
         load_opt_tree(state.opt_state, state.tv, tree["opt"], self.mesh,
-                      full_params=full)
+                      full_params=full, layout=self.layout)
         state.step = tree["step"]
 
     def _eval_state_view(self, pytree):
-        if self.zero >= 3 and not isinstance(pytree, dict):
+        if (self.zero >= 3 or self.layout is not None) \
+                and not isinstance(pytree, dict):
             return self._full_tv(pytree), pytree.ntv
         return super()._eval_state_view(pytree)
 
     def _export(self, state):
-        if self.zero >= 3:
+        if self.zero >= 3 or self.layout is not None:
             state = state.replace(tv=self._full_tv(state))
         return super()._export(state)
 

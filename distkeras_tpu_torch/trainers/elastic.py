@@ -94,14 +94,15 @@ class ReplicaTrainer(DistributedTrainer):
     _supports_device_data = True
 
     def __init__(self, keras_model, loss="categorical_crossentropy", **kw):
-        if kw.pop("fsdp", False):
+        plan = kw.get("plan")
+        if kw.pop("fsdp", False) or (
+                plan is not None and getattr(plan, "fsdp_axis", None)):
             raise ValueError(
                 f"{type(self).__name__} cannot use FSDP: each replica "
                 "holds intentionally divergent full weights (that is the "
                 "algorithm), so there is no single parameter set to "
                 "scatter. Use ADAG/DynSGD with fsdp=True for "
                 "memory-sharded data parallelism.")
-        plan = kw.get("plan")
         if kw.pop("zero1", False) or kw.pop("zero", 0) or (
                 plan is not None and getattr(plan, "zero", 0)):
             raise ValueError(

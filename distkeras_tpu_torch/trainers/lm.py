@@ -24,9 +24,17 @@ Data parallelism: one process per device, joined by ``torch.distributed``
 trains on rows ``[r B/n, (r+1) B/n)`` of each microbatch, as
 ``P("data")`` places them in the reference.  ``zero=1|2|3``,
 ``merge_rule``, ``sync_every``, ``compress`` / ``topk_frac`` take the
-reference's meanings, compositions and refusals.  ``rules``,
-``microbatches``, ``fsdp`` and a non-data mesh axis (tensor, sequence,
-pipeline, expert parallelism: ROADMAP A7b) raise
+reference's meanings, compositions and refusals.
+
+The model axis and FSDP: ``mesh=make_mesh(MeshSpec(data=d, model=m))``
+places the parameters by ``rules`` (default ``tp_rules()``, the
+reference's) and ``fsdp=True`` adds the data axis (``_augment_fsdp``);
+each rank holds its slices (``parallel/layout.py``), runs its attention
+heads and FFN columns between one all-reduce pair a block, gathers the
+other splits on use and reduce-scatters their gradients, and the
+data-axis exchange runs over its data line.  ``train`` returns the full
+tree (a gather), and checkpoints hold full leaves.  ``microbatches``
+and a seq, pipeline or expert axis (ROADMAP A7b) raise
 ``NotImplementedError``.
 
 Checkpoints (``checkpoint_dir`` / ``checkpoint_every`` /
@@ -67,7 +75,9 @@ from distkeras_tpu_torch.parallel.exchange import (ExchangeConfig,
                                                    ExchangeOptimizer,
                                                    merge_local_params,
                                                    residual_norm_of)
-from distkeras_tpu_torch.parallel.mesh import check_axes, make_mesh
+from distkeras_tpu_torch.parallel.layout import Layout, Sharded
+from distkeras_tpu_torch.parallel.mesh import AXES, check_axes, make_mesh
+from distkeras_tpu_torch.parallel.sharding import ShardingPlan
 from distkeras_tpu_torch.parallel.tree import tree_leaves
 from distkeras_tpu_torch.trainers.base import (CheckpointingBase,
                                                normalize_zero_args)
@@ -77,10 +87,7 @@ from distkeras_tpu_torch.trainers.optim import LM_NAMES, Optimizer
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
 
 # Reference knobs not ported yet: name -> (default, ROADMAP item).
-_UNPORTED = {
-    "rules": (None, "A7b"), "microbatches": (None, "A7b"),
-    "fsdp": (False, "A7b"),
-}
+_UNPORTED = {"microbatches": (None, "A7b")}
 
 # Staging more than this fraction of the device's memory fails fast (the
 # rest of the step still needs activations, params and moments).
@@ -252,6 +259,7 @@ class LMTrainer(CheckpointingBase):
                  ema_decay: float | None = None, device_data: bool = False,
                  tokens_col: str = "tokens", profile_dir: str | None = None,
                  profile_steps: int = 3, device=None, mesh=None,
+                 rules=None, fsdp: bool = False,
                  zero: int | None = None, zero1: bool = False,
                  zero1_bucket_mb: float | None = None,
                  zero_bucket_mb: float | None = None,
@@ -268,7 +276,7 @@ class LMTrainer(CheckpointingBase):
             if value != default:
                 raise NotImplementedError(
                     f"LMTrainer({name}=...) is not ported yet (ROADMAP "
-                    f"{item}); the port's mesh is data-parallel")
+                    f"{item}: the pipeline axis)")
         zero, zero1, zero_bucket_mb = normalize_zero_args(
             zero, zero1, zero_bucket_mb, zero1_bucket_mb)
         if grad_accum < 1:
@@ -292,8 +300,28 @@ class LMTrainer(CheckpointingBase):
                                    grad_clip_norm, ema_decay)
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else make_mesh()
+        missing = [a for a in AXES if a not in self.mesh.shape]
+        if missing:
+            raise ValueError(
+                f"mesh is missing axes {missing}: LMTrainer needs the "
+                f"canonical axis set {AXES} (build the mesh with "
+                "parallel.mesh.make_mesh / MeshSpec, which always carries "
+                "all five, sized 1 when unused)")
         check_axes(self.mesh.shape)
         n = self.mesh.size
+        n_model = int(self.mesh.shape["model"])
+        if (n_model > 1 and rules is None and cfg.n_kv_heads is not None
+                and cfg.kv_heads % n_model):
+            raise ValueError(
+                f"GQA with Megatron TP: n_kv_heads={cfg.kv_heads} must "
+                f"divide by the mesh model axis ({n_model}) — the default "
+                "tp_rules shard K/V projections over their head "
+                "dimension. Use more KV heads, a smaller model axis, or "
+                "custom rules.")
+        self.fsdp = fsdp
+        self.plan = ShardingPlan(
+            rules=tfm.tp_rules() if rules is None else rules,
+            fsdp_axis="data" if fsdp else None)
         if self.mesh.backend == "nccl" and self.device.type != "cuda":
             raise ValueError(
                 f"the process group runs NCCL but the trainer's device is "
@@ -302,7 +330,7 @@ class LMTrainer(CheckpointingBase):
             raise ValueError(
                 f"batch_size={batch_size} (the global batch) must divide "
                 f"by the data axis ({n} ranks)")
-        if n > 1 and cfg.num_experts:
+        if self.mesh.world_size > 1 and cfg.num_experts:
             raise NotImplementedError(
                 "MoE over more than one rank is not ported yet (ROADMAP "
                 "A7b, expert parallelism): its load-balancing loss is a "
@@ -317,7 +345,7 @@ class LMTrainer(CheckpointingBase):
             **({} if zero_bucket_mb is None
                else {"bucket_mb": zero_bucket_mb}))
         if not exchange.is_default:
-            if cfg.num_experts:
+            if cfg.num_experts or n_model > 1 or fsdp:
                 raise ValueError(
                     "merge_rule/sync_every/compress compose with the "
                     "pure data-parallel mesh only (no model/seq/"
@@ -355,8 +383,16 @@ class LMTrainer(CheckpointingBase):
                 "the local-SGD period has no single per-step global "
                 "gradient to probe")
         if zero:
+            if fsdp:
+                raise ValueError(
+                    f"zero={zero} (chunk-major ZeRO) and fsdp=True "
+                    "(the GSPMD dimension-sharded ZeRO-3 spelling) are "
+                    "exclusive: they are alternative placements for "
+                    "the same state")
             zero_validate(self.mesh, optimizer, stage=zero)
         self.zero, self.zero1 = zero, zero1
+        # The placement of the last train() call (None: every leaf whole).
+        self.layout = None
         self._zero_bucket_mb = zero_bucket_mb
         self.exchange = exchange
         self.residual_norm = None
@@ -399,12 +435,29 @@ class LMTrainer(CheckpointingBase):
     def init_params(self):
         return tfm.init_params(self.seed, self.cfg, device=self.device)
 
+    def _placement(self, params):
+        """``(params, layout)``: ``params`` as this rank's slices under
+        the plan when the mesh splits any leaf (a model axis above 1, or
+        fsdp over a data axis above 1), else as they are with None.  A
+        tree placed already keeps its layout."""
+        if isinstance(params, Sharded):
+            return params, params.layout
+        if self.zero or self._loss_fn is not None \
+                or self.mesh.world_size == 1:
+            return params, None
+        layout = Layout(self.plan, self.mesh, params)
+        if not (layout.native or any(layout.gathers.values())):
+            return params, None
+        return layout.shard(params), layout
+
     def _dp_optimizer(self):
         """The optimizer the step drives: ``self.optimizer`` wrapped for
         this configuration's exchange over the group (none for a single
         process and the default exchange, the inner one for local SGD,
         whose step merges by itself)."""
         opt, mesh, ex = self.optimizer, self.mesh, self.exchange
+        if self.layout is not None:
+            return DataParallel(opt, mesh, layout=self.layout)
         bucket_mb = self._zero_bucket_mb or ex.bucket_mb
         if self.zero == 1 and ex.compress == "int8":
             return ExchangeOptimizer(opt, mesh, ex, zero1=True)
@@ -553,7 +606,7 @@ class LMTrainer(CheckpointingBase):
         state (a collective in a process group)."""
         params, opt_state = carry
         tree = {"params": full_params(),
-                "opt": opt_tree(opt_state, params, self.mesh),
+                "opt": opt_tree(opt_state, params, self.mesh, self.layout),
                 "dropout": None}
         if drop is not None:
             tree["dropout"] = stack_tree(drop.get_state(), self.mesh)
@@ -563,10 +616,12 @@ class LMTrainer(CheckpointingBase):
         """Load a checkpoint tree into the fresh carry and generator."""
         params, opt_state = carry
         full = dict(tfm.named_leaves(tree["params"]))
-        if self.zero < 3:  # stage 3's params are the shards: loaded below
+        if self.layout is not None:  # this rank's slices of each leaf
+            copy_leaves(params, self.layout.shard(tree["params"]))
+        elif self.zero < 3:  # stage 3's params are the shards: below
             copy_leaves(params, tree["params"])
         load_opt_tree(opt_state, params, tree["opt"], self.mesh,
-                      full_params=full)
+                      full_params=full, layout=self.layout)
         if drop is not None:
             drop.set_state(tree["dropout"][self.mesh.rank].cpu().clone())
 
@@ -581,6 +636,8 @@ class LMTrainer(CheckpointingBase):
         else:
             check_on_device(params, self.device)
             params = tfm._map_leaves(lambda p: p.detach().clone(), params)
+        params, self.layout = self._placement(params)
+        layout = self.layout
         opt = self._dp_optimizer()
         opt_state = opt.init(params)
         if self.zero >= 3:
@@ -609,6 +666,8 @@ class LMTrainer(CheckpointingBase):
         def full_params():
             if self.zero >= 3:
                 return gather_tree(opt_state.layout, opt_state.shards, mesh)
+            if layout is not None:
+                return layout.gather(params)
             return params
 
         # What _publish_tree publishes: the parameters alone, with no
@@ -633,7 +692,8 @@ class LMTrainer(CheckpointingBase):
 
             @torch.no_grad()
             def eval_fn(rnd):
-                p_eval = full_params()
+                # A placed tree evaluates split, as it trains.
+                p_eval = params if layout is not None else full_params()
                 if seg_chunks is None:
                     mean = sum(float(self._nll(p_eval, c))
                                for c in chunks) / len(chunks)
@@ -752,6 +812,8 @@ class LMTrainer(CheckpointingBase):
                                for g in torch.stack(probes).tolist()]
                               if probes else [])
         self._ema_params = opt_state.ema
+        if layout is not None and opt_state.ema is not None:
+            self._ema_params = layout.gather(opt_state.ema)
         self.opt_state = opt_state
         self.residual_norm = residual_norm_of(opt_state)
         return params

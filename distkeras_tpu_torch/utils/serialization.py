@@ -20,7 +20,11 @@ entry plus one array per ``/``-joined key path), so an artefact of
 either package loads in the other; ``params_from_numpy`` carries a
 nested dict of arrays across as tensors (MoE leaves and int8
 ``QTensor`` leaves included), ``lora_from_numpy`` an adapter tree, and
-``params_to_numpy`` back.
+``params_to_numpy`` back.  Under a plan and a mesh,
+``sharded_params_from_numpy`` carries the reference's tree across as
+this rank's slices (a ``parallel.layout.Sharded`` tree), and
+``params_to_numpy`` of such a tree gathers the full leaves (a collective
+every rank of the mesh calls).
 
 Raw bytes across the host: ``host_words`` / ``from_words`` carry a tensor
 as a numpy array and back bit for bit, a bfloat16 tensor (which numpy
@@ -72,6 +76,18 @@ def params_from_numpy(tree, device, dtype=None):
     return conv(tree)
 
 
+def sharded_params_from_numpy(tree, plan, mesh, device, dtype=None):
+    """The reference's nested dict of arrays -> this rank's slices of it
+    under ``plan`` over ``mesh`` (``parallel.layout.Sharded``, tensors
+    on ``device``), each the slice the reference's placement puts on
+    this rank's device.  Only the slices are copied off the host."""
+    from distkeras_tpu_torch.parallel.layout import Layout, Sharded
+
+    layout = Layout(plan, mesh, tree)
+    local = layout.shard(tree)
+    return Sharded(params_from_numpy(dict(local), device, dtype), layout)
+
+
 def lora_from_numpy(tree, device):
     """An adapter tree ``{"attn" / "ffn": {name: {"a", "b"}}}`` of arrays
     (e.g. the reference's ``lora_init``) -> f32 tensors on ``device``."""
@@ -120,7 +136,13 @@ def params_to_numpy(tree):
     """The inverse of :func:`params_from_numpy`: a nested dict of
     tensors (any device, with or without grad) -> the same dict of numpy
     arrays on the host, dtypes kept (bf16 leaves become f32, which numpy
-    lacks); a :class:`QTensor` becomes its ``(q, s)`` pair."""
+    lacks); a :class:`QTensor` becomes its ``(q, s)`` pair.  A sharded
+    tree (``parallel.layout.Sharded``) is gathered whole first, a
+    collective over the mesh."""
+    from distkeras_tpu_torch.parallel.layout import Sharded
+
+    if isinstance(tree, Sharded):
+        tree = tree.layout.gather(tree)
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, QTensor):

@@ -10,7 +10,10 @@ preempted and resumed by the Supervisor on the card equals the straight
 run bit for bit, and its checkpoint restores on the CPU); and the
 paper's last workloads (``imdb_lstm`` with both LSTMs and ResNet-50 on
 the card against the CPU, Keras' BatchNorm under bf16 autocast); and the
-paged engine (an f32 schedule on the card equal to the monolithic
+model axis (two gloo ranks sharing the card, each on half the heads:
+f32 ``generate`` equal to one process's, and the kernels at the
+half-head shapes); and the paged engine (an f32 schedule on the card
+equal to the monolithic
 engine's and to the CPU's, and a serve phase that allocates no device
 memory) and beam search (the card's beams against the CPU's, its
 prefill through the forward kernel); and the fleet (the disaggregated
@@ -1111,3 +1114,70 @@ def test_hot_swap_allocates_nothing_and_keeps_every_pointer(cuda):
     assert all(torch.equal(a, b) for a, (_, b) in
                zip(keep, named_leaves(eng.params)))
     assert eng.param_version == 1
+
+
+@pytest.mark.parametrize("heads,dtype,tol", [(4, torch.bfloat16, 2e-2),
+                                             (2, torch.bfloat16, 2e-2),
+                                             (4, torch.float32, 1e-4)])
+def test_kernels_at_half_head_shapes_match_plain(cuda, heads, dtype, tol):
+    """A rank of the model axis runs the kernels on its own heads: the
+    forward with lse and the dQ / dK/dV pair at H = 4 and 2 (and the
+    grouped-query heads expanded before the kernel) against the plain
+    versions."""
+    gen = torch.Generator(device="cuda").manual_seed(heads)
+    q, k, v, do = (torch.randn((2, 192, heads, 128), generator=gen,
+                               device="cuda", dtype=dtype)
+                   for _ in range(4))
+    kv = k[:, :, :1].repeat_interleave(heads, dim=2)  # GQA: one kv head
+    scale = 128 ** -0.5
+    with torch.no_grad():
+        for kk in (k, kv):
+            out, lse = tattn.flash_fwd_cuda(q, kk, v, True, scale, None,
+                                            None, with_lse=True)
+            ref, ref_lse = tattn.flash_fwd_plain(q, kk, v, True, scale, None,
+                                                 None)
+            delta = tattn.attention_delta(do, ref)
+            dq = tattn.flash_bwd_dq_cuda(q, kk, v, do, ref_lse, delta, True,
+                                         scale, None, None)
+            dk, dv = tattn.flash_bwd_dkv_cuda(q, kk, v, do, ref_lse, delta,
+                                              True, scale, None, None)
+            rdq = tattn.flash_bwd_dq_plain(q, kk, v, do, ref_lse, delta, True,
+                                           scale, None, None)
+            rdk, rdv = tattn.flash_bwd_dkv_plain(q, kk, v, do, ref_lse, delta,
+                                                 True, scale, None, None)
+            for got, want in ((out, ref), (lse, ref_lse), (dq, rdq),
+                              (dk, rdk), (dv, rdv)):
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=tol)
+
+
+def test_tp_generate_on_card_equals_one_process(cuda, tmp_path):
+    """Two gloo ranks sharing the card, model axis 2 under
+    ``serving_plan()``: f32 greedy ``generate`` equal to one process's
+    on the card, the logits within 1e-5 of max |logit|, every rank
+    picking the same tokens and launching the forward kernel on its
+    heads."""
+    from torch_dp_ranks import spawn
+
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models import transformer as tfm
+
+    cfg = dict(vocab_size=256, d_model=512, n_heads=4, n_layers=2,
+               d_ff=1024, max_len=128, rope=True)
+    tcfg = tfm.TransformerConfig(**cfg)
+    params = dkt.params_to_numpy(tfm.init_params(0, tcfg, device="cpu"))
+    prompts = np.random.default_rng(3).integers(0, 256, (2, 40))
+    flat = {f"p/{k}": v for k, v in tfm.named_leaves(params)}
+    got = spawn(tmp_path, 2, [dict(name="gen", kind="tp", fn="generate_case",
+                                   mesh=dict(data=1, model=2),
+                                   plan="serving", new=16)],
+                dict(prompts=prompts, **flat), cfg=cfg, device="cuda:0",
+                backend="gloo")["gen"]
+    solo = dkt.params_from_numpy(params, "cuda")
+    want = dkt.generate(solo, prompts, tcfg, 16).cpu().numpy()
+    logits = dkt.apply(solo, prompts, tcfg)[0].cpu().numpy()
+    for r in got:
+        assert bool(r["picks_agree"]) and int(r["fwd_launches"]) >= 2
+        np.testing.assert_array_equal(r["generate"], want)
+        np.testing.assert_allclose(r["logits"], logits, rtol=0,
+                                   atol=1e-5 * np.abs(logits).max())

@@ -309,11 +309,13 @@ def test_mesh_and_plans():
     assert tmesh.equal_across_hosts(3, "x") == 3
     arr = np.arange(6)
     assert tmesh.global_batch(arr, m) is arr
-    for fn in (tshard.fsdp_plan, tshard.tp_plan, tshard.serving_plan):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-            fn()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        tshard.ShardingPlan(rules=[("x", None)])
+    # The rule-driven plans are ported (tests/test_torch_tp.py holds
+    # their specs to the reference's).
+    assert tshard.fsdp_plan().fsdp_axis == "data"
+    assert tshard.serving_plan().batch_spec == ()
+    assert len(tshard.tp_plan().rules) == 3
+    assert tshard.ShardingPlan(rules=[("x", None)]).rules[0][0].pattern \
+        == "x"
     assert (tshard.zero1_plan(2.0).zero, tshard.zero1_plan().zero1,
             tshard.zero1_plan().bucket_mb, tshard.zero3_plan().zero,
             tshard.dp_plan().zero) == (1, True, 4.0, 3, 0)

@@ -229,12 +229,11 @@ def test_error_contracts(monkeypatch):
         with pytest.raises(ValueError, match="exceeds visible devices"):
             cls(mlp(), num_workers=2, device="cpu")
     # The data-parallel knobs (zero=, merge_rule=, sync_every=,
-    # compress=) and the checkpoint knobs are ported (the latter with
-    # the reference's refusals); rule-driven placements are ROADMAP A7b.
-    for knob, value, item in (("fsdp", True, "A7b"),
-                              ("plan", object(), "A7b")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            dkt.ADAG(mlp(), device="cpu", **{knob: value})
+    # compress=), fsdp= / plan= and the checkpoint knobs are ported (with
+    # the reference's refusals); a plan is a ShardingPlan.
+    assert dkt.ADAG(mlp(), device="cpu", fsdp=True).plan.fsdp_axis == "data"
+    with pytest.raises(TypeError, match="ShardingPlan"):
+        dkt.ADAG(mlp(), device="cpu", plan=object())
     for knob, value in (("checkpoint_every", 2), ("resume", True)):
         with pytest.raises(ValueError, match="checkpoint_dir"):
             dkt.SingleTrainer(mlp(), device="cpu", **{knob: value})

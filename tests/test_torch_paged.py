@@ -814,7 +814,8 @@ def test_paged_constructor_validation(m):
         PagedBatcher(m["p"], cfg, block=0, device="cpu")
     with pytest.raises(ValueError, match="n_blocks"):
         PagedBatcher(m["p"], cfg, block=8, n_blocks=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7b"):
+    # plan= is ported; it needs mesh= with it, as in the reference.
+    with pytest.raises(ValueError, match="plan= and mesh= together"):
         PagedBatcher(m["p"], cfg, block=8, plan=object(), device="cpu")
     pb = paged(m, lanes=1)
     # Disaggregated serving is ported: a one-block export round-trips

@@ -152,7 +152,9 @@ def test_capacity_and_validation(m, rng):
 
 
 def test_unported_knobs_raise_naming_their_item(m):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # plan= is ported (tests/test_torch_tp.py); it needs mesh= with it,
+    # as in the reference.
+    with pytest.raises(ValueError, match="plan= and mesh= together"):
         engine(m, plan=object())
     # hot_swap is ported: the engine takes swap_params and counts the
     # versions it served.

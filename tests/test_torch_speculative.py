@@ -284,7 +284,8 @@ def test_batcher_validation(models, rng):
         SpeculativeBatcher(t[3], d[3], t[2],
                            dataclasses.replace(d[2], max_len=4), n_draft=4,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # plan= is ported (tests/test_torch_tp.py): it needs mesh= with it.
+    with pytest.raises(ValueError, match="plan= and mesh= together"):
         batcher(t, d, plan=object())
     eng = batcher(t, d, lanes=1, n_draft=3)
     with pytest.raises(ValueError, match="slack"):

@@ -278,13 +278,14 @@ def test_lm_trainer_probe_ema_and_unported_knobs(rng):
     assert not torch.equal(out["tok_emb"], before["tok_emb"])  # a copy moved
     ema = tt.ema_params["tok_emb"]
     assert not torch.equal(ema, out["tok_emb"])
-    # mesh= and zero= are ported (data parallelism), and so are the
-    # checkpoint knobs (with the reference's refusals); the rule-driven
-    # placements and the pipeline are ROADMAP A7b.
-    for knob, value, item in [("rules", (), "A7b"), ("microbatches", 4, "A7b"),
-                              ("fsdp", True, "A7b")]:
+    # mesh=, zero=, rules= and fsdp= are ported (data and model axes),
+    # and so are the checkpoint knobs (with the reference's refusals);
+    # the pipeline is ROADMAP A7b.
+    for knob, value, item in [("microbatches", 4, "A7b")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tlm.LMTrainer(tcfg, device="cpu", **{knob: value})
+    assert tlm.LMTrainer(tcfg, device="cpu", rules=(),
+                         fsdp=True).plan.fsdp_axis == "data"
     with pytest.raises(ValueError, match="checkpoint_dir"):
         tlm.LMTrainer(tcfg, device="cpu", checkpoint_every=1)
     with pytest.raises(ValueError, match="probe_metrics"):

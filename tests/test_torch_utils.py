@@ -40,8 +40,7 @@ from tests.torch_dp_ranks import BNMLP
 
 # ROADMAP items whose names the port does not export yet.
 NOT_PORTED = {
-    "A7b": {"fsdp_plan", "tp_plan", "serving_plan", "ServingPlan",
-            "match_partition_rules"},
+    "A7b": set(),
 }
 
 

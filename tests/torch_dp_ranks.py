@@ -125,6 +125,9 @@ class BNMLP(torch.nn.Module):
 
 
 def keras_case(case, data, device, extra=None):
+    if case.get("mesh"):  # a data mesh built explicitly (fsdp cases)
+        extra = dict(extra or {}, mesh=M.make_mesh(M.MeshSpec(
+            **case["mesh"])))
     if case.get("model") == "bn_mlp":
         model = dkt.module_from_keras_numpy(
             BNMLP(), [data[f"bn_w{i}"] for i in range(int(data["bn_n_w"]))],
@@ -176,7 +179,14 @@ def lm_case(case, data, cfg, device, extra=None):
     tokens = data["seg_tokens"] if seg is not None else data["tokens"]
     if case.get("dropout"):
         cfg = dataclasses.replace(cfg, dropout=case["dropout"])
-    t = dkt.LMTrainer(cfg, device=device, **case["kw"], **(extra or {}))
+    kw = dict(case["kw"], **(extra or {}))
+    if case.get("mesh"):  # the model axis / fsdp (tests/test_torch_tp.py)
+        from torch_tp_cases import PLANS
+
+        kw["mesh"] = M.make_mesh(M.MeshSpec(**case["mesh"]))
+        if case.get("rules"):
+            kw["rules"] = PLANS[case["rules"]]().rules
+    t = dkt.LMTrainer(cfg, device=device, **kw)
     out = t.train(tokens[:case.get("rows")], params=params, segments=seg)
     res = {"history": np.asarray(t.history),
            "probe": np.asarray([p["grad_norm"] for p in t.probe_history])}
@@ -233,7 +243,8 @@ def main(spec_path):
     deploy.init_from_env(device=device, backend=spec.get("backend"),
                          timeout=60)
     mesh = M.make_mesh()
-    rank = mesh.rank
+    rank = torch.distributed.get_rank() \
+        if torch.distributed.is_initialized() else 0
     data = np.load(spec["data"]) if spec.get("data") else None
     cfg = dkt.TransformerConfig(**spec["cfg"]) if spec.get("cfg") else None
     for case in spec["cases"]:
@@ -242,6 +253,11 @@ def main(spec_path):
                 run = lambda c, d, dev, kw: keras_case(c, d, dev, kw)
             elif case["kind"] == "lm":
                 run = lambda c, d, dev, kw: lm_case(c, d, cfg, dev, kw)
+            elif case["kind"] == "tp":
+                import torch_tp_cases  # beside this script
+
+                fn = getattr(torch_tp_cases, case["fn"])
+                run = lambda c, d, dev, kw: fn(c, d, cfg, dev)
             else:
                 run = None
             if run is None:
