@@ -24,7 +24,7 @@ each went through its kernels:
 - the paper's other workloads (phase ``keras_zoo``): ``imdb_lstm``
   (``FusedLSTM`` and the stock LSTM on cuDNN's fused kernel), ``resnet50``
   and the two MLPs at their bench configs (mixed bf16, sgd 0.01, device
-  data: step ms over two timed windows of ~1 s, samples/s, idle
+  data: step ms over two timed windows of ~0.5 s, samples/s, idle
   share, peak GB; ResNet-50's FLOP share of the bf16 peak), card runs
   against the CPU's (f32 ``imdb_lstm`` both ways; ResNet-50 at 64 x 64
   in float64, and its f32 loss and moving statistics), the reference's
@@ -123,7 +123,7 @@ each went through its kernels:
 - the serving fleet (phase ``fleet``, its profiled windows
   ``fleet_lone_wave`` / ``fleet_routed_wave`` at the end): (a) two
   ``InProcessReplica(PagedBatcher(lanes=8))`` under
-  ``Router(policy="affinity")``, 4 stems of 492 tokens x 8 requests in 4
+  ``Router(policy="affinity")``, 4 stems of 492 tokens x 4 requests in 2
   waves, every request ok, tokens against one engine under the same
   waves (``greedy_agreement``), every request of a stem after its first
   on the replica that holds it; (b) a ``role="prefill"`` and a
@@ -155,13 +155,26 @@ each went through its kernels:
   phase serve's one-process tokens by ``greedy_agreement``; (b)
   ``ContinuousBatcher`` and ``PagedBatcher(block=41)`` at 8 lanes under
   the plan on 8 requests, each held to its one-process engine; (c) the
-  training cell in f32, 3 ``LMTrainer`` steps under ``tp_rules`` and 3
+  training cell in f32, 2 ``LMTrainer`` steps under ``tp_rules`` and 2
   under ``fsdp=True`` at data=2, plus one sgd step at rate 1 each, the
   losses and gradients held to world 1 within 1e-3 x max|g|; every rank
   picking the same tokens and launching the forward (and in training the
   backward) kernels on its own heads; (d) the kernels at the half-head
   shapes ([8, 512, 4, 128] and [8, 512, 2, 128] bf16, [8, 1024, 4, 128]
-  f32 with lse and the backward pair) against their plain versions.
+  f32 with lse and the backward pair) against their plain versions;
+- the seq, pipeline and expert axes (phase ``axes``): gloo ranks sharing
+  the card (``python3 chip_smoke.py --axes-rank DIR WORLD`` is one), f32
+  training held to a world-1 run on the card (losses within 1e-3, the
+  first step's gradients within 1e-3 x max|g|): (a) ``_long_cfg`` at 8
+  x 4096 over seq 2 (ring attention; peak GB a rank, ring bytes a
+  step), (b) ``transformer_d1024`` over pipeline 2 with 4 microbatches
+  (each stage's launches exactly its 4 layers x 4 microbatches a step),
+  (c) its top-2 MoE row over expert 2 (drop counts equal, half the
+  expert bytes a rank), (d) the top-2 MoE flagship under
+  ``serving_plan()`` at model 2 (8 x 512 + 64 tokens: bf16 held by
+  ``route_agreement``, f32 exactly), (e) ``transformer_d1024`` over
+  pipeline 2 x seq 2 on four ranks; and the training kernels at a
+  stage's microbatch shape [2, 1024, 8, 128] f32.
 
 Usage: python3 chip_smoke.py [--profile]     (needs one CUDA device)
 
@@ -185,18 +198,21 @@ of (a) and (b)), ``paged`` (the ``kv_int8="prefill"`` admissions),
 ``beam`` (the bench runs' prompt passes), ``fleet`` (the prefill
 replica's exports and the fallback's raw admissions in this process;
 each replica process prints its own), ``weight_push`` (the
-publishing trainer's rounds) and ``tp`` (both ranks' launches summed;
-the phase line has them by rank and by run) (``launches_by_path``; a
+publishing trainer's rounds), ``tp`` and ``axes`` (every rank's
+launches summed; the phase lines have them by rank and by run)
+(``launches_by_path``; a
 run that only serves a
 comparison is not counted); the backward kernels' times are the
 training case (f32, causal) and their launches those of the training
 runs (train, long_train, moe_train, lora_train, dp, resume,
-weight_push, tp), with the
+weight_push, tp, axes), with the
 bf16 causal case beside it under ``"bf16_causal"``; each kernel also
 carries its seq-4096 f32 readings (causal, and window 1024) and its
-half-head readings of phase ``tp`` (``*_half_heads``).
+half-head readings of phase ``tp`` (``*_half_heads``) and the pipeline
+microbatch readings of phase ``axes`` (``*_pipeline_microbatch``).
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -205,6 +221,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # cuBLAS picks its GEMM reductions deterministically only with a fixed
@@ -332,6 +349,31 @@ def wall_s(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def in_background(fn, *args):
+    """Start ``fn(*args)`` in a thread beside the caller; the returned
+    callable waits for it and returns its result or raises its error.
+    For host-bound multi-process work (gloo jobs) that can overlap the
+    main process's own; the thread is not a daemon, so the script
+    exits only after it (and the processes it started) ended."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 -- raised by join()
+            box["err"] = e
+
+    thread = threading.Thread(target=run, name=f"bg-{fn.__name__}")
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+    return join
 
 
 def live_pairs(lq, lk, causal, window):
@@ -551,8 +593,10 @@ def profile_window(name, fn, count=()):
 
     fn()  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # Device activity only: recording the host's ops as well slows the
+    # window it measures (by half on a loop of small kernels) and takes
+    # seconds to summarize.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = wall_s(fn)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -899,7 +943,7 @@ LSTM_BATCH = 512
 RESNET_BATCH = 128
 MLP_BATCH = 4096
 PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
-ZOO_WINDOW_S = 1.0      # seconds of steps in each timed window
+ZOO_WINDOW_S = 0.5      # seconds of steps in each timed window
 
 
 def zoo_throughput(name, model, x, y, loss, batch, preprocess=None,
@@ -1169,7 +1213,7 @@ def keras_zoo_phase():
         runs[name] = zoo_throughput(
             name, dkt.zoo.imdb_lstm(**LSTM_BENCH, seed=0, fused=fused,
                                     policy="mixed_bfloat16"),
-            x, y, "binary_crossentropy", LSTM_BATCH, profile_calls=2,
+            x, y, "binary_crossentropy", LSTM_BATCH, profile_calls=1,
             deferred=deferred)
     model = dkt.zoo.resnet50(seed=0, policy="mixed_bfloat16")
     fwd = conv_flops(model, torch.zeros(1, 224, 224, 3))
@@ -1251,17 +1295,18 @@ def keras_zoo_phase():
         profile()
     del deferred
 
+    # Synchronized BN: two gloo ranks on the card == world 1 at twice the
+    # batch.  The ranks run beside the parity runs (nothing timed).
+    tmp = tempfile.mkdtemp()
+    bn_job = in_background(dkt.deploy.Job(
+        "chip_smoke.py", world=2, init_method=f"file://{tmp}/rdv_bn",
+        args=("--dp-rank", "sync_bn", tmp)).run_local, True, 300, True)
+
     parity = {f"imdb_lstm_fused_{f}": lstm_parity(f) for f in (True, False)}
     px, py = imagenet_like(32, seed=4, side=64)
     parity["resnet50_64x64"] = resnet_parity(px, py)
 
-    # Synchronized BN: two gloo ranks on the card == world 1 at twice the
-    # batch.
-    tmp = tempfile.mkdtemp()
-    dkt.deploy.Job("chip_smoke.py", world=2,
-                   init_method=f"file://{tmp}/rdv_bn",
-                   args=("--dp-rank", "sync_bn", tmp)).run_local(
-        timeout=300, capture=True)
+    bn_job()
     got = np.load(os.path.join(tmp, "sync_bn.npz"))
     h1, tv, ntv = bn_adag("cuda", 64)
     w2 = [got[f"w{i}"] for i in range(len(tv) + len(ntv))]
@@ -1414,7 +1459,7 @@ def long_text_phase(np_params, tmp):
     return trained, tok, rows, text, launches
 
 
-def long_variant(name, cfg, np_params, steps=3):
+def long_variant(name, cfg, np_params, steps=2):
     """One warm-up and ``steps`` timed train steps of ``cfg`` on seeded
     random tokens, as _measure_lm feeds them."""
     params = dkt.params_from_numpy(variant_params(np_params, cfg), "cuda")
@@ -2009,17 +2054,18 @@ def engine_f32(np_params):
 def engine_phase(np_params):
     """Phase engine: the continuous-batching serving path at the
     flagship width, bf16, seed-0 weights.  Returns the forward kernel's
-    launches on its main paths (pool segments, speculative warm-up)."""
+    launches on its main paths (pool segments, speculative warm-up) and
+    its engine_load reading."""
     t0 = time.perf_counter()
     cfg = FLAGSHIP
     params = dkt.params_from_numpy(np_params, "cuda", dtype=torch.bfloat16)
-    engine_load(params, cfg)
+    load = engine_load(params, cfg)
     launches = engine_prefix(params, cfg)
     engine_chunked(params, cfg)
     launches += engine_speculative(np_params, cfg)
     engine_f32(np_params)
     log("engine", seconds=time.perf_counter() - t0, fwd_launches=launches)
-    return launches
+    return launches, load
 
 
 # Phase paged: scripts/bench_serving.py's paged rows over the flagship
@@ -2143,7 +2189,7 @@ def kv8_prefill_logit_delta(np_params, cfg, p_len=257, seed=23):
                 argmax_equal=same)
 
 
-def paged_phase(np_params):
+def paged_phase(np_params, mono_load):
     """Phase paged: PagedBatcher at the flagship width, bf16, seed-0
     weights.  (a) 16 staggered greedy requests: tokens equal
     ContinuousBatcher's, also with prefill_chunk=128, and an f32 2-layer
@@ -2157,8 +2203,9 @@ def paged_phase(np_params):
     transcript, no block leaked; (e) kv_int8="prefill": 8 forward
     launches per from-scratch admission (the path's launches), and the
     f32 first-step logit delta against the decode-built cache; (f, g)
-    engine_load on the monolithic and the paged engine (tokens/s, TTFT,
-    TPOT, the allocator constant over the serve phase).  Returns the
+    engine_load on the paged engine beside ``mono_load`` (phase engine's
+    monolithic run) (tokens/s, TTFT, TPOT, the allocator constant over
+    the serve phase).  Returns the
     forward kernel's launches on the paged path."""
     t0 = time.perf_counter()
     cfg = FLAGSHIP
@@ -2315,10 +2362,12 @@ def paged_phase(np_params):
     # (f, g)
     keys = ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
             "tpot_p99_ms", "reserved_bytes", "device_allocs")
-    for name, make in (("mono", None),
-                       ("paged", lambda: paged_engine(params, cfg))):
-        load = engine_load(params, cfg, make=make, name=f"paged_load_{name}")
-        rec[f"load_{name}"] = {k: load[k] for k in keys}
+    # The monolithic side is phase engine's engine_load (the same engine
+    # and traffic, run once: a depth cut for the script's time limit).
+    rec["load_mono"] = {k: mono_load[k] for k in keys}
+    load = engine_load(params, cfg, make=lambda: paged_engine(params, cfg),
+                       name="paged_load_paged")
+    rec["load_paged"] = {k: load[k] for k in keys}
     attn.LAUNCHES.update(launches)
     log("paged", config=dataclasses.asdict(cfg), block=PAGED_BLOCK,
         seconds=time.perf_counter() - t0, **rec)
@@ -2665,7 +2714,8 @@ def moe_route_stats(params, cfg, tokens):
     ``_moe_block`` counts them."""
     tfm = dkt.models.transformer
     real, stats = tfm._moe_block, {}
-    tfm._moe_block = lambda lp, x, cfg_: real(lp, x, cfg_, stats=stats)
+    tfm._moe_block = lambda lp, x, cfg_, **kw: real(lp, x, cfg_, stats=stats,
+                                                    **kw)
     try:
         with torch.no_grad():
             _, aux = dkt.apply(params, torch.from_numpy(tokens).cuda(), cfg)
@@ -3410,13 +3460,16 @@ def dp_keras_phase():
     ADAG at world 2 held against world-1 ADAG at twice the batch on the
     same rows (weights atol 1e-4, PERF §2's Keras tolerance)."""
     tmp = tempfile.mkdtemp()
-    nccl_err = nccl_two_ranks_on_one_card(tmp)
+    # The NCCL attempt fails at its group's set-up: it runs beside the
+    # gloo job rather than before it.
+    nccl = in_background(nccl_two_ranks_on_one_card, tmp)
     t0 = time.perf_counter()
     dkt.deploy.Job("chip_smoke.py", world=2,
                    init_method=f"file://{tmp}/rdv_gloo",
                    args=("--dp-rank", "gloo", tmp)).run_local(
         timeout=600, capture=True)
     wall = time.perf_counter() - t0
+    nccl_err = nccl()
     runs = json.load(open(os.path.join(tmp, "gloo.json")))
     for name, r in runs.items():
         hist = r["losses"]
@@ -3758,10 +3811,13 @@ def cluster_restart_case():
                 restarted_wall_s=k_wall)
 
 
-def resume_phase(np_params):
+def resume_phase(np_params, cluster):
     """Phase resume: (a) the LM at full width with dropout, preempted at
     round 3 and resumed by a Supervisor; (b) the same with zero=1 in a
-    world-1 NCCL group; (c) the two-host cluster restart.  Returns the
+    world-1 NCCL group; (c) the two-host cluster restart, whose
+    ``in_background`` join is ``cluster`` (it was started before phase
+    dp_keras: its hosts are processes of their own, mostly idle on the
+    card, and overlap dp_keras, async_dp, (a) and (b)).  Returns the
     launches of (a) and (b)'s supervised runs."""
     import torch.distributed as dist
 
@@ -3783,7 +3839,7 @@ def resume_phase(np_params):
     for k in launches:
         launches[k] += launches_b[k]
     torch.cuda.empty_cache()
-    rec_c = cluster_restart_case()
+    rec_c = cluster()
     log("resume", config="transformer_d1024", dropout=0.1, batch=8,
         seq=TRAIN_SHAPE[1], optimizer="adamw", learning_rate=3e-4,
         cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
@@ -3796,6 +3852,7 @@ def resume_phase(np_params):
 # serving width.  The traffic of (a) is bench_paged_shared_stem(8)
 # (scripts/bench_serving.py:1059) times four stems.
 FLEET_STEMS, FLEET_PER_STEM = 4, 8
+FLEET_WAVES = 2                        # (a)'s waves of 2 requests a stem
 FLEET_STEM = 12 * PAGED_BLOCK          # 492 tokens: 12 full blocks
 FLEET_LANES = 8
 FLEET_KILL_REQUESTS = 8
@@ -3917,15 +3974,16 @@ def router_partial(router):
 
 def fleet_affinity(params, cfg):
     """(a) Two InProcessReplica(PagedBatcher(lanes=8)) under
-    Router(policy="affinity"), 32 requests in 4 waves of 2 requests per
-    stem; the same waves through one PagedBatcher.  Every request ends
+    Router(policy="affinity"), FLEET_WAVES waves of 2 requests per stem
+    (8 a wave); the same waves through one PagedBatcher.  Every request ends
     ok, tokens agree with the lone engine's (greedy_agreement), and
     every request of a stem after its first goes to the replica that
     holds the stem."""
     heads, reqs = fleet_prompts(cfg, seed=31)
-    order = [reqs[s * FLEET_PER_STEM + w * 2 + j] for w in range(4)
+    order = [reqs[s * FLEET_PER_STEM + w * 2 + j] for w in range(FLEET_WAVES)
              for s in range(FLEET_STEMS) for j in range(2)]
-    waves = [[p for _, p in order[8 * w:8 * (w + 1)]] for w in range(4)]
+    waves = [[p for _, p in order[8 * w:8 * (w + 1)]]
+             for w in range(FLEET_WAVES)]
     stem_of = [s for s, _ in order]
     buckets = (STEM_TAIL, FLEET_STEM + STEM_TAIL)
     warm = fleet_engine(params, cfg, prompt_buckets=buckets)
@@ -3956,7 +4014,7 @@ def fleet_affinity(params, cfg):
                                           router_partial(router), waves,
                                           STEM_NEW)
         hits = sess.registry.counter("router.affinity_hits").value()
-    if not all(r.ok for r in res_r.values()) or len(res_r) != 32:
+    if not all(r.ok for r in res_r.values()) or len(res_r) != len(order):
         raise AssertionError("fleet (a): a routed request did not end ok")
     holder = {}
     for s, rep in zip(stem_of, placed):
@@ -3970,10 +4028,11 @@ def fleet_affinity(params, cfg):
     if router.shutdown() != {} or any(e.allocator.stats()["used"]
                                       for e in engines):
         raise AssertionError("fleet (a): shutdown left work or blocks")
-    n_tok = 32 * STEM_NEW
+    n_tok = len(order) * STEM_NEW
     return dict(
         replicas=2, lanes=FLEET_LANES, stems=FLEET_STEMS, stem=FLEET_STEM,
-        tail=STEM_TAIL, new_tokens=STEM_NEW, requests=32, waves=4,
+        tail=STEM_TAIL, new_tokens=STEM_NEW, requests=len(order),
+        waves=FLEET_WAVES,
         affinity_hits=hits, holders=holder,
         requests_by_replica={n: placed.count(n) for n in ("r0", "r1")},
         stem_hit_blocks=[e.stem_hit_blocks for e in engines],
@@ -4556,11 +4615,11 @@ def fleet_phase(np_params):
 
 
 def fleet_idle_share(params, cfg):
-    """The device's idle share over one wave of (a) (8 requests, 2 per
-    stem) through the router against the same wave on one engine, both
-    warm (a profiled window, run at the end of the script)."""
+    """The device's idle share over a wave of 4 requests, one a stem,
+    through the router against the same wave on one engine, both warm
+    (a profiled window, run at the end of the script)."""
     heads, reqs = fleet_prompts(cfg, seed=31)
-    wave = [p for i, (_, p) in enumerate(reqs) if i % FLEET_PER_STEM < 2]
+    wave = [p for i, (_, p) in enumerate(reqs) if i % FLEET_PER_STEM < 1]
     buckets = (STEM_TAIL, FLEET_STEM + STEM_TAIL)
     lone = fleet_engine(params, cfg, prompt_buckets=buckets)
     engines = [fleet_engine(params, cfg, prompt_buckets=buckets)
@@ -4835,7 +4894,7 @@ def weight_push_phase(np_params):
 TP_REQUESTS = 8
 TP_PROMPT_LENS = (100, 60, 140, 80, 120, 90, 70, 110)
 TP_NEW = 32
-TP_TRAIN_STEPS = 3
+TP_TRAIN_STEPS = 2
 TP_HALF_HEADS = (8, 512, 4, 128)          # bf16 serving, 4 heads a rank
 TP_TRAIN_HALF = (8, 1024, 4, 128)         # f32 training, 4 heads a rank
 # The training cell in f32 (embeddings included): the ranks' gradients
@@ -5004,12 +5063,12 @@ def tp_phase(np_params, serve_out):
                 raise AssertionError(f"tp: the ranks picked different "
                                      f"tokens in {k}")
         for path, c in r["launches"].items():
-            want = ["flash_fwd"] + (["flash_bwd_dq", "flash_bwd_dkv"]
-                                    if path.startswith(("train", "grad"))
-                                    else [])
+            kinds = ["flash_fwd"] + (["flash_bwd_dq", "flash_bwd_dkv"]
+                                     if path.startswith(("train", "grad"))
+                                     else [])
             if path in ("generate", *(p for p in r["launches"]
                                       if p.startswith(("train", "grad")))):
-                for k in want:
+                for k in kinds:
                     if not c[k] > 0:
                         raise AssertionError(
                             f"tp: {path} launched no {k} on a rank: {c}")
@@ -5073,6 +5132,456 @@ def tp_phase(np_params, serve_out):
         launches_by_rank=[r["launches"] for r in ranks],
         launches=launches, job_wall_s=wall)
     return launches, half, train_half
+
+
+# ------------------------------------------------------------ phase axes
+
+# The seq, pipeline and expert axes (phase axes): gloo ranks sharing the
+# card, as phase tp.  f32 configs, so gradients are held to world 1 at
+# f32's summation-order level: (a) _long_cfg at 8 x 4096 over seq 2 (the
+# ring), (b) transformer_d1024 over pipeline 2 (4 microbatches of 2), (c)
+# its top-2 MoE row over expert 2, (d) the top-2 MoE flagship served
+# under serving_plan() at model 2 (bf16), (e) transformer_d1024 over
+# pipeline 2 x seq 2 (four ranks).
+AXES_LONG_CFG = dataclasses.replace(LONG_CFG, dtype="float32")
+AXES_TRAIN_CFG = dataclasses.replace(FLAGSHIP_TRAIN, dtype="float32")
+AXES_MB_SHAPE = (2, 1024, 8, 128)   # a stage's microbatch in (b)
+AXES_MICROBATCHES = 4
+AXES_STEPS = {"seq": 2, "pipe": 3, "expert": 3, "pipe_seq": 2}
+AXES_PROMPT = (8, 512)               # (d)'s prompt, as phase serve's
+
+
+def axes_cfg(part):
+    return {"seq": AXES_LONG_CFG, "pipe": AXES_TRAIN_CFG,
+            "pipe_seq": AXES_TRAIN_CFG,
+            "expert": moe_cfg(AXES_TRAIN_CFG, 2)}[part]
+
+
+def axes_rows(part):
+    cfg, steps = axes_cfg(part), AXES_STEPS[part]
+    seq = LONG_SHAPE[1] if part == "seq" else TRAIN_SHAPE[1]
+    return np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (8 * steps, seq + 1)).astype(np.int32)
+
+
+_AXES_NP = {}
+
+
+def axes_np_params(part):
+    """Part ``part``'s numpy weights (made once a process).  (d) serves
+    (c)'s weights: ``numpy_params`` draws the position table last, so
+    the rope flagship's tree is (c)'s without it."""
+    if part == "serve":
+        return {k: v for k, v in axes_np_params("expert").items()
+                if k != "pos_emb"}
+    if part not in _AXES_NP:
+        _AXES_NP[part] = numpy_params(axes_cfg(part), seed={
+            "seq": 3, "expert": 5}.get(part, 1))
+    return _AXES_NP[part]
+
+
+def axes_train(part, mesh=None, **kw):
+    """Part ``part``'s adamw run: losses, step seconds, peak GB, and the
+    first step's gradient tree (as the update read it, after the
+    exchange; gathered whole, on the host)."""
+    cfg, rows, np_p = axes_cfg(part), axes_rows(part), axes_np_params(part)
+    if mesh is not None:
+        kw["mesh"] = mesh
+    steps = dkt.LMTrainer(cfg, batch_size=8, optimizer="adamw",
+                          learning_rate=3e-4, **kw)
+    opt, first = steps.optimizer, {}
+
+    def update(params, state, *a, **k):
+        if not first:
+            first["grads"] = dkt.models.transformer._map_leaves(
+                lambda p: p.grad.detach().clone(), params)
+        return type(opt).update(opt, params, state, *a, **k)
+
+    opt.update = update
+    p0 = dkt.params_from_numpy(np_p, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    steps.train(rows, params=p0)
+    launches = dict(attn.LAUNCHES)
+    out = dict(losses=steps.history, launches=launches,
+               step_s=steps.training_time / AXES_STEPS[part],
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    grads = first["grads"]
+    if steps.layout is not None:  # this rank's slices: gather them
+        grads = steps.layout.gather(grads)
+    out["grad"] = {k: v.cpu().numpy() for k, v in named_leaves(grads)}
+    del steps, p0, grads, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def axes_drops(params, cfg, tokens):
+    """The top-k assignments a no-grad capacity-routed forward drops, and
+    those it assigns, over the whole token group."""
+    tfm = dkt.models.transformer
+    real, stats = tfm._moe_block, {}
+    tfm._moe_block = lambda lp, x, c, **kw: real(lp, x, c, stats=stats,
+                                                 **kw)
+    try:
+        dkt.apply(params, tokens, cfg)
+    finally:
+        tfm._moe_block = real
+    return int(stats["dropped"]), int(stats["assigned"])
+
+
+@contextlib.contextmanager
+def recording_routes(cfg):
+    """Record every MoE router of a greedy ``generate`` run inside the
+    block, as the run computed it: ``rec["routes"]`` the router logits
+    ``[L, B, T, E]`` and ``rec["experts"]`` the chosen experts ``[L, B,
+    T, k]`` (sorted) at positions ``0 .. T - 1`` (prefill's, then the
+    decode steps', the first of which recomputes the last prompt
+    position), and ``rec["lm_gap"] [B, steps]`` each decode step's top-2
+    logit gap as a share of its max |logit|.  It launches no kernel."""
+    tfm, gen = dkt.models.transformer, dkt.models.generate
+    real = (tfm._moe_dense_block, gen._decode_ffn, gen._decode_step)
+    calls, gaps, rec = [], [], {}
+
+    def route(x, lp):
+        logits = tfm._dot(x.float(), lp["wg"]).float()
+        _, expert = tfm._moe_gates(torch.softmax(logits, dim=-1), cfg)
+        calls.append((logits.cpu(), expert.sort(dim=-1).values.cpu()))
+
+    def dense(lp, x, c, tp=None, ep=None):
+        route(x, lp)
+        return real[0](lp, x, c, tp=tp, ep=ep)
+
+    def ffn(lp, h, c):
+        if c.num_experts and h.shape[1] == 1:
+            route(h, lp["moe"])
+        return real[1](lp, h, c)
+
+    def step(*a, **k):
+        logits, cache = real[2](*a, **k)
+        top2 = logits.topk(2, dim=-1).values
+        gaps.append(((top2[:, 0] - top2[:, 1])
+                     / logits.abs().amax(dim=-1)).cpu())
+        return logits, cache
+
+    tfm._moe_dense_block, gen._decode_ffn, gen._decode_step = (
+        dense, ffn, step)
+    try:
+        yield rec
+    finally:
+        tfm._moe_dense_block, gen._decode_ffn, gen._decode_step = real
+    n_layers = cfg.n_layers
+    pre, dec = calls[:n_layers], calls[n_layers:]
+    steps = len(dec) // n_layers
+    for i, key in enumerate(("routes", "experts")):
+        first = torch.stack([c[i] for c in pre])          # [L, B, P, .]
+        rest = torch.stack([c[i][:, 0] for c in dec]).reshape(
+            steps, n_layers, *dec[0][i][:, 0].shape).permute(1, 2, 0, 3)
+        rec[key] = torch.cat([first[:, :, :-1], rest], dim=2).numpy()
+    rec["lm_gap"] = torch.stack(gaps, dim=1).numpy()
+
+
+def route_agreement(out, ref, rec, ref_rec, row, cfg, prompt_len):
+    """Greedy MoE tokens ``out`` (row ``row`` of a sharded run) against
+    ``ref`` (one process's), with both runs' ``recording_routes``.  Over
+    the positions both runs fed the same tokens, the first expert choice
+    that differs, in causal order (position, then layer), must lie at a
+    router near tie of the reference: its k-th and (k+1)-th router
+    logits within BF16_PATH_TOL of the token's max |router logit|.  Such
+    a flip moves that token's hidden state and every later one's, so
+    nothing past it is held.  With no flip before the tokens part, they
+    must part at a near tie of the reference's own top-2 logits
+    (``greedy_agreement``'s rule).  Raises otherwise; returns what it
+    found."""
+    out, ref = np.asarray(out), np.asarray(ref)
+    diff = np.nonzero(out != ref)[0]
+    d = int(diff[0]) if len(diff) else len(ref)
+    if d < prompt_len:
+        raise AssertionError(f"prompts differ at {d}")
+    got = {"exact": d == len(ref),
+           "step": None if d == len(ref) else d - prompt_len,
+           "flip": None, "router_gap_rel": None, "logit_gap_rel": None}
+    flips = np.argwhere((rec["experts"][:, row, :d]
+                         != ref_rec["experts"][:, row, :d]).any(-1).T)
+    if len(flips):
+        t, layer = (int(i) for i in flips[0])
+        logits = ref_rec["routes"][layer, row, t]
+        top = np.sort(logits)[::-1]
+        k = cfg.moe_top_k
+        gap = float((top[k - 1] - top[k]) / np.abs(logits).max())
+        got.update(flip=[t, layer], router_gap_rel=gap)
+        if not gap <= BF16_PATH_TOL:
+            raise AssertionError(
+                f"the first expert choice that differs (position {t}, "
+                f"layer {layer}) lies where the reference's router gap is "
+                f"{gap:.4f} of max |router logit| (> {BF16_PATH_TOL}): "
+                "not a near tie")
+    elif d < len(ref):
+        gap = float(ref_rec["lm_gap"][row, d - prompt_len])
+        got["logit_gap_rel"] = gap
+        if not gap <= BF16_PATH_TOL:
+            raise AssertionError(
+                f"greedy tokens part at generated step {d - prompt_len}, "
+                "with no expert choice flipped before, where the "
+                f"reference's top-2 gap is {gap:.4f} of max |logit| "
+                f"(> {BF16_PATH_TOL}): not a near tie")
+    return got
+
+
+def axes_serve_setup():
+    """(d)'s config and prompt: the top-2 MoE flagship, bf16 (weights:
+    ``axes_np_params("serve")``)."""
+    cfg = moe_cfg(FLAGSHIP, 2)
+    prompt = np.random.default_rng(29).integers(
+        0, cfg.vocab_size, AXES_PROMPT).astype(np.int32)
+    return cfg, prompt
+
+
+def axes_rank_main(tmp, world):
+    """One rank of phase axes (gloo over CUDA tensors on the one card):
+    at world 2 the parts (a) seq, (b) pipeline, (c) expert and (d) MoE
+    serving at model 2; at world 4 part (e), pipeline 2 x seq 2.  Each
+    rank writes its results (losses, step seconds, peak GB, its kernel
+    launches, the bytes its ring sent); rank 0 also the gradients."""
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch.parallel import collectives as C
+    from distkeras_tpu_torch.parallel import mesh as M
+    from distkeras_tpu_torch.parallel import ring as ring_mod
+    from distkeras_tpu_torch.parallel.sharding import ShardingPlan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dkt.deploy.init_from_env(device="cuda:0", backend="gloo", timeout=600)
+    rank = dist.get_rank()
+    sent = {"bytes": 0}
+    exchange, gather = C.exchange_rows, ring_mod.gather_on_use
+
+    def counted_exchange(x, mesh):  # a ppermute's payload, per rank
+        sent["bytes"] += x.numel() * x.element_size()
+        return exchange(x, mesh)
+
+    def counted_gather(x, dim, mesh, summed=True):  # the ring's K/V
+        size = x.numel() * x.element_size()
+        sent["bytes"] += size
+        out = gather(x, dim, mesh, summed)
+        if out.requires_grad:  # its backward reduce-scatters as much
+            out.register_hook(lambda g: sent.update(
+                bytes=sent["bytes"] + size))
+        return out
+
+    C.exchange_rows, ring_mod.gather_on_use = counted_exchange, counted_gather
+    res, grads = {}, {}
+    parts = ({"pipe_seq": dict(data=1, pipeline=2, seq=2)} if int(world) == 4
+             else {"seq": dict(data=1, seq=2), "pipe": dict(
+                 data=1, pipeline=2), "expert": dict(data=1, expert=2)})
+    for part, mesh_kw in parts.items():
+        mesh = M.make_mesh(M.MeshSpec(**mesh_kw))
+        sent["bytes"] = 0
+        kw = dict(microbatches=AXES_MICROBATCHES) if part == "pipe" else {}
+        out = axes_train(part, mesh, **kw)
+        out["axis_bytes_per_step"] = sent["bytes"] / AXES_STEPS[part]
+        grads[part] = out.pop("grad")
+        if part == "expert":
+            cfg = axes_cfg(part)
+            sp = dkt.sharded_params_from_numpy(
+                axes_np_params(part), ShardingPlan(rules=dkt.models
+                                                   .transformer.tp_rules()),
+                mesh, "cuda")
+            moe = sp["layers"]["moe"]
+            out["expert_bytes"] = sum(moe[k].numel() * moe[k].element_size()
+                                      for k in ("w1", "w2"))
+            with torch.no_grad():
+                out["drops"] = axes_drops(
+                    sp, cfg, torch.from_numpy(axes_rows(part)[:8, :-1])
+                    .cuda())
+            del sp, moe
+        res[part] = out
+        torch.cuda.empty_cache()
+    if int(world) == 2:
+        mesh = M.make_mesh(M.MeshSpec(data=1, model=2))
+        cfg, prompt = axes_serve_setup()
+        np_p = axes_np_params("serve")
+        serve = {}
+        zero_launches()
+        for dt in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, dtype=dt)
+            sp = dkt.sharded_params_from_numpy(np_p, dkt.serving_plan(),
+                                               mesh, "cuda",
+                                               dtype=getattr(torch, dt))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dkt.generate(sp, prompt, c, NEW_TOKENS)
+            torch.cuda.synchronize()
+            serve[f"{dt}_s"] = time.perf_counter() - t0
+            if dt == "bfloat16":
+                serve["launches"] = dict(attn.LAUNCHES)
+                # Again with its routers recorded: the run that
+                # route_agreement holds.
+                with recording_routes(c) as rec:
+                    out = dkt.generate(sp, prompt, c, NEW_TOKENS)
+            toks = torch.as_tensor(out.cpu().numpy().astype(np.int64))
+            rows = C.all_gather(toks.reshape(-1), mesh.whole())
+            serve[f"{dt}_ranks_agree"] = bool((rows == rows[0]).all())
+            if rank == 0:
+                np.save(os.path.join(tmp, f"axes_serve_{dt}.npy"),
+                        out.cpu().numpy())
+                if dt == "bfloat16":
+                    np.savez(os.path.join(tmp, "axes_serve_routes.npz"),
+                             **rec)
+            del sp
+            torch.cuda.empty_cache()
+        res["serve"] = serve
+    with open(os.path.join(tmp, f"axes_w{world}_r{rank}.json"), "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        for part, tree in grads.items():
+            np.savez(os.path.join(tmp, f"axes_grad_{part}.npz"), **tree)
+    dist.destroy_process_group()
+    return 0
+
+
+def axes_hold(part, ranks, tmp, want):
+    """A part's ranks against world 1: losses within 1e-3, the first
+    step's gradients within 1e-3 x max|g| (PERF §2)."""
+    g = np.load(os.path.join(tmp, f"axes_grad_{part}.npz"))
+    gmax = max(float(np.abs(v).max()) for v in want["grad"].values())
+    err = max(float(np.abs(g[k] - v).max()) for k, v in want["grad"].items())
+    loss_err = max(float(np.abs(np.asarray(r[part]["losses"])
+                                - np.asarray(want["losses"][:len(
+                                    r[part]["losses"])])).max())
+                   for r in ranks)
+    if not (err <= 1e-3 * gmax and loss_err <= 1e-3):
+        raise AssertionError(f"axes: {part} differs from world 1: grads "
+                             f"{err} (max|g| {gmax}), losses {loss_err}")
+    return dict(grad_max_abs_err=err, grad_max_abs=gmax,
+                loss_max_abs_err=loss_err,
+                losses=ranks[0][part]["losses"],
+                world1_losses=want["losses"],
+                step_s=[r[part]["step_s"] for r in ranks],
+                world1_step_s=want["step_s"],
+                peak_gb=[r[part]["peak_gb"] for r in ranks],
+                world1_peak_gb=want["peak_gb"],
+                axis_bytes_per_step=[r[part]["axis_bytes_per_step"]
+                                     for r in ranks],
+                launches_by_rank=[r[part]["launches"] for r in ranks])
+
+
+def axes_phase():
+    """The seq, pipeline and expert axes on the card (``axes_rank_main``
+    at worlds 2 and 4), each part held to a world-1 run on the card; the
+    training kernels at a pipeline microbatch's shape against their
+    plain versions.  Returns the ranks' summed launches and the kernel
+    case."""
+    mb_case = train_kernel_case(torch.float32, True, None, False,
+                                shape=AXES_MB_SHAPE)
+    log("kernel_vs_plain", kernel="flash_fwd(lse)+flash_bwd", **mb_case)
+    tmp = tempfile.mkdtemp()
+    ranks, wall = {}, {}
+
+    def job(world):
+        t0 = time.perf_counter()
+        dkt.deploy.Job("chip_smoke.py", world=world,
+                       init_method=f"file://{tmp}/rdv_axes{world}",
+                       args=("--axes-rank", tmp, str(world))).run_local(
+            timeout=600, capture=True)
+        wall[world] = time.perf_counter() - t0
+        ranks[world] = [json.load(open(os.path.join(
+            tmp, f"axes_w{world}_r{r}.json"))) for r in range(world)]
+
+    # The world-2 job runs alone: its ring steps are (a)'s reading.  The
+    # world-4 job then runs beside the world-1 runs of this process
+    # (peaks of about 24 and 31 GB), so (e)'s step seconds and world 1's
+    # are read while the other shares the host and the card.
+    job(2)
+    four = in_background(job, 4)
+    t0 = time.perf_counter()
+    world1 = {part: axes_train(part) for part in ("seq", "pipe", "expert")}
+    cfg = axes_cfg("expert")
+    p0 = dkt.params_from_numpy(axes_np_params("expert"), "cuda")
+    with torch.no_grad():
+        drops = axes_drops(p0, cfg, torch.from_numpy(
+            axes_rows("expert")[:8, :-1]).cuda())
+    full_expert_bytes = sum(p0["layers"]["moe"][k].numel() * 4
+                            for k in ("w1", "w2"))
+    del p0
+    torch.cuda.empty_cache()
+    four()
+    w2, w4 = ranks[2], ranks[4]
+    held = {part: axes_hold(part, w2, tmp, world1[part])
+            for part in ("seq", "pipe", "expert")}
+    held["pipe_seq"] = axes_hold("pipe_seq", w4, tmp, world1["pipe"])
+    # (b): a stage runs its 4 layers on each of the 4 microbatches, with
+    # lse, and each backward as often, every step.
+    per_step = (AXES_TRAIN_CFG.n_layers // 2) * AXES_MICROBATCHES
+    for r in w2:
+        got = r["pipe"]["launches"]
+        want_n = per_step * AXES_STEPS["pipe"]
+        if got != {"flash_fwd": want_n, "flash_bwd_dq": want_n,
+                   "flash_bwd_dkv": want_n}:
+            raise AssertionError(f"axes: a pipeline stage launched {got}, "
+                                 f"the stage layout predicts {want_n} of "
+                                 "each")
+    for r in w2:
+        if tuple(r["expert"]["drops"]) != drops:
+            raise AssertionError(f"axes: expert-parallel drops "
+                                 f"{r['expert']['drops']} != world 1's "
+                                 f"{drops}")
+        if r["expert"]["expert_bytes"] * 2 != full_expert_bytes:
+            raise AssertionError("axes: a rank does not hold half the "
+                                 "experts")
+        if not (r["serve"]["bfloat16_ranks_agree"]
+                and r["serve"]["float32_ranks_agree"]):
+            raise AssertionError("axes: the model ranks picked different "
+                                 "tokens")
+        if not r["serve"]["launches"]["flash_fwd"] > 0:
+            raise AssertionError("axes: MoE serving launched no forward")
+    scfg, prompt = axes_serve_setup()
+    np_p = axes_np_params("serve")
+    serve = {}
+    for dt in ("bfloat16", "float32"):
+        c = dataclasses.replace(scfg, dtype=dt)
+        sparams = dkt.params_from_numpy(np_p, "cuda",
+                                        dtype=getattr(torch, dt))
+        with recording_routes(c) as ref_rec:
+            solo = dkt.generate(sparams, prompt, c, NEW_TOKENS).cpu().numpy()
+        got = np.load(os.path.join(tmp, f"axes_serve_{dt}.npy"))
+        if dt == "float32":  # f32: every row exactly the one process's
+            if not np.array_equal(got, solo):
+                raise AssertionError(
+                    "axes: f32 MoE serving at model 2 parts from one "
+                    f"process in rows {np.nonzero((got != solo).any(1))[0]}")
+            serve[dt] = {"requests": len(got), "exact": len(got)}
+        else:
+            rec = dict(np.load(os.path.join(tmp, "axes_serve_routes.npz")))
+            rows = [route_agreement(a, b, rec, ref_rec, i, c,
+                                    prompt.shape[1])
+                    for i, (a, b) in enumerate(zip(got, solo))]
+            serve[dt] = {"requests": len(rows),
+                         "exact": sum(1 for r in rows if r["exact"]),
+                         "rows": rows}
+        del sparams
+        torch.cuda.empty_cache()
+    launches = {k: sum(r[p]["launches"][k] for rs in (w2, w4) for r in rs
+                       for p in r)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    log("axes", backend="gloo", tensors="cuda",
+        gloo_cuda_collectives=["all_gather_into_tensor", "all_reduce"],
+        parts={"seq": "(a) _long_cfg f32, 8 x 4096, seq 2 (ring)",
+               "pipe": "(b) d1024 f32, 8 x 1024, pipeline 2, 4 microbatches",
+               "expert": "(c) top-2 MoE d1024 f32, 8 x 1024, expert 2",
+               "serve": "(d) top-2 MoE flagship, model 2: bf16 and f32, "
+                 "8 x 512 + 64",
+               "pipe_seq": "(e) d1024 f32, 8 x 1024, pipeline 2 x seq 2"},
+        training=held, drops=drops, expert_bytes=[
+            r["expert"]["expert_bytes"] for r in w2],
+        world1_expert_bytes=full_expert_bytes,
+        serve=serve,
+        serve_s=[{k: v for k, v in r["serve"].items() if k.endswith("_s")}
+                 for r in w2],
+        launches=launches, job_wall_s=wall,
+        world1_s=time.perf_counter() - t0)
+    return launches, mb_case
 
 
 def main(profile=False):
@@ -5208,7 +5717,7 @@ def main(profile=False):
     # 5. The continuous-batching serving path at full width (no profiled
     # window: its idle share is read at the end).
     torch.cuda.empty_cache()
-    engine_launches = engine_phase(np_params)
+    engine_launches, mono_load = engine_phase(np_params)
 
     # 5b. The model surface at inference: MoE, int8 weights, the int8
     # KV cache.
@@ -5220,7 +5729,7 @@ def main(profile=False):
 
     # 5c. Paged KV serving and beam search.
     torch.cuda.empty_cache()
-    paged_launches = paged_phase(np_params)
+    paged_launches = paged_phase(np_params, mono_load)
     torch.cuda.empty_cache()
     beam_launches = beam_phase(np_params)
 
@@ -5235,6 +5744,12 @@ def main(profile=False):
     # each (serving and training), and the kernels at those shapes.
     torch.cuda.empty_cache()
     tp_launches, tp_half, tp_train_half = tp_phase(np_params, serve_out)
+
+    # 5f. The seq, pipeline and expert axes: gloo ranks sharing the card
+    # (the ring, the GPipe stages, expert parallelism, MoE serving at
+    # model 2, and pipeline x seq on four ranks).
+    torch.cuda.empty_cache()
+    axes_launches, axes_mb = axes_phase()
 
     # 6. The training path at full width, and its parity.
     train_np = numpy_params(FLAGSHIP_TRAIN, seed=1)
@@ -5264,6 +5779,9 @@ def main(profile=False):
     # ranks sharing the card over gloo, and the async tier.
     torch.cuda.empty_cache()
     dp_launches = dp_lm_phase(train_np, dense_step_ms)
+    # Phase resume's cluster restart (two host processes over gloo)
+    # runs from here beside dp_keras, async_dp and resume's own LM cases.
+    cluster = in_background(cluster_restart_case)
     torch.cuda.empty_cache()
     dp_keras_phase()
     async_dp_phase()
@@ -5271,7 +5789,7 @@ def main(profile=False):
     # 8c. Checkpoint, resume and resilience: the LM preempted and
     # resumed at full width (also under zero=1), and the cluster restart.
     torch.cuda.empty_cache()
-    resume_launches = resume_phase(train_np)
+    resume_launches = resume_phase(train_np, cluster)
 
     # 9. The engine's profiled window.
     torch.cuda.empty_cache()
@@ -5309,7 +5827,8 @@ def main(profile=False):
 
     surface = (moe_train_launches, lora_launches, moe_serve_launches,
                int8_launches, dp_launches, resume_launches, paged_launches,
-               beam_launches, fleet_launches, push_launches, tp_launches)
+               beam_launches, fleet_launches, push_launches, tp_launches,
+               axes_launches)
 
     def launch_counts(name, *paths):
         paths = paths + surface
@@ -5318,7 +5837,7 @@ def main(profile=False):
                     ("serve", "engine", "train", "long_train", "moe_train",
                      "lora_train", "moe_serve", "int8_serve", "dp",
                      "resume", "paged", "beam", "fleet", "weight_push",
-                     "tp"),
+                     "tp", "axes"),
                     paths)}}
 
     print(json.dumps({"kernels": [{
@@ -5345,6 +5864,7 @@ def main(profile=False):
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")} for name, c in tp_half.items()},
         "f32_lse_causal_half_heads": fwd_times(tp_train_half),
+        "f32_lse_causal_pipeline_microbatch": fwd_times(axes_mb),
         "f32_lse_causal": fwd_times(tmain),
         "f32_lse_causal_seq4096": fwd_times(lcausal),
         "f32_lse_window1024_seq4096": fwd_times(lwindow)}, {
@@ -5354,6 +5874,7 @@ def main(profile=False):
                         {"flash_bwd_dq": 0}, train_launches, long_launches),
         **bwd_times(tmain, "dq", ("dq",)),
         "f32_causal_half_heads": bwd_times(tp_train_half, "dq", ("dq",)),
+        "f32_causal_pipeline_microbatch": bwd_times(axes_mb, "dq", ("dq",)),
         "bf16_causal": bwd_times(tbf16, "dq", ("dq",)),
         "f32_causal_seq4096": bwd_times(lcausal, "dq", ("dq",)),
         "f32_window1024_seq4096": bwd_times(lwindow, "dq", ("dq",))}, {
@@ -5364,6 +5885,8 @@ def main(profile=False):
         **bwd_times(tmain, "dkv", ("dk", "dv")),
         "f32_causal_half_heads": bwd_times(tp_train_half, "dkv",
                                            ("dk", "dv")),
+        "f32_causal_pipeline_microbatch": bwd_times(axes_mb, "dkv",
+                                                    ("dk", "dv")),
         "bf16_causal": bwd_times(tbf16, "dkv", ("dk", "dv")),
         "f32_causal_seq4096": bwd_times(lcausal, "dkv", ("dk", "dv")),
         "f32_window1024_seq4096": bwd_times(lwindow, "dkv",
@@ -5384,4 +5907,6 @@ if __name__ == "__main__":
         sys.exit(replica_main(sys.argv[2]))
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(tp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--axes-rank"]:
+        sys.exit(axes_rank_main(sys.argv[2], sys.argv[3]))
     sys.exit(main(profile="--profile" in sys.argv[1:]))

@@ -58,6 +58,7 @@ from distkeras_tpu_torch.models.transformer import (
     _rms_norm,
     _unembed,
     block_apply,
+    moe_scope,
     rope_angles,
     rope_rotate,
 )
@@ -114,7 +115,7 @@ def prefill(params, prompt, cfg: TransformerConfig,
             "prefill runs the batched forward, which needs full-precision "
             "params; an int8 tree decodes on the sequential path "
             "(generate picks it)")
-    params = views(params)
+    params = views(params, whole_experts=True)
     tp = tp_of(params)
     prompt = torch.as_tensor(prompt, device=device).long()
     b, p_len = prompt.shape
@@ -126,12 +127,14 @@ def prefill(params, prompt, cfg: TransformerConfig,
                        kv_heads=local_kv_heads(params, cfg))
     attention_fn = lambda q, k, v: flash_attention(
         q, k, v, True, window=cfg.attention_window)
+    moe = moe_scope(params) if cfg.num_experts else None
     with torch.no_grad():
         x, rope_ang = _embed(params, prompt, cfg)
         for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
             x, _, (k, v) = block_apply(lp, x, cfg, attention_fn, rope_ang,
                                        return_kv=True,
-                                       moe_dense_routing=True, tp=tp)
+                                       moe_dense_routing=True, tp=tp,
+                                       moe=moe)
             if kv_int8:
                 (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
                 cache["k_scale"][i, :, :p_len].copy_(ks)
@@ -275,7 +278,7 @@ def _decode_chunk(params, cache, tokens, pos0, cfg: TransformerConfig,
     in place, and lane ``w`` reads slot ``s`` from lane ``anc[b, w, s]``
     (:func:`_ancestry_attend`).
     """
-    params = views(params)
+    params = views(params, whole_experts=True)
     dtype = cfg.torch_dtype
     b, t_len = tokens.shape
     dev = tokens.device
@@ -377,7 +380,10 @@ def _decode_ffn(lp, h, cfg: TransformerConfig):
     """The FFN of a decode chunk ``h [B, T, D]``.  MoE: T > 1 takes the
     batched :func:`_moe_dense_block`; T = 1 gathers each row's top-k
     expert slabs (cast to the compute dtype) and combines them UNMASKED,
-    as the reference's decode step does.  Dense: through ``deq``."""
+    as the reference's decode step does.  Dense: through ``deq``.  Under
+    a model axis both run this rank's ``d_ff`` columns (the caller sums
+    the partial outputs).  Experts come whole (``views(params,
+    whole_experts=True)``)."""
     dtype = cfg.torch_dtype
     if cfg.num_experts and h.shape[1] > 1:
         return _moe_dense_block(lp["moe"], h, cfg)
@@ -385,7 +391,8 @@ def _decode_ffn(lp, h, cfg: TransformerConfig):
         moe = lp["moe"]
         probs = torch.softmax(_dot(h.float(), moe["wg"]), dim=-1)
         gates, expert = _moe_gates(probs, cfg)             # [B, T, k]
-        w1, w2 = moe["w1"][expert], moe["w2"][expert]      # [B, T, k, ., .]
+        w1 = moe["w1"][expert]                             # [B, T, k, ., .]
+        w2 = moe["w2"][expert]
         hk = _gelu(_einsum("btd,btkdf->btkf", h, w1.to(dtype)))
         yk = _einsum("btkf,btkfd->btkd", hk, w2.to(dtype))
         return _einsum("btkd,btk->btd", yk, gates.to(dtype))
@@ -414,7 +421,7 @@ def _decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig,
     if beam_anc is not None:
         raise ValueError("beam ancestry attention does not compose with "
                          "pad_lens (beam search is uniform-prompt only)")
-    params = views(params)
+    params = views(params, whole_experts=True)
     dtype = cfg.torch_dtype
     x = embed_rows(params["tok_emb"], tokens, dtype)[:, None]     # [B, 1, D]
     pos_ids = torch.clamp(pos - pad_lens, min=0)                   # [B]
@@ -685,7 +692,7 @@ def beam_search(params, prompt, cfg: TransformerConfig,
     """
     device = resolve_device(device)
     check_on_device(params, device)
-    params = views(params)
+    params = views(params, whole_experts=True)
     kvh = local_kv_heads(params, cfg)
     prompt = torch.as_tensor(prompt, device=device).long()
     b, p = prompt.shape
@@ -874,7 +881,7 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
     """
     device = resolve_device(device)
     check_on_device(params, device)
-    params = views(params)
+    params = views(params, whole_experts=True)
     kvh = local_kv_heads(params, cfg)
     prompt = torch.as_tensor(prompt, device=device).long()
     b, p = prompt.shape

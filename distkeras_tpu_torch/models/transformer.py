@@ -27,7 +27,15 @@ Sharded params (``parallel/layout.py``: a tree placed by a plan such as
 runs its split attention heads and FFN columns between Megatron's f and
 g over the model axis (the flash kernel on the local heads), and the
 tied embedding is gathered whole for the lookup and the unembedding.
-Not ported yet: the pipelined trunk (ROADMAP A7b).
+
+The seq, pipeline and expert axes: a ring ``attention_fn``
+(``parallel.ring.make_ring_attention``) runs the trunk on this rank's
+block of the sequence, its positions offset by ``fn.seq_shard``;
+:func:`apply_pipelined` runs the stacked layers as GPipe stages
+(``parallel.pipeline.make_pipeline``), optionally with the ring inside
+each stage; and :func:`_moe_block` computes the reference's capacity,
+slots and aux over the whole token group (the global batch, or one
+microbatch under a pipeline), each rank running its own experts.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from distkeras_tpu_torch.models.quant import QTensor
 from distkeras_tpu_torch.ops.attention import flash_attention
+from distkeras_tpu_torch.parallel import collectives as C
 from distkeras_tpu_torch.parallel.layout import Sharded, tp_of, views
 from distkeras_tpu_torch.parallel.rules import P
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
@@ -154,8 +163,21 @@ def _layers(tree, n: int):
     ``unbind`` per leaf: its backward stacks the per-layer gradients in
     one op, where indexing each layer would scatter each into a
     full-size zero tensor."""
+    leaf = tree
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    held = (leaf.q if isinstance(leaf, QTensor) else leaf).shape[0]
+    if held != n:
+        raise ValueError(
+            f"the params hold {held} of n_layers={n} stacked layers (a "
+            "pipeline stage's slice): a tree placed over a pipeline axis "
+            "runs through apply_pipelined")
+    return _layers_of(tree, n)
+
+
+def _layers_of(tree, n: int):
     if isinstance(tree, dict):
-        per_key = {k: _layers(v, n) for k, v in tree.items()}
+        per_key = {k: _layers_of(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
     if isinstance(tree, QTensor):
         return [QTensor(q, s) for q, s in zip(tree.q.unbind(0),
@@ -409,11 +431,40 @@ def _moe_gates(probs, cfg: TransformerConfig):
     return gates, expert
 
 
-def _moe_block(lp, x, cfg: TransformerConfig, stats=None):
+@dataclasses.dataclass(frozen=True)
+class MoEScope:
+    """Where an MoE block's tokens and experts live over the mesh.
+    ``group``: ``(one-axis mesh, token dim)`` pairs, major first, whose
+    ranks' tokens share one capacity count and one aux (the reference's
+    global token set: the data axis splits the batch, dim 0, and the
+    seq axis the sequence, dim 1); ``ep``: the expert axis's mesh when
+    the experts split over it."""
+
+    group: tuple = ()
+    ep: object = None
+
+
+def moe_scope(params, axes=("data", "seq")):
+    """The :class:`MoEScope` of a compute view over ``axes`` (None for
+    one process, or an unplaced tree)."""
+    mesh = getattr(params, "mesh", None)
+    if mesh is None:
+        return None
+    dims = {"data": 0, "seq": 1}
+    group = tuple((mesh.sub(a), dims[a]) for a in axes
+                  if int(mesh.shape[a]) > 1)
+    ep = getattr(params, "ep", None)
+    if not group and ep is None:
+        return None
+    return MoEScope(group, ep)
+
+
+def _moe_block(lp, x, cfg: TransformerConfig, stats=None, scope=None,
+               tp=None):
     """Top-k MoE with capacity dropping (Switch at k = 1, GShard at
     k = 2); returns ``(out, aux_loss)``.  A ``stats`` dict, when given,
     gains this call's ``dropped`` and ``assigned`` counts (device
-    tensors) of top-k assignments.
+    tensors) of top-k assignments over the whole token group.
 
     The reference's function, computed by index: its one-hot dispatch
     ``[k, N, E, C]`` would be 1.3 GB per layer at the d1024 bench row.
@@ -425,62 +476,130 @@ def _moe_block(lp, x, cfg: TransformerConfig, stats=None):
     dispatch is exact; the top-k combine differs from the einsum by
     summation order only.  f32 throughout, output in ``x.dtype``; the
     load-balancing aux loss (Switch eq. 4) is on first choices.
+
+    Over a mesh (``scope``, :class:`MoEScope`) capacity, slots and aux
+    are the token group's, as GSPMD keeps the reference's math global:
+    each rank gathers the group's expert ids (the tokens in the
+    reference's flatten order ``n = b S + s``), rebuilds the global slot
+    order, and fills its own tokens' slots of the experts it runs; the
+    sum over the group completes every slot exactly (one rank fills
+    each).  Its experts' outputs are gathered over the expert axis and
+    each rank combines its own tokens.  ``tp``: each expert's ``d_ff``
+    split over the model axis (Megatron's f and g around the products).
     """
     b, s, d = x.shape
-    n = b * s
+    n_loc = b * s
     e, k_sel = cfg.num_experts, cfg.moe_top_k
-    cap = max(1, int(cfg.capacity_factor * k_sel * n / e))
-    flat = x.reshape(n, d).float()
+    group = scope.group if scope is not None else ()
+    ep = scope.ep if scope is not None else None
+    flat = x.reshape(n_loc, d).float()
     probs = torch.softmax(_dot(flat, lp["wg"]), dim=-1)      # [N, E]
     gates, expert = _moe_gates(probs, cfg)                    # [N, k]
-    density = F.one_hot(expert[:, 0], e).float().mean(dim=0)
-    aux = (density * probs.mean(dim=0)).sum() * e * cfg.aux_loss_coef
-    # Choice-major: assignment c * N + t is token t's choice c.  The
-    # running count scans the contiguous axis of [E, kN] (a scan over the
-    # outer axis of [kN, E] is a slow kernel on the card).
-    e_cm = expert.t().reshape(k_sel * n)
+    # Choice-major: assignment c * N + t is token t's choice c.
+    e_mine = expert.t().reshape(k_sel * n_loc)
+    if group:
+        ids = expert.t().reshape(k_sel, b, s)
+        starts = [0, 0]
+        for m, dim in reversed(group):
+            starts[dim] = m.rank * ids.shape[dim + 1]
+            ids = C.gather_dim(ids, dim + 1, m)
+        gb, gs = ids.shape[1:]
+        n = gb * gs
+        e_cm = ids.reshape(k_sel * n)
+        rows = torch.arange(b, device=x.device) + starts[0]
+        cols = torch.arange(s, device=x.device) + starts[1]
+        mine = (rows[:, None] * gs + cols[None]).reshape(-1)
+        pick = (torch.arange(k_sel, device=x.device)[:, None] * n
+                + mine[None]).reshape(-1)
+    else:
+        n, e_cm = n_loc, e_mine
+    cap = max(1, int(cfg.capacity_factor * k_sel * n / e))
+    density = F.one_hot(e_cm[:n], e).float().mean(dim=0)
+    if group:
+        psum = probs.sum(dim=0)
+        for m, _ in group:
+            psum = C.sum_over_group(psum, m)
+        p_mean = psum / n
+    else:
+        p_mean = probs.mean(dim=0)
+    aux = (density * p_mean).sum() * e * cfg.aux_loss_coef
+    # The running count scans the contiguous axis of [E, kN] (a scan over
+    # the outer axis of [kN, E] is a slow kernel on the card).
     counts = F.one_hot(e_cm, e).t().contiguous().cumsum(dim=1)  # [E, kN]
-    slot = counts.gather(0, e_cm[None])[0] - 1                # 0-based
-    keep = slot < cap
+    slot_all = counts.gather(0, e_cm[None])[0] - 1            # 0-based
     if stats is not None:
-        stats["dropped"] = stats.get("dropped", 0) + (~keep).sum()
-        stats["assigned"] = stats.get("assigned", 0) + keep.numel()
+        stats["dropped"] = stats.get("dropped", 0) + (slot_all >= cap).sum()
+        stats["assigned"] = stats.get("assigned", 0) + slot_all.numel()
+    slot = slot_all[pick] if group else slot_all
+    keep = slot < cap
     # Slot e * C + c of the flat [E * C] layout; dropped -> the dump slot.
-    dest = torch.where(keep, e_cm * cap + slot, e * cap)
-    tok = torch.arange(n, device=x.device).repeat(k_sel)
-    src = torch.full((e * cap + 1,), n, dtype=torch.long, device=x.device)
-    src[dest] = tok                                           # slot -> token
-    padded = torch.cat([flat, flat.new_zeros((1, d))])        # row n: empty
-    xe = padded.index_select(0, src[:e * cap]).reshape(e, cap, d)
+    dest = torch.where(keep, e_mine * cap + slot, e * cap)
+    # The experts this rank runs: a block of E / expert-axis-size.
+    e_run = e // ep.size if ep is not None else e
+    lo = ep.rank * e_run * cap if ep is not None else 0
+    width = e_run * cap
+    dl = dest - lo
+    tok = torch.arange(n_loc, device=x.device).repeat(k_sel)
+    src = torch.full((width + 1,), n_loc, dtype=torch.long, device=x.device)
+    src[torch.where((dl >= 0) & (dl < width), dl, width)] = tok  # slot -> token
+    # The experts' ranks dispatch alike: their input's gradient is the
+    # sum of each one's experts' (Megatron's f over the expert axis).
+    xd = C.copy_to_group(flat, ep) if ep is not None else flat
+    padded = torch.cat([xd, xd.new_zeros((1, d))])           # row n: empty
+    xe = padded.index_select(0, src[:width])
+    for m, _ in group:  # one rank fills each slot: an exact sum
+        xe = C.sum_over_group(xe, m)
+    xe = xe.reshape(e_run, cap, d)
     w1, w2 = lp["w1"].to(flat.dtype), lp["w2"].to(flat.dtype)
-    ye = torch.bmm(_gelu(torch.bmm(xe, w1)), w2).reshape(e * cap, d)
+    split = tp is not None and tp.ffn
+    if split:
+        xe = tp.enter(xe, True)
+    ye = torch.bmm(_gelu(torch.bmm(xe, w1)), w2)
+    if split:
+        ye = tp.leave(ye, True)
+    ye = ye.reshape(width, d)
+    if ep is not None:
+        ye = C.gather_on_use(ye, 0, ep, summed=False)         # [E * C, D]
     ye = torch.cat([ye, ye.new_zeros((1, d))])                # dump slot
-    w = (gates.t().reshape(k_sel * n) * keep)[:, None]
-    out = (ye.index_select(0, dest) * w).reshape(k_sel, n, d).sum(dim=0)
+    w = (gates.t().reshape(k_sel * n_loc) * keep)[:, None]
+    out = (ye.index_select(0, dest) * w).reshape(k_sel, n_loc, d).sum(dim=0)
     return out.to(x.dtype).reshape(b, s, d), aux
 
 
-def _moe_dense_block(lp, x, cfg: TransformerConfig):
+def _all_experts(w, ep):
+    """An expert-split weight whole (gathered over the expert axis, the
+    gradient this rank's block)."""
+    return w if ep is None else C.gather_on_use(w, 0, ep, summed=False)
+
+
+def _moe_dense_block(lp, x, cfg: TransformerConfig, tp=None, ep=None):
     """Capacity-free top-k MoE over ``[B, S, D]``: every expert runs on
     every token and the router's picks are combined, unselected experts
     masked with ``where`` before the combine (a non-finite value there
     cannot reach the token).  Prefill, ``moe_dense_routing`` and the
-    decode chunks run it; training keeps :func:`_moe_block`."""
+    decode chunks run it; training keeps :func:`_moe_block`.  ``tp``:
+    each expert's ``d_ff`` split over the model axis (the partial
+    outputs summed by g); ``ep``: experts split over the expert axis,
+    gathered whole here."""
     dtype = x.dtype
     probs = torch.softmax(_dot(x.float(), lp["wg"]), dim=-1)
     gates, expert = _moe_gates(probs, cfg)                    # [B, S, k]
     sel = (F.one_hot(expert, cfg.num_experts).float()
            * gates[..., None]).sum(dim=-2)                    # [B, S, E]
-    h1 = _gelu(_einsum("bsd,edf->bsef", x, lp["w1"].to(dtype)))
-    y_all = _einsum("bsef,efd->bsed", h1, lp["w2"].to(dtype))
+    split = tp is not None and tp.ffn
+    xin = tp.enter(x, True) if split else x
+    w1, w2 = _all_experts(lp["w1"], ep), _all_experts(lp["w2"], ep)
+    h1 = _gelu(_einsum("bsd,edf->bsef", xin, w1.to(dtype)))
+    y_all = _einsum("bsef,efd->bsed", h1, w2.to(dtype))
     y_all = torch.where(sel[..., None] > 0, y_all, 0.0)
-    return _einsum("bsed,bse->bsd", y_all,
-                   sel.to(y_all.dtype)).to(dtype)
+    out = _einsum("bsed,bse->bsd", y_all, sel.to(y_all.dtype)).to(dtype)
+    return tp.leave(out, True) if split else out
 
 
 def block_apply(layer_params, x, cfg: TransformerConfig,
                 attention_fn: Callable, rope_ang=None, drop_rng=None,
-                return_kv=False, moe_dense_routing=False, tp=None):
+                return_kv=False, moe_dense_routing=False, tp=None,
+                moe=None):
     """One pre-norm block.  Returns (x, aux_loss), or
     (x, aux_loss, (k, v)) with ``return_kv`` (post-rope, kv-heads-only —
     the decode-cache layout that ``generate.prefill`` consumes).
@@ -490,7 +609,9 @@ def block_apply(layer_params, x, cfg: TransformerConfig,
     ``moe_dense_routing`` the capacity-free :func:`_moe_dense_block`
     (aux 0).  ``tp`` (a ``parallel.layout.ModelAxis``): the attention
     and FFN run their local split between f and g over the model axis,
-    and ``(k, v)`` are this rank's kv heads."""
+    and ``(k, v)`` are this rank's kv heads.  ``moe`` (an
+    :class:`MoEScope`): the token group and expert axis of the MoE
+    block."""
     h = _rms_norm(x, layer_params["ln1_scale"])
     a = _attention_block(layer_params["attn"],
                          tp.enter(h, tp.attn) if tp else h, attention_fn,
@@ -507,9 +628,10 @@ def block_apply(layer_params, x, cfg: TransformerConfig,
     h = _rms_norm(x, layer_params["ln2_scale"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.num_experts and moe_dense_routing:
-        y = _moe_dense_block(layer_params["moe"], h, cfg)
+        y = _moe_dense_block(layer_params["moe"], h, cfg, tp=tp,
+                             ep=moe.ep if moe is not None else None)
     elif cfg.num_experts:
-        y, aux = _moe_block(layer_params["moe"], h, cfg)
+        y, aux = _moe_block(layer_params["moe"], h, cfg, scope=moe, tp=tp)
     elif tp:
         y = tp.leave(_ffn(layer_params["ffn"], tp.enter(h, tp.ffn)),
                      tp.ffn)
@@ -545,9 +667,10 @@ def _remat_block(cfg: TransformerConfig, moe_dense_routing: bool = False):
         create_selective_checkpoint_contexts, ops)}
 
     def block(lp, x, cfg, attention_fn, rope_ang=None, drop_rng=None,
-              tp=None):
+              tp=None, moe=None):
         if not torch.is_grad_enabled():
-            return fn(lp, x, cfg, attention_fn, rope_ang, drop_rng, tp=tp)
+            return fn(lp, x, cfg, attention_fn, rope_ang, drop_rng, tp=tp,
+                      moe=moe)
         state = None if drop_rng is None else drop_rng.get_state()
         calls = []
 
@@ -557,26 +680,38 @@ def _remat_block(cfg: TransformerConfig, moe_dense_routing: bool = False):
                 gen = torch.Generator(drop_rng.device)
                 gen.set_state(state)
             calls.append(True)
-            return fn(lp, x, cfg, attention_fn, rope_ang, gen, tp=tp)
+            return fn(lp, x, cfg, attention_fn, rope_ang, gen, tp=tp,
+                      moe=moe)
 
         return checkpoint(run, lp, x, rope_ang, use_reentrant=False, **kw)
 
     return block
 
 
-def _embed(params, tokens, cfg: TransformerConfig):
-    """Token (+ learned position) embedding and the rope angles."""
+def _embed(params, tokens, cfg: TransformerConfig, start: int = 0):
+    """Token (+ learned position) embedding and the rope angles;
+    ``start`` is the global position of ``tokens``' first column (a
+    sequence shard's offset)."""
     dtype = cfg.torch_dtype
     s = tokens.shape[1]
     x = params["tok_emb"][tokens].to(dtype)
     rope_ang = None
     if cfg.rope:
-        pos = torch.arange(s, device=tokens.device)
+        pos = torch.arange(start, start + s, device=tokens.device)
         rope_ang = rope_angles(pos, cfg.head_dim,
                                cfg.rope_theta)[None, :, None, :]
     else:
-        x = x + params["pos_emb"][:s][None].to(dtype)
+        x = x + params["pos_emb"][start:start + s][None].to(dtype)
     return x, rope_ang
+
+
+def _seq_start(attention_fn, s: int, cfg: TransformerConfig) -> int:
+    """The global offset of a sequence shard of ``s`` columns (0 unless
+    ``attention_fn`` is a ring over the seq axis), its global length
+    checked against ``cfg.max_len``."""
+    idx, count = getattr(attention_fn, "seq_shard", (0, 1))
+    _check_len(s * count, cfg)
+    return idx * s
 
 
 def apply_hidden(params, tokens, cfg: TransformerConfig,
@@ -594,28 +729,49 @@ def apply_hidden(params, tokens, cfg: TransformerConfig,
     (:func:`_remat_block`).  ``moe_dense_routing=True`` scores MoE
     configs with the capacity-free routing of ``prefill`` and the decode
     (the inference semantics; aux comes back 0).  Sharded ``params``
-    run through their compute view (``parallel.layout.views``).
+    run through their compute view (``parallel.layout.views``); with a
+    ring ``attention_fn`` (``parallel.ring``) ``tokens`` are this rank's
+    block of the sequence, positioned at its global offset, and over a
+    mesh this rank's rows, as the data axis splits the batch (MoE
+    capacity and aux count the whole group's).
     """
     params = views(params)
     tp = tp_of(params)
     _check_generator(dropout_rng)
+    start = _seq_start(attention_fn, tokens.shape[1], cfg)
+    # The token group of MoE: the data ranks' rows, and the sequence
+    # blocks when the ring splits the sequence.
+    seq_split = getattr(attention_fn, "seq_shard", (0, 1))[1] > 1
     attention_fn = _resolve_attention_fn(cfg, attention_fn, segment_ids)
-    _check_len(tokens.shape[1], cfg)
-    x, rope_ang = _embed(params, tokens, cfg)
+    layers = _layers(params["layers"], cfg.n_layers)
+    x, rope_ang = _embed(params, tokens, cfg, start)
     drop = dropout_rng if cfg.dropout > 0 else None
     if drop is not None:
         x = _dropout(x, cfg.dropout, drop)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     block = _remat_block(cfg, moe_dense_routing)
-    for lp in _layers(params["layers"], cfg.n_layers):
-        x, aux = block(lp, x, cfg, attention_fn, rope_ang, drop, tp=tp)
+    moe = (moe_scope(params, ("data", "seq") if seq_split else ("data",))
+           if cfg.num_experts else None)
+    for lp in layers:
+        x, aux = block(lp, x, cfg, attention_fn, rope_ang, drop, tp=tp,
+                       moe=moe)
         aux_total = aux_total + aux
     return _rms_norm(x, params["ln_f_scale"]), aux_total
 
 
+def _head_table(params):
+    """The tied table as the head uses it.  Over a pipeline axis every
+    stage runs the head on the last stage's hidden states, so its
+    gradient is kept on the last stage only and the sum over the stages
+    counts it once (beside stage 0's lookup)."""
+    pp = getattr(params, "pp", None)
+    table = params["tok_emb"]
+    return table if pp is None else C.count_once(table, pp, pp.size - 1)
+
+
 def _unembed(hidden, params, cfg: TransformerConfig):
     """Tied unembedding head: hidden [B, S, D] -> f32 logits [B, S, V]."""
-    table = params["tok_emb"].to(cfg.torch_dtype)
+    table = _head_table(params).to(cfg.torch_dtype)
     return _dot(hidden, table.t()).float()
 
 
@@ -692,6 +848,125 @@ def chunked_softmax_xent(hidden, emb, targets, n_chunks: int):
     return total / denom, z_total / denom
 
 
+def apply_pipelined(params, tokens, cfg: TransformerConfig, mesh,
+                    microbatches: int, attention_fn: Callable | None = None,
+                    axis_name: str = "pipeline", seq_axis: str | None = None,
+                    return_hidden: bool = False, segment_ids=None):
+    """Forward pass with the layer trunk pipelined over ``axis_name``;
+    returns ``(logits, aux)`` (or the final-norm hidden states with
+    ``return_hidden``, for the chunked loss head).
+
+    The embedding and the head run outside the pipeline (they change
+    shape); the residual trunk runs as ``n_stages`` contiguous stages of
+    ``n_layers / n_stages`` layers under
+    ``parallel.pipeline.make_pipeline``.  ``params``: a tree placed over
+    the mesh (each rank holds its stage's layers, ``parallel/layout.py``)
+    or the whole tree, whose stage slice each rank takes.  ``tokens``:
+    this rank's rows (``[B, S]``; with ``seq_axis`` this rank's block of
+    the sequence).  MoE aux flows through the pipeline averaged over
+    microbatches; expert capacity applies per microbatch (over its rows
+    on every data rank), as in the reference.
+
+    ``seq_axis="seq"`` (PP x SP): each stage runs the ring attention
+    body on its sequence block, positions global (offset by the block's
+    index); MoE capacity then applies per sequence block, and the aux is
+    averaged over the seq axis.  ``segment_ids`` (packed sequences) ride
+    the pipeline as per-microbatch extras; only the default flash and
+    ``seq_axis`` paths take them.  Every stage returns the last stage's
+    result."""
+    from distkeras_tpu_torch.parallel.pipeline import make_pipeline
+    from distkeras_tpu_torch.parallel.ring import ring_attention
+
+    segmented = segment_ids is not None
+    if segmented and attention_fn is not None:
+        raise ValueError(
+            "segment_ids with a custom attention_fn is not supported "
+            "under the pipeline — use the default flash path or "
+            "seq_axis (see apply_hidden's guard)")
+    x_spec = P()
+    extras_spec = P() if segmented else None
+    ring_seq = seq_axis is not None and int(mesh.shape[seq_axis]) > 1
+    start = 0
+    if ring_seq:
+        if attention_fn is not None:
+            raise ValueError(
+                "pass either attention_fn or seq_axis, not both: under "
+                "seq_axis the pipeline installs the ring attention body "
+                "itself")
+        attention_fn = functools.partial(
+            ring_attention, axis_name=seq_axis, causal=True,
+            window=cfg.attention_window, mesh=mesh)
+        x_spec = P(None, seq_axis)
+        if segmented:
+            extras_spec = P(None, None, seq_axis)
+        sq = mesh.sub(seq_axis)
+        start = sq.rank * tokens.shape[1]
+        _check_len(tokens.shape[1] * sq.size, cfg)
+    else:
+        _check_len(tokens.shape[1], cfg)
+        if not segmented:
+            attention_fn = _resolve_attention_fn(cfg, attention_fn)
+    n_stages = int(mesh.shape[axis_name])
+    if cfg.n_layers % n_stages:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} not divisible into {n_stages} stages")
+    per_stage = cfg.n_layers // n_stages
+    params = views(params)
+    tp = tp_of(params)
+    pipe = mesh.sub(axis_name)
+    device = params["tok_emb"].device
+    tokens = _as_ids(tokens, device, torch.long)
+    b, s = tokens.shape
+    x, rope_ang = _embed(params, tokens, cfg, start)
+
+    def stage_slice(a):
+        # A whole tree's layers: this rank's stage (no communication).
+        if a.shape[0] == cfg.n_layers and n_stages > 1:
+            a = a[pipe.rank * per_stage:(pipe.rank + 1) * per_stage]
+        return a.reshape(1, *a.shape)
+
+    stage_params = _map_leaves(stage_slice, dict(params["layers"]))
+    block = _remat_block(cfg)
+    moe = moe_scope(params, ("data",)) if cfg.num_experts else None
+
+    def stage_fn(lp, u, seg=None):
+        if seg is None:
+            att = attention_fn
+        elif ring_seq:
+            att = functools.partial(attention_fn, segment_ids=seg)
+        else:
+            att = _resolve_attention_fn(cfg, None, seg)
+        aux_stage = torch.zeros((), dtype=torch.float32, device=u.device)
+        for li in _layers(lp, per_stage):
+            u, aux = block(li, u, cfg, att, rope_ang, tp=tp, moe=moe)
+            aux_stage = aux_stage + aux
+        return u, aux_stage
+
+    pipe_fn = make_pipeline(stage_fn, mesh, microbatches, axis_name,
+                            x_spec=x_spec, extras_spec=extras_spec)
+    if segmented:
+        segment_ids = _as_ids(segment_ids, device, torch.int32)
+        if segment_ids.shape != tokens.shape:
+            raise ValueError(
+                f"segment_ids must align with tokens {tuple(tokens.shape)}, "
+                f"got {tuple(segment_ids.shape)}")
+        if b % microbatches:
+            raise ValueError(f"batch {b} not divisible into "
+                             f"{microbatches} microbatches")
+        seg_mb = segment_ids.reshape(microbatches, b // microbatches, s)
+        x, aux_total = pipe_fn(stage_params, x, seg_mb)
+    else:
+        x, aux_total = pipe_fn(stage_params, x)
+    # The head runs on every stage from the last stage's result: its
+    # weights' gradients count once over the stages (count_once).
+    last = pipe.size - 1
+    x = _rms_norm(x, C.count_once(params["ln_f_scale"], pipe, last))
+    if return_hidden:
+        return x, aux_total
+    table = C.count_once(params["tok_emb"], pipe, last).to(cfg.torch_dtype)
+    return _dot(x, table.t()).float(), aux_total
+
+
 def _forward_nll(params, tokens, cfg: TransformerConfig,
                  attention_fn: Callable | None, apply_fn: Callable | None,
                  dropout_rng=None, hidden_fn: Callable | None = None,
@@ -760,7 +1035,7 @@ def _forward_nll(params, tokens, cfg: TransformerConfig,
                                               seg_in)
     hidden, aux = call_custom(hidden_fn, params, tokens[:, :-1])
     if cfg.ce_chunks > 1:
-        nll, z_mean = chunked_softmax_xent(hidden, params["tok_emb"],
+        nll, z_mean = chunked_softmax_xent(hidden, _head_table(params),
                                            targets, cfg.ce_chunks)
         if zc > 0:
             aux = aux + zc * z_mean

@@ -438,6 +438,97 @@ def reduce_from_group(x, mesh):
     return _ReduceFromGroup.apply(x, mesh)
 
 
+def exchange_rows(x, mesh):
+    """Every rank's ``x``, stacked ``[n, *x.shape]`` in rank order (one
+    all-gather over the group: the transport of :func:`ppermute`)."""
+    return all_gather(x.contiguous().reshape(-1), mesh).reshape(
+        mesh.size, *x.shape)
+
+
+def _routed(x, mesh, pairs):
+    """What this rank receives when every rank sends its ``x`` along
+    ``pairs`` (``(src, dst)``): the source's ``x``, or zeros for a rank
+    that receives from nobody.  Every rank calls it (a collective)."""
+    rows = exchange_rows(x, mesh)
+    src = [s for s, d in pairs if d == mesh.rank]
+    return rows[src[0]].clone() if src else torch.zeros_like(x)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, perm):
+        ctx.mesh, ctx.perm = mesh, perm
+        return _routed(x, mesh, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return _routed(grad, ctx.mesh, inverse), None, None
+
+
+def ppermute(x, mesh, perm):
+    """``jax.lax.ppermute`` over ``mesh``'s axis: rank ``d`` of every
+    pair ``(s, d)`` of ``perm`` receives rank ``s``'s ``x``; a rank that
+    receives from nobody gets zeros.  The backward sends the cotangent
+    along the inverse permutation.  Its transport is one all-gather over
+    the axis's group (gloo and NCCL both run it on CUDA tensors), so
+    every rank of the group must call it, in the same order, forward
+    and backward."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    if len({d for _, d in perm}) != len(perm) or len(
+            {s for s, _ in perm}) != len(perm):
+        raise ValueError(f"ppermute needs a permutation, got {perm}")
+    if mesh.group is None:
+        return x if (0, 0) in perm else torch.zeros_like(x)
+    return _PPermute.apply(x, mesh, perm)
+
+
+class _FromRank(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, src):
+        ctx.mesh, ctx.src = mesh, src
+        mine = x if mesh.rank == src else torch.zeros_like(x)
+        return all_reduce(mine.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        keep = ctx.mesh.rank == ctx.src
+        return (grad if keep else torch.zeros_like(grad)), None, None
+
+
+def from_rank(x, mesh, src: int):
+    """Rank ``src``'s ``x`` on every rank of the group (the others'
+    ``x`` only gives the shape).  The ranks then compute alike with it,
+    so the backward hands ``src`` its own gradient (one copy of the
+    replicated computation's) and the others zeros, with no
+    communication."""
+    if mesh.group is None:
+        return x
+    return _FromRank.apply(x, mesh, int(src))
+
+
+class _CountOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, owner):
+        ctx.keep = mesh.rank == owner
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.keep else torch.zeros_like(grad)), None, None
+
+
+def count_once(x, mesh, owner: int):
+    """Identity forward; the backward keeps the gradient on rank
+    ``owner`` only.  For a leaf replicated over the group that every
+    rank uses in the same replicated computation (a pipeline's head)
+    while its other uses differ by rank: the sum of its gradients over
+    the group then counts the replicated use once."""
+    if mesh.group is None:
+        return x
+    return _CountOnce.apply(x, mesh, int(owner))
+
+
 def adasum_reduce(x, mesh):
     """Adasum merge of every rank's ``[C]`` contribution (rule in
     ``parallel/exchange.py``): identical contributions give the value
@@ -505,8 +596,11 @@ class DataParallel(DPOptimizer):
     update.  With a ``layout`` (``parallel/layout.py``: params placed
     over a mesh) the group is the data axis's, a leaf split over the
     data axis arrives summed by its gather's reduce-scatter and is only
-    divided, and the clip's and the probe's norms count each element of
-    the placed tree once over the whole mesh."""
+    divided, the layout's
+    :meth:`~distkeras_tpu_torch.parallel.layout.Layout.reduce_grads`
+    finishes the exchange over the axes beyond ``data``, and the clip's
+    and the probe's norms count each element of the placed tree once
+    over the whole mesh."""
 
     def __init__(self, inner, mesh, bucket_mb: float = DEFAULT_BUCKET_MB,
                  layout=None):
@@ -522,12 +616,24 @@ class DataParallel(DPOptimizer):
                 tree_flatten_with_names(params)[0] if p.grad is not None]
 
     def exchange(self, params, state) -> None:
-        if self.mesh.group is None:
-            return
+        if self.layout is not None and self.layout.pp is not None:
+            # A stage that does not use a leaf (the position table past
+            # stage 0) still sends its zeros: every rank packs the same
+            # buckets.
+            for p in tree_leaves(params):
+                if p.grad is None and p.requires_grad:
+                    p.grad = torch.zeros_like(p)
         # Leaves without a gradient (a frozen base) are alike on every
         # rank and stay out of the exchange.
         named = [(n, p) for n, p in tree_flatten_with_names(params)[0]
                  if p.grad is not None]
+        lay = self.layout
+        if self.mesh.group is not None:
+            self._data_mean(named)
+        if lay is not None:
+            lay.reduce_grads(named, self.bucket_mb)
+
+    def _data_mean(self, named) -> None:
         lay = self.layout
         summed = [p for n, p in named if lay is not None
                   and lay.splits_data(n)]
@@ -655,6 +761,18 @@ class ZeroOptimizer(DPOptimizer):
             p.grad = None
 
 
+def zero1_validate(mesh, spec, axis: str = "data") -> None:
+    """Stage-1 spelling of :func:`zero_validate` (the reference keeps it
+    for the exchange layer's call sites)."""
+    zero_validate(mesh, spec, axis=axis, stage=1)
+
+
+def zero1_shard_shapes(params, n: int) -> frozenset:
+    """The ``[n, cols]`` shapes ZeRO-1 optimizer-state leaves take for
+    this parameter tree (the shard views of :class:`Zero1Layout`)."""
+    return Zero1Layout.for_tree(params, n).shard_shapes
+
+
 def zero1_optimizer(inner, mesh, bucket_mb: float = DEFAULT_BUCKET_MB,
                     perms=None) -> ZeroOptimizer:
     """ZeRO-1 wrap of an elementwise optimizer."""
@@ -677,4 +795,6 @@ __all__ = ["Zero1Layout", "scatter", "reduce_scatter", "all_gather",
            "DPOptimizer", "DataParallel", "ZeroOptimizer", "ZeroState",
            "gather_tree", "true_div", "DEFAULT_BUCKET_MB", "gather_dim",
            "scatter_dim", "gather_on_use", "copy_to_group",
-           "reduce_from_group"]
+           "reduce_from_group", "ppermute", "from_rank", "count_once",
+           "exchange_rows", "sum_over_group", "zero1_validate",
+           "zero1_shard_shapes"]

@@ -19,14 +19,26 @@ insert the collectives.  The port runs one process per device, so a
   all-gathered when the tree is used, with the gradient reduce-scattered
   back (``collectives.gather_on_use``): the embeddings under
   ``tp_rules``, every leaf's FSDP dimension, a user rule's split of any
-  other dimension.  Over the data axis the gradient is summed (the
-  ranks' rows differ); over the model axis, whose ranks compute alike
-  outside their native blocks, it is this rank's block.
+  other dimension.  Over the data and seq axes the gradient is summed
+  (the ranks' tokens differ); over the model and expert axes, whose
+  ranks compute alike outside their native blocks, it is this rank's
+  block.
+- **Stages and experts**: under a pipeline axis every ``layers/`` leaf
+  splits its stacked ``[L]`` dimension over ``pipeline`` (a rank holds
+  its stage's layers, which ``apply_pipelined`` runs), and the MoE
+  experts (``moe/w1`` / ``moe/w2`` dimension 1 over ``expert``, as
+  ``tp_rules`` places them) stay local: each rank runs its own experts
+  on the slots its token group fills (``models/transformer.py::
+  _moe_block``), and each expert's ``d_ff`` splits over ``model`` like
+  the FFN's.
 
 :func:`views` is the trunk's one entry: a :class:`Sharded` tree becomes
-its compute view (a :class:`Views` dict with the ``tp`` handle), a view
-or an unplaced tree passes through.  MoE under a mesh above 1 is
-ROADMAP A7b.
+its compute view (a :class:`Views` dict with the ``tp`` / ``ep`` / ``pp``
+handles and the ``mesh``), a view or an unplaced tree passes through.
+:meth:`Layout.reduce_grads` finishes a step's exchange over the axes
+beyond ``data``: the gradients averaged over ``seq`` (its ranks hold
+different tokens) and the leaves the pipeline does not split summed over
+``pipeline`` (the embeddings' lookup on stage 0, the head on the last).
 """
 
 from __future__ import annotations
@@ -48,7 +60,10 @@ _NATIVE = {
     "attn": {"layers/attn/wq": 2, "layers/attn/wk": 2, "layers/attn/wv": 2,
              "layers/attn/wo": 1},
     "ffn": {"layers/ffn/w1": 2, "layers/ffn/w2": 1},
+    "moe": {"layers/moe/w1": 3, "layers/moe/w2": 2},
 }
+# The MoE experts' dimension, local over the expert axis.
+_EXPERT = {"layers/moe/w1": 1, "layers/moe/w2": 1}
 
 
 class Sharded(dict):
@@ -62,15 +77,22 @@ class Sharded(dict):
 
 class Views(dict):
     """The compute view of a :class:`Sharded` tree: native splits local,
-    everything else whole; ``tp`` is the :class:`ModelAxis` (or None)."""
+    everything else whole; ``tp`` is the :class:`ModelAxis` (or None),
+    ``ep`` the expert axis's one-axis mesh when the experts split over
+    it, ``pp`` the pipeline axis's when the layers do, ``mesh`` the
+    whole mesh."""
 
     tp = None
+    ep = None
+    pp = None
+    mesh = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ModelAxis:
     """The model axis as the trunk sees it: its one-axis ``mesh`` and
-    which blocks run split (``attn``, ``ffn``)."""
+    which blocks run split (``attn``, and ``ffn`` for the dense FFN or
+    the MoE experts' products)."""
 
     mesh: Mesh
     attn: bool
@@ -93,23 +115,22 @@ def _only_at(spec, dim: int, axis: str) -> bool:
 
 class Layout:
     """Every leaf's spec under ``plan`` over ``mesh``, from ``tree`` (the
-    full leaves, or anything with their ``shape``)."""
+    full leaves, or anything with their ``shape``).  ``stages=False``
+    keeps the layers whole over a pipeline axis and ``experts=False``
+    gathers split experts on use (the serving engines, which run every
+    layer and every expert on each rank)."""
 
-    def __init__(self, plan, mesh: Mesh, tree):
+    def __init__(self, plan, mesh: Mesh, tree, stages: bool = True,
+                 experts: bool = True):
         self.plan, self.mesh = plan, mesh
+        self.stages = stages
         named, self._spec = tree_flatten_with_names(tree)
         self.names = [n for n, _ in named]
         self.full_shapes = {n: tuple(x.shape) for n, x in named}
-        self.specs = {n: plan.spec_for(n, shape=self.full_shapes[n],
-                                       mesh=mesh) for n in self.names}
+        self.specs = {n: self._stage_split(n, plan.spec_for(
+            n, shape=self.full_shapes[n], mesh=mesh)) for n in self.names}
         self.shardings = {n: NamedSharding(mesh, s)
                           for n, s in self.specs.items()}
-        if mesh.world_size > 1 and any(n.startswith("layers/moe/")
-                                       for n in self.names):
-            raise NotImplementedError(
-                "MoE under a mesh above 1 is not ported yet (ROADMAP "
-                "A7b, expert parallelism): its dispatch and aux loss "
-                "are global-batch computations")
         native, on = {}, {}
         if int(mesh.shape["model"]) > 1:
             for block, dims in _NATIVE.items():
@@ -120,7 +141,21 @@ class Layout:
                     native.update(dims)
         self.native = native
         self.tp = (ModelAxis(mesh.sub("model"), on.get("attn", False),
-                             on.get("ffn", False)) if native else None)
+                             on.get("ffn", False) or on.get("moe", False))
+                   if native else None)
+        self.local = {n: {0: "pipeline"} for n in self.names
+                      if stages and int(mesh.shape["pipeline"]) > 1
+                      and n.startswith("layers/")}
+        self.ep = None
+        if experts and int(mesh.shape["expert"]) > 1 and all(
+                n in self.specs and _only_at(self.specs[n], d, "expert")
+                for n, d in _EXPERT.items()):
+            self.ep = mesh.sub("expert")
+            for n, d in _EXPERT.items():
+                self.local.setdefault(n, {})[d] = "expert"
+        self.pp = (mesh.sub("pipeline") if any(
+            "pipeline" in cut.values() for cut in self.local.values())
+            else None)
         # Per leaf, the (dim, axis) gathers of its compute view: an
         # entry's axes minor first (JAX orders them major first).
         self.gathers = {}
@@ -132,8 +167,27 @@ class Layout:
                         continue
                     if ax == "model" and native.get(n) == d:
                         continue
+                    if self.local.get(n, {}).get(d) == ax:
+                        continue
                     ops.append((d, ax))
             self.gathers[n] = ops
+
+    def _stage_split(self, name: str, spec):
+        """``spec`` with the stacked layer dimension over the pipeline
+        axis (a rank holds its stage's layers)."""
+        if not self.stages or int(self.mesh.shape["pipeline"]) == 1 \
+                or not name.startswith("layers/"):
+            return spec
+        entries = list(tuple(spec)) or [None]
+        if any("pipeline" in _axes_of(e) for e in entries):
+            return spec
+        if entries[0] is not None:
+            raise ValueError(
+                f"{name}: the pipeline axis splits the stacked layer "
+                f"dimension, which {spec} already places over "
+                f"{entries[0]!r}")
+        entries[0] = "pipeline"
+        return P(*entries)
 
     # --------------------------------------------------------- placement
 
@@ -156,11 +210,14 @@ class Layout:
     def view_leaf(self, name: str, full):
         """The compute view's value of ``name`` from its full leaf: this
         rank's block along a native split, whole elsewhere."""
-        d = self.native.get(name)
-        if d is None:
+        cut = dict(self.local.get(name, {}))
+        if name in self.native:
+            cut[self.native[name]] = "model"
+        if not cut:
             return full
-        spec = [None] * (d + 1)
-        spec[d] = "model"
+        spec = [None] * (max(cut) + 1)
+        for d, ax in cut.items():
+            spec[d] = ax
         return NamedSharding(self.mesh, P(*spec)).local(full)
 
     def shard(self, tree):
@@ -198,14 +255,50 @@ class Layout:
         for n, x in named:
             for d, ax in self.gathers[n]:
                 x = C.gather_on_use(x, d, self.mesh.sub(ax),
-                                    summed=ax != "model")
+                                    summed=ax in ("data", "seq"))
             out.append(x)
         out = tree_unflatten(spec, out)
         if not isinstance(out, dict):
             return out
         v = Views(out)
-        v.tp = self.tp
+        v.tp, v.ep, v.pp, v.mesh = self.tp, self.ep, self.pp, self.mesh
         return v
+
+    def splits(self, name: str, axis: str) -> bool:
+        """Does ``name`` split over ``axis``?"""
+        return any(axis in _axes_of(e) for e in tuple(self.specs[name]))
+
+    def reduce_grads(self, named, bucket_mb: float = C.DEFAULT_BUCKET_MB):
+        """The exchange over the axes beyond ``data`` (``named``: the
+        ``[(name, param)]`` with gradients, already merged over the data
+        axis): the mean over ``seq``, whose ranks' tokens differ, then
+        the sum over ``pipeline`` of every leaf the stages do not split
+        (each stage holds its own contribution to it).  The model and
+        expert axes need none: their ranks compute alike outside their
+        own blocks.  A :class:`SpecList` plan places a Keras model's
+        variables, which the trainers replicate over every axis beyond
+        ``data`` and ``model``: its ranks there compute alike and need
+        none either."""
+        if isinstance(self.plan, SpecList):
+            return
+        for ax, pick, div in (
+                ("seq", lambda n: True, True),
+                ("pipeline", lambda n: not self.splits(n, "pipeline"),
+                 False)):
+            sub = self.mesh.sub(ax)
+            if sub.size == 1 or (ax == "pipeline" and self.pp is None):
+                continue
+            leaves = [p for n, p in named if pick(n)]
+            if not leaves:
+                continue
+            grads = [p.grad for p in leaves]
+            lay = C.Zero1Layout.for_tree(grads, 1, bucket_mb)
+            buckets = [C.all_reduce(b.contiguous(), sub)
+                       for b in lay.pack(grads)]
+            if div:
+                buckets = [C.true_div(b, sub.size) for b in buckets]
+            for p, g in zip(leaves, lay.unpack(buckets)):
+                p.grad = g
 
     def norm(self, named_grads):
         """The global L2 norm of a sharded gradient tree (``[(name,
@@ -227,12 +320,22 @@ class SpecList:
         return self.specs[int(path)]
 
 
-def views(params):
+def views(params, whole_experts: bool = False):
     """The compute view of ``params``: a :class:`Sharded` tree's
-    :meth:`Layout.views`, anything else as it is."""
-    if isinstance(params, Sharded):
-        return params.layout.views(params)
-    return params
+    :meth:`Layout.views`, anything else as it is.  ``whole_experts``:
+    experts split over the expert axis are gathered whole here, once, as
+    the serving engines hold them (``Layout(experts=False)``), so the
+    decode paths never gather them on use."""
+    if not isinstance(params, Sharded):
+        return params
+    lay = params.layout
+    if whole_experts and lay.ep is not None:
+        shapes = tree_unflatten(lay._spec, [
+            torch.empty(lay.full_shapes[n], device="meta")
+            for n in lay.names])
+        lay = Layout(lay.plan, lay.mesh, shapes, stages=lay.stages,
+                     experts=False)
+    return lay.views(params)
 
 
 def tp_of(params) -> ModelAxis | None:

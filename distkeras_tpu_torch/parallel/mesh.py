@@ -18,9 +18,14 @@ launcher sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
 / ``MASTER_PORT``, or a ``file://`` ``init_method``).  The backend
 follows the device: NCCL on ``cuda:LOCAL_RANK`` (the default), gloo when
 the caller passes ``device="cpu"``; there is no silent switch from one
-to the other, and no card without ``device="cpu"`` raises.  The
-``data`` and ``model`` axes may exceed 1; sequence, pipeline and expert
-parallelism are ROADMAP A7b.
+to the other, and no card without ``device="cpu"`` raises.
+
+Every axis may exceed 1: ``model`` splits attention heads and FFN
+columns (``parallel/layout.py``), ``pipeline`` the stacked layers into
+stages (``parallel/pipeline.py``), ``seq`` the sequence for ring
+attention (``parallel/ring.py``) and ``expert`` the MoE experts.  The
+batch is split over ``data`` only, as ``P("data")`` places it in the
+reference; the other axes' ranks hold the same rows.
 """
 
 from __future__ import annotations
@@ -36,9 +41,9 @@ import torch.distributed as dist
 # Canonical axis names, in mesh order (the reference's).
 AXES = ("data", "model", "pipeline", "seq", "expert")
 
-_A7B = ("is not ported yet (ROADMAP A7b: the seq, pipeline and expert "
-        "axes); the port's mesh has the data and model axes")
-
+# The timeout initialize_multihost gave the group; the axes' sub-groups
+# take it too, so a mismatched exchange fails instead of hanging.
+_GROUP_TIMEOUT = None
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
@@ -113,13 +118,6 @@ class Mesh:
                     else dist.get_rank(self.world))
 
 
-def check_axes(shape) -> None:
-    """Raise for a seq, pipeline or expert axis above 1 (ROADMAP A7b)."""
-    for ax in ("pipeline", "seq", "expert"):
-        if int(shape.get(ax, 1)) > 1:
-            raise NotImplementedError(f"a mesh with {ax}={shape[ax]} {_A7B}")
-
-
 def make_mesh(spec: MeshSpec | None = None, group=None) -> Mesh:
     """The mesh over ``group`` (default: the initialized default group,
     else this process alone).  Every process of the group must call it with the same ``spec``: an
@@ -134,7 +132,6 @@ def make_mesh(spec: MeshSpec | None = None, group=None) -> Mesh:
         world, rank = dist.get_world_size(group), dist.get_rank(group)
     dims = spec.resolve(world)
     shape = dict(zip(AXES, dims))
-    check_axes(shape)
     coords = dict(zip(AXES, (int(c) for c in np.unravel_index(rank, dims))))
     groups = {}
     grid = np.arange(world).reshape(dims)
@@ -148,7 +145,8 @@ def make_mesh(spec: MeshSpec | None = None, group=None) -> Mesh:
         ranks = dist.get_process_group_ranks(group) \
             if group is not dist.group.WORLD else list(range(world))
         for line in lines:  # every process creates every line's group
-            g = dist.new_group([ranks[int(r)] for r in line])
+            g = dist.new_group([ranks[int(r)] for r in line],
+                               timeout=_GROUP_TIMEOUT)
             if rank in line:
                 groups[ax] = g
     return Mesh(shape=shape, group=groups.get("data"), rank=coords["data"],
@@ -201,10 +199,12 @@ def initialize_multihost(init_method: str | None = None,
                          "ranks take gloo")
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    global _GROUP_TIMEOUT
+    _GROUP_TIMEOUT = datetime.timedelta(seconds=timeout)
     dist.init_process_group(
         backend, init_method=init_method or "env://",
         world_size=world_size, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout))
+        timeout=_GROUP_TIMEOUT)
     return device
 
 
@@ -273,4 +273,4 @@ def global_batch(arr, mesh: Mesh, axis: int = 0):
 __all__ = ["AXES", "MeshSpec", "Mesh", "make_mesh", "mesh_axis_size",
            "local_device_count",
            "initialize_multihost", "equal_across_hosts", "per_host_rows",
-           "global_batch", "check_axes"]
+           "global_batch"]

@@ -153,7 +153,7 @@ class P(tuple):
         return super().__new__(cls, entries)
 
     def __repr__(self):
-        return "P(" + ", ".join(map(repr, self)) + ")"
+        return "PartitionSpec" + tuple.__repr__(self)
 
     def __getnewargs__(self):
         return tuple(self)

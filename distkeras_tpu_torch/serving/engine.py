@@ -246,7 +246,8 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
                 "scatter has no stable sharded layout to pin")
         self._kv_axis = serving_kv_axis(plan, mesh, cfg)
         self._placed = (params if isinstance(params, Sharded)
-                        else Layout(plan, mesh, params).shard(params))
+                        else Layout(plan, mesh, params, stages=False,
+                                    experts=False).shard(params))
         return views(self._placed)
 
     def _kv_heads(self):

@@ -47,8 +47,7 @@ from distkeras_tpu_torch.parallel.exchange import (ExchangeConfig,
                                                    residual_norm_of)
 from distkeras_tpu_torch.parallel.collectives import gather_on_use
 from distkeras_tpu_torch.parallel.layout import Layout, SpecList
-from distkeras_tpu_torch.parallel.mesh import check_axes, global_batch, \
-    make_mesh
+from distkeras_tpu_torch.parallel.mesh import global_batch, make_mesh
 from distkeras_tpu_torch.parallel.rules import P
 from distkeras_tpu_torch.parallel.sharding import (ExchangePlan,
                                                    ShardingPlan, Zero1Plan,
@@ -188,7 +187,15 @@ class DistributedTrainer(Trainer):
                 zero = int(self.plan.zero)
                 zero1 = zero == 1
         self.mesh = mesh if mesh is not None else make_mesh()
-        check_axes(self.mesh.shape)
+        # Ranks along the other axes hold the same rows and compute
+        # alike: the trainers replicate over them, as GSPMD does.
+        if not exchange.is_default:
+            for ax, size in self.mesh.shape.items():
+                if ax != "data" and int(size) > 1:
+                    raise ValueError(
+                        "merge_rule/sync_every/compress compose with the "
+                        f"data axis only, but the mesh has {ax}="
+                        f"{int(size)}")
         world = self.mesh.size
         n = num_workers or world
         if n > world:

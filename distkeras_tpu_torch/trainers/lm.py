@@ -33,9 +33,21 @@ each rank holds its slices (``parallel/layout.py``), runs its attention
 heads and FFN columns between one all-reduce pair a block, gathers the
 other splits on use and reduce-scatters their gradients, and the
 data-axis exchange runs over its data line.  ``train`` returns the full
-tree (a gather), and checkpoints hold full leaves.  ``microbatches``
-and a seq, pipeline or expert axis (ROADMAP A7b) raise
-``NotImplementedError``.
+tree (a gather), and checkpoints hold full leaves.
+
+The seq, pipeline and expert axes, as the reference picks the forward
+for the mesh: a pipeline axis runs ``apply_pipelined`` (``microbatches``,
+default ``2 x pipeline``; each rank holds its stage's layers, and with a
+seq axis the ring runs inside each stage), else a seq axis runs the
+ring (``parallel/ring.py``).  Each seq rank trains on its block of the
+sequence (the token window of its inputs and targets), so the gradients
+are averaged over data x seq; the leaves the stages share are summed
+over the pipeline.  Under a pipeline with a data axis, data rank ``d``
+holds rows ``[m mb + d mb / n, m mb + (d + 1) mb / n)`` of each
+microbatch ``m``, so a microbatch is the reference's global one.  MoE
+configs take any mesh: capacity and aux are the token group's
+(``models/transformer.py::_moe_block``), the experts split over
+``expert``.
 
 Checkpoints (``checkpoint_dir`` / ``checkpoint_every`` /
 ``max_checkpoints`` / ``resume``, ``trainers/base.py::
@@ -76,7 +88,8 @@ from distkeras_tpu_torch.parallel.exchange import (ExchangeConfig,
                                                    merge_local_params,
                                                    residual_norm_of)
 from distkeras_tpu_torch.parallel.layout import Layout, Sharded
-from distkeras_tpu_torch.parallel.mesh import AXES, check_axes, make_mesh
+from distkeras_tpu_torch.parallel.mesh import AXES, make_mesh
+from distkeras_tpu_torch.parallel.ring import make_ring_attention
 from distkeras_tpu_torch.parallel.sharding import ShardingPlan
 from distkeras_tpu_torch.parallel.tree import tree_leaves
 from distkeras_tpu_torch.trainers.base import (CheckpointingBase,
@@ -85,9 +98,6 @@ from distkeras_tpu_torch.trainers.carry import (copy_leaves, load_opt_tree,
                                                 opt_tree, stack_tree)
 from distkeras_tpu_torch.trainers.optim import LM_NAMES, Optimizer
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
-
-# Reference knobs not ported yet: name -> (default, ROADMAP item).
-_UNPORTED = {"microbatches": (None, "A7b")}
 
 # Staging more than this fraction of the device's memory fails fast (the
 # rest of the step still needs activations, params and moments).
@@ -203,12 +213,22 @@ def _make_localsgd_step(cfg: tfm.TransformerConfig, optimizer: Optimizer,
     return step
 
 
+def _token_axes(mesh):
+    """The one-axis meshes over which a step's tokens differ (data, and
+    seq, whose ranks hold blocks of the sequence), sized above 1."""
+    return [mesh.sub(a) for a in ("data", "seq") if int(mesh.shape[a]) > 1]
+
+
 def _global_count_loss(fn, mesh):
     """``fn`` (an ``lm_loss``) rescaled for packed rows split over the
-    group: the reference's mean runs over the global batch's valid
-    targets, so this rank's mean over its own ``c`` of them is scaled by
-    ``c n / C`` (``C`` summed over the group) — the group mean of the
-    scaled losses is the global mean, and so is its gradient."""
+    data (and seq) ranks: the reference's mean runs over the global
+    batch's valid targets, so this rank's mean over its own ``c`` of
+    them is scaled by ``c n / C`` (``C`` summed over those ``n`` ranks)
+    — the mean of the scaled losses is the global mean, and so is its
+    gradient."""
+    axes = _token_axes(mesh)
+    n = math.prod(a.size for a in axes)
+
     def loss(params, tokens, cfg, attention_fn, apply_fn, rng, hidden_fn,
              segment_ids=None):
         out = fn(params, tokens, cfg, attention_fn, apply_fn, rng,
@@ -217,10 +237,19 @@ def _global_count_loss(fn, mesh):
             return out
         seg = segment_ids.to(torch.int32)
         c = ((seg[:, 1:] == seg[:, :-1]) & (seg[:, :-1] != 0)).sum().float()
-        total = all_reduce(c.clone(), mesh)
-        return out * (c * mesh.size) / total.clamp(min=1.0)
+        total = c.clone()
+        for a in axes:
+            total = all_reduce(total, a)
+        return out * (c * n) / total.clamp(min=1.0)
 
     return loss
+
+
+def _mean_over(x, axes):
+    """The mean of ``x`` over the ranks of ``axes`` (in place)."""
+    for a in axes:
+        x = true_div(all_reduce(x, a), a.size)
+    return x
 
 
 def _valid_targets(seg) -> int:
@@ -267,16 +296,8 @@ class LMTrainer(CheckpointingBase):
                  compress=None, topk_frac: float = 0.01,
                  checkpoint_dir: str | None = None, checkpoint_every: int = 0,
                  max_checkpoints: int = 3, resume: bool = False,
-                 checkpoint_backend: str = "auto", **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"LMTrainer got an unexpected keyword "
-                                f"argument {name!r}")
-            default, item = _UNPORTED[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"LMTrainer({name}=...) is not ported yet (ROADMAP "
-                    f"{item}: the pipeline axis)")
+                 checkpoint_backend: str = "auto",
+                 microbatches: int | None = None):
         zero, zero1, zero_bucket_mb = normalize_zero_args(
             zero, zero1, zero_bucket_mb, zero1_bucket_mb)
         if grad_accum < 1:
@@ -307,8 +328,9 @@ class LMTrainer(CheckpointingBase):
                 f"canonical axis set {AXES} (build the mesh with "
                 "parallel.mesh.make_mesh / MeshSpec, which always carries "
                 "all five, sized 1 when unused)")
-        check_axes(self.mesh.shape)
         n = self.mesh.size
+        n_pipe = int(self.mesh.shape["pipeline"])
+        n_seq = int(self.mesh.shape["seq"])
         n_model = int(self.mesh.shape["model"])
         if (n_model > 1 and rules is None and cfg.n_kv_heads is not None
                 and cfg.kv_heads % n_model):
@@ -318,6 +340,25 @@ class LMTrainer(CheckpointingBase):
                 "tp_rules shard K/V projections over their head "
                 "dimension. Use more KV heads, a smaller model axis, or "
                 "custom rules.")
+        if cfg.dropout > 0 and n_pipe > 1:
+            raise ValueError(
+                "cfg.dropout > 0 cannot compose with a pipeline axis > 1: "
+                "the pipeline's tick schedule is compiled without a "
+                "per-microbatch rng stream (TransformerConfig.dropout). "
+                "Train with dropout on a dp/tp/sp/fsdp mesh, or drop the "
+                "regularizer under PP.")
+        if fsdp and n_pipe > 1:
+            raise ValueError(
+                "fsdp=True cannot compose with a pipeline axis > 1: the "
+                "pipelined trunk runs in a manual shard_map over "
+                "{pipeline, seq} whose in_specs take the stage-stacked "
+                "parameters whole. Shard memory across pipeline stages "
+                "instead (that is what PP does), or drop the pipeline axis.")
+        if microbatches is not None and n_pipe <= 1:
+            raise ValueError(
+                "microbatches only applies with a pipeline mesh axis > 1 "
+                f"(mesh has pipeline={n_pipe})")
+        self.microbatches = microbatches or (2 * n_pipe if n_pipe > 1 else 1)
         self.fsdp = fsdp
         self.plan = ShardingPlan(
             rules=tfm.tp_rules() if rules is None else rules,
@@ -330,11 +371,6 @@ class LMTrainer(CheckpointingBase):
             raise ValueError(
                 f"batch_size={batch_size} (the global batch) must divide "
                 f"by the data axis ({n} ranks)")
-        if self.mesh.world_size > 1 and cfg.num_experts:
-            raise NotImplementedError(
-                "MoE over more than one rank is not ported yet (ROADMAP "
-                "A7b, expert parallelism): its load-balancing loss is a "
-                "global-batch statistic")
         if zero_bucket_mb is not None and not zero:
             raise ValueError(
                 "zero_bucket_mb/zero1_bucket_mb only apply with a "
@@ -345,7 +381,10 @@ class LMTrainer(CheckpointingBase):
             **({} if zero_bucket_mb is None
                else {"bucket_mb": zero_bucket_mb}))
         if not exchange.is_default:
-            if cfg.num_experts or n_model > 1 or fsdp:
+            pure_dp = (n_model == 1 and n_seq == 1 and n_pipe == 1
+                       and int(self.mesh.shape["expert"]) == 1
+                       and not fsdp and not cfg.num_experts)
+            if not pure_dp:
                 raise ValueError(
                     "merge_rule/sync_every/compress compose with the "
                     "pure data-parallel mesh only (no model/seq/"
@@ -390,6 +429,25 @@ class LMTrainer(CheckpointingBase):
                     "exclusive: they are alternative placements for "
                     "the same state")
             zero_validate(self.mesh, optimizer, stage=zero)
+        # The forward for the mesh, as the reference picks it: the
+        # pipelined trunk (the ring inside each stage under a seq axis,
+        # the chunked head on its hidden states), else the ring.
+        if n_pipe > 1:
+            chunked = cfg.ce_chunks > 1
+
+            def fwd(p, t, seg=None):
+                return tfm.apply_pipelined(
+                    p, t, cfg, self.mesh, microbatches=self.microbatches,
+                    seq_axis="seq" if n_seq > 1 else None,
+                    return_hidden=chunked, segment_ids=seg)
+
+            fwd.handles_segments = True
+            self._fwd_kw = {"hidden_fn" if chunked else "apply_fn": fwd}
+        elif n_seq > 1:
+            self._fwd_kw = {"attention_fn": make_ring_attention(
+                self.mesh, causal=True, window=cfg.attention_window)}
+        else:
+            self._fwd_kw = {}
         self.zero, self.zero1 = zero, zero1
         # The placement of the last train() call (None: every leaf whole).
         self.layout = None
@@ -446,7 +504,12 @@ class LMTrainer(CheckpointingBase):
                 or self.mesh.world_size == 1:
             return params, None
         layout = Layout(self.plan, self.mesh, params)
-        if not (layout.native or any(layout.gathers.values())):
+        # A seq, pipeline or expert axis, or MoE over the data axis, runs
+        # on the layout's handles even with nothing split.
+        axes = any(int(self.mesh.shape[a]) > 1 for a in (
+            "pipeline", "seq", "expert")) or (
+            self.cfg.num_experts and self.mesh.size > 1)
+        if not (axes or layout.native or any(layout.gathers.values())):
             return params, None
         return layout.shard(params), layout
 
@@ -470,8 +533,20 @@ class LMTrainer(CheckpointingBase):
         return opt
 
     def _nll(self, params, tokens, segment_ids=None):
-        """The evaluation NLL of the trained state."""
-        return tfm.lm_nll(params, tokens, self.cfg, segment_ids=segment_ids)
+        """The evaluation NLL of the trained state (on this rank's block
+        of the rows under a seq axis, through the mesh's forward)."""
+        return tfm.lm_nll(params, tokens, self.cfg, segment_ids=segment_ids,
+                          **self._fwd_kw)
+
+    def _window(self, rows):
+        """This seq rank's token window of ``[.., S+1]`` rows: its block
+        of the inputs with their targets (columns ``[q S/n, (q+1) S/n +
+        1)``), the whole rows without a seq axis."""
+        sq = self.mesh.sub("seq")
+        if sq.size == 1:
+            return rows
+        w = (rows.shape[-1] - 1) // sq.size
+        return rows[..., sq.rank * w:(sq.rank + 1) * w + 1]
 
     def _rows(self, a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
@@ -539,6 +614,21 @@ class LMTrainer(CheckpointingBase):
             raise ValueError("eval_every is set but train() got no "
                              "eval_tokens")
         bs = self.batch_size
+        n_data = self.mesh.size
+        n_seq = int(self.mesh.shape["seq"])
+        seq_len = tokens.shape[1] - 1
+        if n_seq > 1 and seq_len % n_seq:
+            raise ValueError(
+                f"sequence length {seq_len} (token rows carry seq+1 = "
+                f"{tokens.shape[1]} positions) must divide by the mesh seq "
+                f"axis ({n_seq}) for ring attention to shard it")
+        divisor = n_data * (self.microbatches
+                            if int(self.mesh.shape["pipeline"]) > 1 else 1)
+        if bs % divisor:
+            raise ValueError(
+                f"batch_size={bs} must divide by data axis ({n_data})"
+                + (f" x microbatches ({self.microbatches})"
+                   if divisor != n_data else ""))
         if eval_tokens is not None:
             eval_tokens = np.asarray(eval_tokens)
             if (eval_tokens.ndim != 2
@@ -574,9 +664,10 @@ class LMTrainer(CheckpointingBase):
                 "or packed segments (replica-local loss)")
         b = bs // n  # this rank's rows of each microbatch
         # This rank's stream rows, in consumption order: step j's block
-        # [feed, bs] holds its rows [:, rank * b:(rank + 1) * b].
-        mine = np.arange(n_rows).reshape(-1, feed, n, b)[:, :, rank].reshape(
-            -1)
+        # [feed, bs] holds its rows [:, rank * b:(rank + 1) * b] — or,
+        # under a pipeline, its share of each pipeline microbatch.
+        mine = self._rows_of(np.arange(n_rows).reshape(-1, feed, bs),
+                             rank).reshape(-1)
 
         t0 = time.perf_counter()
         self.opt_state = None  # free the last run's state first
@@ -594,6 +685,16 @@ class LMTrainer(CheckpointingBase):
         self.training_time = time.perf_counter() - t0
         return params
 
+    def _rows_of(self, rows, rank: int):
+        """Data rank ``rank``'s share of ``[..., B]`` row indices: the
+        block ``[rank B/n, (rank+1) B/n)``, or under a pipeline of ``m``
+        microbatches its ``B/(n m)`` rows of each microbatch."""
+        n, bs = self.mesh.size, rows.shape[-1]
+        m = (self.microbatches if int(self.mesh.shape["pipeline"]) > 1
+             else 1)
+        split = rows.reshape(*rows.shape[:-1], m, n, bs // (n * m))
+        return split[..., rank, :].reshape(*rows.shape[:-1], bs // n)
+
     def _publish_tree(self, tree_fn):
         """Live weight push: the full parameters of the running round (a
         gather under ZeRO-3, only on publish rounds)."""
@@ -609,8 +710,17 @@ class LMTrainer(CheckpointingBase):
                 "opt": opt_tree(opt_state, params, self.mesh, self.layout),
                 "dropout": None}
         if drop is not None:
-            tree["dropout"] = stack_tree(drop.get_state(), self.mesh)
+            tree["dropout"] = stack_tree(drop.get_state(),
+                                         self._drop_mesh()[0])
         return tree
+
+    def _drop_mesh(self):
+        """``(mesh, rank)`` the dropout states stack over: the data axis,
+        or the whole grid under a seq axis (whose ranks draw apart)."""
+        if int(self.mesh.shape["seq"]) > 1:
+            whole = self.mesh.whole()
+            return whole, whole.rank
+        return self.mesh, self.mesh.rank
 
     def _load_carry(self, carry, drop, tree) -> None:
         """Load a checkpoint tree into the fresh carry and generator."""
@@ -623,7 +733,8 @@ class LMTrainer(CheckpointingBase):
         load_opt_tree(opt_state, params, tree["opt"], self.mesh,
                       full_params=full, layout=self.layout)
         if drop is not None:
-            drop.set_state(tree["dropout"][self.mesh.rank].cpu().clone())
+            drop.set_state(
+                tree["dropout"][self._drop_mesh()[1]].cpu().clone())
 
     def _train(self, tokens, segments, eval_tokens, eval_segments, params,
                feed, rows_per_step, n_rows, mine, b):
@@ -651,17 +762,20 @@ class LMTrainer(CheckpointingBase):
                                    self.grad_accum, self.probe_metrics)
         else:
             loss_fn = self._loss_fn
-            if n > 1 and segments is not None:
+            if _token_axes(mesh) and segments is not None:
                 loss_fn = _global_count_loss(loss_fn or tfm.lm_loss, mesh)
             step = tfm.make_train_step(self.cfg, opt,
                                        grad_accum=self.grad_accum,
                                        loss_fn=loss_fn,
-                                       probe=self.probe_metrics)
+                                       probe=self.probe_metrics,
+                                       **self._fwd_kw)
         drop = None
         if self.cfg.dropout > 0:
-            # Each rank draws its own masks (its rows differ).
+            # Each rank draws its own masks (its rows differ; a seq rank
+            # holds other positions of them).
             drop = torch.Generator(self.device).manual_seed(
-                self.seed + 0x5eed + rank)
+                self.seed + 0x5eed + rank
+                + n * int(mesh.coords["seq"] if mesh.coords else 0))
 
         def full_params():
             if self.zero >= 3:
@@ -677,31 +791,48 @@ class LMTrainer(CheckpointingBase):
         eval_fn = None
         if eval_tokens is not None:
             n_eval = len(eval_tokens) - (len(eval_tokens) % bs)
-            chunks = [self._rows(eval_tokens[j:j + bs], torch.long)
-                      for j in range(0, n_eval, bs)]
-            seg_chunks = weights = None
+            # MoE capacity is a group statistic: each data rank scores
+            # its share of a chunk's rows, as it trains.
+            split = bool(self.cfg.num_experts) and n > 1
+            share = (self._rows_of(np.arange(bs), rank) if split
+                     else np.arange(bs))
+            axes = ([mesh] if split else []) + [
+                a for a in _token_axes(mesh) if a is not mesh]
+            chunks, seg_chunks = [], None
+            for j in range(0, n_eval, bs):
+                chunks.append(self._window(self._rows(
+                    eval_tokens[j:j + bs][share], torch.long)))
             if eval_segments is not None:
                 eval_segments = np.asarray(eval_segments)
-                seg_chunks = [self._rows(eval_segments[j:j + bs],
-                                         torch.int32)
-                              for j in range(0, n_eval, bs)]
-                # Packed chunks carry different valid-target counts: each
-                # chunk's mean NLL is weighted by its count.
-                weights = [_valid_targets(eval_segments[j:j + bs])
-                           for j in range(0, n_eval, bs)]
+                seg_chunks = [self._window(self._rows(
+                    eval_segments[j:j + bs][share], torch.int32))
+                    for j in range(0, n_eval, bs)]
+
+            def score(p_eval, i):
+                """This rank's (NLL x count, count) of chunk ``i``."""
+                c, sc = chunks[i], None if seg_chunks is None \
+                    else seg_chunks[i]
+                nll = self._nll(p_eval, c, sc)
+                cnt = (c.shape[0] * (c.shape[1] - 1) if sc is None
+                       else _valid_targets(sc.cpu().numpy()))
+                return torch.stack([nll.double() * cnt,
+                                    nll.new_tensor(cnt, dtype=torch.float64)])
 
             @torch.no_grad()
             def eval_fn(rnd):
                 # A placed tree evaluates split, as it trains.
                 p_eval = params if layout is not None else full_params()
-                if seg_chunks is None:
-                    mean = sum(float(self._nll(p_eval, c))
-                               for c in chunks) / len(chunks)
-                else:
-                    tot = sum(w * float(self._nll(p_eval, c, sc))
-                              for c, sc, w in zip(chunks, seg_chunks,
-                                                  weights))
-                    mean = tot / max(sum(weights), 1)
+                sums = [score(p_eval, i) for i in range(len(chunks))]
+                if axes:
+                    red = torch.stack(sums)
+                    for a in axes:
+                        red = all_reduce(red, a)
+                    sums = list(red)
+                if seg_chunks is None:  # each chunk's mean, averaged
+                    mean = sum(float(t[0] / t[1]) for t in sums) / len(sums)
+                else:  # weighted by valid-target counts
+                    tot = torch.stack(sums).sum(dim=0)
+                    mean = float(tot[0] / tot[1].clamp(min=1))
                 self.eval_history.append(
                     (rnd, {"loss": mean,
                            "perplexity": nll_to_perplexity(mean)}))
@@ -710,8 +841,8 @@ class LMTrainer(CheckpointingBase):
                 # Warm the eval call, so an eval round inside the capture
                 # records its steady run, not its first-call set-up.
                 with torch.no_grad():
-                    self._nll(full_params(), chunks[0],
-                              None if seg_chunks is None else seg_chunks[0])
+                    score(params if layout is not None else full_params(),
+                          0)
 
         X_dev = seg_dev = None
         local_rows = feed * b
@@ -745,7 +876,8 @@ class LMTrainer(CheckpointingBase):
                 block = block.reshape(feed, b, -1)
                 if seg is not None:
                     seg = seg.reshape(feed, b, -1)
-            return block, seg
+            block = self._window(block)
+            return block, None if seg is None else self._window(seg)
 
         carry, losses, probes, rnd = (params, opt_state), [], [], 0
         tree, start = self._restore_or()
@@ -804,9 +936,8 @@ class LMTrainer(CheckpointingBase):
         # end executed none.
         self.history = []
         if losses:
-            hist = torch.stack(losses).float()
-            if mesh.group is not None:
-                hist = true_div(all_reduce(hist, mesh), n)
+            hist = _mean_over(torch.stack(losses).float(),
+                              _token_axes(mesh))
             self.history = hist.tolist()
         self.probe_history = ([{"grad_norm": g}
                                for g in torch.stack(probes).tolist()]

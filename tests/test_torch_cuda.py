@@ -18,7 +18,9 @@ engine's and to the CPU's, and a serve phase that allocates no device
 memory) and beam search (the card's beams against the CPU's, its
 prefill through the forward kernel); and the fleet (the disaggregated
 hop equal to a pinned solo engine, and a hot swap that allocates
-nothing and moves no weight tensor).
+nothing and moves no weight tensor); and the pipeline axis (two gloo
+ranks sharing the card as two stages: losses and weights equal one
+process's, the kernel launches the stage layout predicts).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports no JAX, so on a machine with
@@ -1181,3 +1183,37 @@ def test_tp_generate_on_card_equals_one_process(cuda, tmp_path):
         np.testing.assert_array_equal(r["generate"], want)
         np.testing.assert_allclose(r["logits"], logits, rtol=0,
                                    atol=1e-5 * np.abs(logits).max())
+
+
+def test_pipeline_train_on_card_equals_one_process(cuda, tmp_path):
+    """Two gloo ranks sharing the card, pipeline axis 2 with 4
+    microbatches (phase axes (b) at a small width): the losses and the
+    trained weights equal one process's on the card, and each stage
+    launches the kernels its layout predicts (2 layers x 4 microbatches
+    of the forward with lse, and of each backward, a step)."""
+    from torch_dp_ranks import spawn
+
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models import transformer as tfm
+
+    cfg = dict(vocab_size=256, d_model=256, n_heads=2, n_layers=4,
+               d_ff=512, max_len=128, dtype="float32")
+    tcfg = tfm.TransformerConfig(**cfg)
+    params = dkt.params_to_numpy(tfm.init_params(0, tcfg, device="cpu"))
+    tokens = np.random.default_rng(3).integers(0, 256, (16, 129))
+    kw = dict(batch_size=8, optimizer="adamw", learning_rate=3e-4)
+    flat = {f"p/{k}": v for k, v in tfm.named_leaves(params)}
+    got = spawn(tmp_path, 2, [dict(name="pp", kind="axes", fn="train_case",
+                                   mesh=dict(data=1, pipeline=2),
+                                   kw=dict(kw, microbatches=4))],
+                dict(tokens=tokens, **flat), cfg=cfg, device="cuda:0",
+                backend="gloo")["pp"]
+    solo = dkt.LMTrainer(tcfg, **kw)
+    want = dict(tfm.named_leaves(dkt.params_to_numpy(solo.train(
+        tokens, params=dkt.params_from_numpy(params, "cuda")))))
+    for r in got:
+        np.testing.assert_allclose(r["history"], solo.history, rtol=1e-4)
+        for k, v in want.items():
+            np.testing.assert_allclose(r["p/" + k], v, rtol=1e-4,
+                                       atol=1e-4, err_msg=k)
+        assert r["launches"].tolist() == [2 * 4 * 2] * 3

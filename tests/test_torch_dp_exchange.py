@@ -302,8 +302,19 @@ def test_mesh_and_plans():
     m = tmesh.make_mesh()
     assert (m.size, m.rank, m.group, m.backend) == (1, 0, None, None)
     assert m.shape == dict(data=1, model=1, pipeline=1, seq=1, expert=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        tmesh.check_axes({"data": 2, "seq": 2})
+    # Every axis may exceed 1: a seq / pipeline / expert mesh resolves as
+    # the reference's does, and its one-axis views carry the coordinate.
+    for kw in (dict(seq=2), dict(pipeline=2, data=2), dict(expert=2,
+                                                           seq=2)):
+        from distkeras_tpu.parallel.mesh import MeshSpec as JSpec
+
+        assert tmesh.MeshSpec(**kw).resolve(4) == JSpec(**kw).resolve(4)
+    grid = tmesh.Mesh(shape=dict(data=1, model=1, pipeline=2, seq=2,
+                                 expert=1),
+                      coords=dict(data=0, model=0, pipeline=1, seq=0,
+                                  expert=0))
+    assert (grid.sub("pipeline").size, grid.sub("pipeline").rank) == (2, 1)
+    assert not hasattr(tmesh, "check_axes")
     assert tmesh.local_device_count() == 1
     assert tmesh.per_host_rows(8) == 8
     assert tmesh.equal_across_hosts(3, "x") == 3

@@ -465,9 +465,20 @@ def test_validation_errors_equal_the_reference():
              lambda: dkt.PrefixPool(tc, 2, draft_cfg=tc, device="cpu",
                                     mesh=fake_mesh(data=4, model=2)))):
         assert msg(t) == msg(j) != "no error"
-    with pytest.raises(NotImplementedError, match="A7b"):
-        tmesh.check_axes({"data": 2, "seq": 2})
-    tmesh.check_axes({"data": 2, "model": 2})
+    # The seq, pipeline and expert axes are ported: such a mesh's
+    # LMTrainer builds (no check_axes is left), and the pipeline guards
+    # raise the reference's words.
+    assert not hasattr(tmesh, "check_axes")
+    jpp = make_mesh(MeshSpec(data=2, pipeline=2, seq=2),
+                    devices=jax.devices())
+    want = msg(lambda: dk.LMTrainer(jcfg(), mesh=jpp, fsdp=True))
+    got = msg(lambda: dkt.LMTrainer(
+        ttfm.TransformerConfig(**CFG), device="cpu", fsdp=True,
+        mesh=fake_mesh(data=2, pipeline=2, seq=2)))
+    assert want != "no error" and got == want
+    assert dkt.LMTrainer(ttfm.TransformerConfig(**CFG), device="cpu",
+                         mesh=fake_mesh(data=2, pipeline=2,
+                                        seq=2)).microbatches == 4
 
 
 def test_predictor_splits_the_batch_over_the_data_axis(tp2):

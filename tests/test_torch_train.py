@@ -278,12 +278,13 @@ def test_lm_trainer_probe_ema_and_unported_knobs(rng):
     assert not torch.equal(out["tok_emb"], before["tok_emb"])  # a copy moved
     ema = tt.ema_params["tok_emb"]
     assert not torch.equal(ema, out["tok_emb"])
-    # mesh=, zero=, rules= and fsdp= are ported (data and model axes),
-    # and so are the checkpoint knobs (with the reference's refusals);
-    # the pipeline is ROADMAP A7b.
-    for knob, value, item in [("microbatches", 4, "A7b")]:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tlm.LMTrainer(tcfg, device="cpu", **{knob: value})
+    # mesh=, zero=, rules=, fsdp= and microbatches= are ported, and so
+    # are the checkpoint knobs (with the reference's refusals):
+    # microbatches without a pipeline axis raises the reference's words.
+    with pytest.raises(ValueError, match="microbatches only applies with "
+                       r"a pipeline mesh axis > 1 \(mesh has pipeline=1\)"):
+        tlm.LMTrainer(tcfg, device="cpu", microbatches=4)
+    assert tlm.LMTrainer(tcfg, device="cpu").microbatches == 1
     assert tlm.LMTrainer(tcfg, device="cpu", rules=(),
                          fsdp=True).plan.fsdp_axis == "data"
     with pytest.raises(ValueError, match="checkpoint_dir"):

@@ -13,10 +13,13 @@
   the same seed, exactly);
 - ``trace`` writes a chrome trace on the CPU, ``annotate`` names a
   region in it;
-- C5: the top-level ``__all__`` holds the reference's minus the names
-  not ported yet (A7b), and ``utils.__all__`` the reference's;
+- C5: the top-level ``__all__`` holds the reference's (every name is
+  ported), and ``utils.__all__`` the reference's;
   C6: ``ModelAdapter(keras_model=...)``; C7:
-  ``CheckpointManager(..., async_save=...)``.
+  ``CheckpointManager(..., async_save=...)``;
+- C8: each reference sub-package's ``__all__`` (data, models, ops,
+  trainers, parallel) and each ``parallel`` module's public names are
+  the port's, less the XLA-only helpers listed with their reasons.
 """
 
 import inspect
@@ -38,10 +41,33 @@ from tests.conftest import make_mlp
 from tests.test_batchnorm_dp import bn_mlp
 from tests.torch_dp_ranks import BNMLP
 
-# ROADMAP items whose names the port does not export yet.
-NOT_PORTED = {
-    "A7b": set(),
+# ROADMAP items whose names the port does not export yet (none left).
+NOT_PORTED = {}
+
+# Reference names with no port, each with its reason: XLA sharding trees
+# and compiled spellings whose job the port's own placement does.
+_XLA_STATE = ("an XLA sharding tree for the ZeRO state; the port's "
+              "ZeroState holds each rank's shards and Zero1Layout places "
+              "them")
+NOT_PORTED_SUB = {
+    "parallel.async_tier": {
+        "make_wire_merge": "the shard_map spelling of one aggregation "
+                           "wave for the XLA IR census; the port's "
+                           "AsyncPlane merges on the host"},
+    "parallel.collectives": {"zero1_state_shardings": _XLA_STATE},
+    "parallel.exchange": {"exchange_state_shardings": _XLA_STATE},
+    "parallel.mesh": {
+        "enable_cpu_collectives": "an XLA CPU-backend flag; the port's "
+                                  "CPU ranks join over gloo"},
+    "parallel.rules": {"shard_view_rule": _XLA_STATE,
+                       "zero3_param_shardings": _XLA_STATE,
+                       "zero_state_rules": _XLA_STATE,
+                       "zero_state_shardings": _XLA_STATE},
 }
+SUBPACKAGES = ["data", "models", "ops", "trainers", "parallel"] + [
+    f"parallel.{m}" for m in ("async_tier", "collectives", "exchange",
+                              "mesh", "pipeline", "ring", "rules",
+                              "sharding")]
 
 
 def test_round_trip():
@@ -171,6 +197,32 @@ def test_top_level_all_holds_the_reference_minus_unported():
         assert hasattr(dkt_utils, name), name
     cfg = dkt.ExchangeConfig(merge_rule="adasum")
     assert cfg.label() == dk.ExchangeConfig(merge_rule="adasum").label()
+
+
+def _public(module):
+    """A module's ``__all__``, or its public functions and classes."""
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    return {n for n, v in vars(module).items() if not n.startswith("_")
+            and (inspect.isfunction(v) or inspect.isclass(v))
+            and v.__module__ == module.__name__}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_surface_holds_the_reference(sub):
+    import importlib
+
+    ref = importlib.import_module(f"distkeras_tpu.{sub}")
+    port = importlib.import_module(f"distkeras_tpu_torch.{sub}")
+    skip = NOT_PORTED_SUB.get(sub, {})
+    assert set(skip) <= _public(ref)
+    for name in sorted(_public(ref)):
+        if name in skip:
+            assert not hasattr(port, name), f"{name} is ported: drop it"
+            continue
+        assert hasattr(port, name), f"{sub}.{name}"
+        if hasattr(port, "__all__"):
+            assert name in port.__all__, f"{sub}.{name} not in __all__"
 
 
 def test_model_adapter_takes_keras_model():

@@ -173,8 +173,12 @@ def keras_case(case, data, device, extra=None):
 
 
 def lm_case(case, data, cfg, device, extra=None):
-    params = dkt.params_from_numpy(nest({k[2:]: data[k] for k in data.files
-                                         if k.startswith("p/")}), device)
+    pre = case.get("params", "p") + "/"
+    params = dkt.params_from_numpy(nest({
+        k[len(pre):]: data[k] for k in data.files if k.startswith(pre)}),
+        device)
+    if case.get("cfg"):  # a case's own config (the MoE rows)
+        cfg = dkt.TransformerConfig(**case["cfg"])
     seg = data["segments"] if case.get("segments") else None
     tokens = data["seg_tokens"] if seg is not None else data["tokens"]
     if case.get("dropout"):
@@ -187,9 +191,12 @@ def lm_case(case, data, cfg, device, extra=None):
         if case.get("rules"):
             kw["rules"] = PLANS[case["rules"]]().rules
     t = dkt.LMTrainer(cfg, device=device, **kw)
-    out = t.train(tokens[:case.get("rows")], params=params, segments=seg)
+    ev = data["eval_tokens"] if case.get("eval") else None
+    out = t.train(tokens[:case.get("rows")], params=params, segments=seg,
+                  eval_tokens=ev)
     res = {"history": np.asarray(t.history),
-           "probe": np.asarray([p["grad_norm"] for p in t.probe_history])}
+           "probe": np.asarray([p["grad_norm"] for p in t.probe_history]),
+           "eval": np.asarray([e["loss"] for _, e in t.eval_history])}
     for k, v in flatten(dkt.params_to_numpy(out)).items():
         res["p/" + k] = v
     return res
@@ -253,10 +260,12 @@ def main(spec_path):
                 run = lambda c, d, dev, kw: keras_case(c, d, dev, kw)
             elif case["kind"] == "lm":
                 run = lambda c, d, dev, kw: lm_case(c, d, cfg, dev, kw)
-            elif case["kind"] == "tp":
-                import torch_tp_cases  # beside this script
+            elif case["kind"] in ("tp", "axes"):
+                import torch_axes_cases  # beside this script
+                import torch_tp_cases
 
-                fn = getattr(torch_tp_cases, case["fn"])
+                fn = getattr(torch_tp_cases if case["kind"] == "tp"
+                             else torch_axes_cases, case["fn"])
                 run = lambda c, d, dev, kw: fn(c, d, cfg, dev)
             else:
                 run = None
