@@ -5584,6 +5584,136 @@ def axes_phase():
     return launches, mb_case
 
 
+ANALYSIS_LIMIT_S = 30.0
+
+
+def analysis_phase(card, train_np, np_params, device="cuda"):
+    """Phase analysis: the step census (``distkeras_tpu_torch/analysis/
+    ir_lint.py``) on the card, through the ``traced_for_analysis`` hooks:
+    (a) one LMTrainer step at the train phase's configuration and shape
+    (world 1, f32 weights): its hand-kernel launches must be one
+    flash_fwd, flash_bwd_dq and flash_bwd_dkv per layer; (b) the
+    engine_load engine's decode window (ContinuousBatcher, 8 lanes, bf16),
+    which must read nothing back to the host; (c) lmtrainer_zero1's step
+    at world 8 in this one process on torch's fake process group, at the
+    census target's width with head_dim 64 (the kernels take 64 and
+    128), on CUDA tensors and then on the CPU: the two censuses must be
+    equal op for op, and the ZeRO exchange pad-free.  No ``dtype-f64``,
+    ``global-generator`` or ``port-imports`` finding anywhere (the
+    source lint's import rule runs over the checkout); warns ratchet
+    against ``analysis/lint_baseline.json``.  At most
+    ANALYSIS_LIMIT_S."""
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch.analysis import findings as F
+    from distkeras_tpu_torch.analysis import ir_lint, source_lint
+    from distkeras_tpu_torch.analysis import targets as T
+    from distkeras_tpu_torch.analysis.__main__ import BASELINE_PATH
+
+    if dist.is_initialized():
+        raise AssertionError("phase analysis needs a process with no "
+                             "process group (the fake world replaces it)")
+    t0 = time.perf_counter()
+    found, records = [], {}
+
+    def census(spec, where=""):
+        # The card's targets carry their phase in the name (their warn
+        # baseline keys are their own).
+        spec = dataclasses.replace(spec, name=where + spec.name)
+        art = ir_lint.trace_target(spec)
+        rules, cen = ir_lint.lint_trace(spec, art)
+        found.extend(rules)
+        records[spec.name] = {
+            "census": ir_lint.census_to_budget(cen),
+            "launches": {k: art.launches.get(k, 0) for k in attn.LAUNCHES},
+            "ops": sum(art.ops.values()), "step_s": art.seconds,
+            "events": sorted({e[0] for e in art.events})}
+        return art
+
+    # (a) The flagship train step.
+    cfg = FLAGSHIP_TRAIN
+    rows = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (8, TRAIN_SHAPE[1] + 1)).astype(np.int32)
+    trainer = dkt.LMTrainer(cfg, optimizer="adamw", learning_rate=3e-4,
+                            batch_size=8, device=device)
+    (spec,) = trainer.traced_for_analysis(
+        tokens=rows, params=dkt.params_from_numpy(train_np, device))
+    art = census(spec, "flagship/")
+    loss = float(art.output[1])
+    if not math.isfinite(loss):
+        raise AssertionError(f"analysis train step: loss {loss}")
+    train_name = "flagship/" + spec.name
+    expect_launches(records[train_name]["launches"], cfg.n_layers,
+                    "analysis train step")
+    del trainer, spec, art
+
+    # (b) The engine_load decode window.
+    params = dkt.params_from_numpy(np_params, device, dtype=torch.bfloat16)
+    eng = dkt.ContinuousBatcher(params, FLAGSHIP, lanes=ENGINE_LANES,
+                                device=device)
+    prompts = np.random.default_rng(0).integers(
+        0, FLAGSHIP.vocab_size, (ENGINE_LANES, LOAD_PROMPT)).astype(np.int32)
+    for p in prompts:
+        eng.submit(p, LOAD_NEW)
+    eng.step(1)
+    dec = eng.traced_for_analysis()[0]
+    toks = census(dec, "engine_load/").output
+    if tuple(toks.shape) != (ENGINE_LANES, 1) or not bool(
+            ((toks >= 0) & (toks < FLAGSHIP.vocab_size)).all()):
+        raise AssertionError(f"analysis decode window: tokens {toks}")
+    decode_name = "engine_load/" + dec.name
+    del eng, dec, params
+
+    # (c) lmtrainer_zero1 at world 8, on the card and on the CPU.
+    cfg8 = dataclasses.replace(T._lm_cfg(), d_model=128, d_ff=256)
+
+    def zero1(dev):
+        return dkt.LMTrainer(cfg8, learning_rate=1e-2, batch_size=8,
+                             device=dev, zero=1).traced_for_analysis()[0]
+
+    with ir_lint.fake_world(T.WORLD):
+        card_spec = zero1(device)
+        card_art = census(card_spec)
+        cpu_spec = zero1("cpu")
+        cpu_art = ir_lint.trace_target(cpu_spec)
+    if dist.is_initialized():
+        raise AssertionError("the fake world outlived phase analysis")
+    card_census = records[card_spec.name]["census"]
+    cpu_census = ir_lint.census_to_budget(ir_lint.comm_census(cpu_art))
+    if card_census != cpu_census:
+        raise AssertionError(f"world-8 census on the card {card_census} "
+                             f"!= the CPU's {cpu_census}")
+    P = card_spec.params_bytes
+    decl = ir_lint.declared_zero_exchange(card_spec, card_art)
+    if decl != {"rs_bytes": P, "ag_bytes": P}:
+        raise AssertionError(f"world-8 zero1 exchange {decl} != {P} bytes")
+    expect_launches(records[card_spec.name]["launches"], cfg8.n_layers,
+                    "analysis world-8 step")
+
+    # Findings: the censuses' and the checkout's port-imports.
+    found += [f for f in source_lint.lint_paths(
+        [os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "distkeras_tpu_torch")]) if f.rule == "port-imports"]
+    found = F.apply_baseline(found, F.load_baseline(BASELINE_PATH))
+    bad = [f.format() for f in found if f.gating or f.rule in (
+        "dtype-f64", "global-generator", "port-imports")
+        or (f.rule == "host-sync" and f.path == decode_name)]
+    seconds = time.perf_counter() - t0
+    launches = {k: sum(r["launches"][k] for r in records.values())
+                for k in attn.LAUNCHES}
+    log("analysis", card=card, seconds=seconds, targets=records,
+        train_target=train_name, decode_target=decode_name,
+        world8_census_equals_cpu=True, zero1_exchange=decl,
+        params_bytes=P, launches=launches,
+        findings=[f.format() for f in found])
+    if bad:
+        raise AssertionError(f"phase analysis findings: {bad}")
+    if seconds > ANALYSIS_LIMIT_S:
+        raise AssertionError(f"phase analysis took {seconds:.1f} s, over "
+                             f"its {ANALYSIS_LIMIT_S} s")
+    return launches
+
+
 def main(profile=False):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5763,6 +5893,10 @@ def main(profile=False):
     torch.cuda.empty_cache()
     lora_launches = lora_train_phase(train_np, dense_step_ms)
 
+    # 6c. The step census on the card (phase analysis).
+    torch.cuda.empty_cache()
+    analysis_launches = analysis_phase(card, train_np, np_params)
+
     # 7. The paper's path: the Keras trainer family on the CIFAR CNN.
     keras_phase()
 
@@ -5828,7 +5962,7 @@ def main(profile=False):
     surface = (moe_train_launches, lora_launches, moe_serve_launches,
                int8_launches, dp_launches, resume_launches, paged_launches,
                beam_launches, fleet_launches, push_launches, tp_launches,
-               axes_launches)
+               axes_launches, analysis_launches)
 
     def launch_counts(name, *paths):
         paths = paths + surface
@@ -5837,7 +5971,7 @@ def main(profile=False):
                     ("serve", "engine", "train", "long_train", "moe_train",
                      "lora_train", "moe_serve", "int8_serve", "dp",
                      "resume", "paged", "beam", "fleet", "weight_push",
-                     "tp", "axes"),
+                     "tp", "axes", "analysis"),
                     paths)}}
 
     print(json.dumps({"kernels": [{

@@ -1,8 +1,8 @@
 """Background batch prefetching and the host -> device feed.
 
-The port's counterpart of ``distkeras_tpu/data/prefetch.py`` (without
-its ``obs`` spans and counters, which come with the observability
-port):
+The port's counterpart of ``distkeras_tpu/data/prefetch.py``, with its
+``obs`` names (``data.h2d`` spans, ``data.h2d.bytes`` / ``.items``
+counters, the ``data.prefetch.occupancy`` gauge):
 
 - :class:`Prefetcher` runs a batch iterator (shuffle-gather, windows,
   dtype conversion) on a daemon thread, ``depth`` items ahead of the
@@ -23,6 +23,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from distkeras_tpu_torch import obs
 from distkeras_tpu_torch.utils.device import resolve_device
 
 
@@ -67,7 +68,14 @@ class DeviceFeed:
 
         def issue(item):
             host = _map(self._host, item)
-            dev = _map(lambda t: t.to(self._device, non_blocking=True), host)
+            if obs.active() is not None:
+                sizes = []
+                _map(lambda t: sizes.append(t.nbytes), host)
+                obs.count("data.h2d.bytes", sum(sizes))
+                obs.count("data.h2d.items")
+            with obs.span("data.h2d"):
+                dev = _map(lambda t: t.to(self._device, non_blocking=True),
+                           host)
             if cuda:
                 event = torch.cuda.Event()
                 event.record()
@@ -171,6 +179,10 @@ class Prefetcher:
             except queue.Empty:
                 if self._stop.is_set():
                     raise StopIteration from None
+        # Buffer occupancy at consumption: near 0 the producer can't keep
+        # up (input-bound), near ``depth`` the run is compute-bound.
+        if obs.active() is not None:
+            obs.gauge("data.prefetch.occupancy", self._q.qsize())
         if item is self._DONE:
             self._finished = True
             if self._err is not None:

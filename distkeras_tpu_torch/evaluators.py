@@ -12,7 +12,7 @@ import torch
 
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.models import transformer as tfm
-from distkeras_tpu_torch.trainers.lm import nll_to_perplexity
+from distkeras_tpu_torch.utils.misc import nll_to_perplexity
 
 
 class Evaluator:

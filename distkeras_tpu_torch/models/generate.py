@@ -67,10 +67,6 @@ from distkeras_tpu_torch.parallel.layout import tp_of, views
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def local_kv_heads(params, cfg: TransformerConfig) -> int:
     """The kv heads this rank caches: ``wk``'s heads dimension in the
     compute view (``cfg.kv_heads`` unless the model axis splits them)."""

@@ -18,19 +18,20 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 
 from distkeras_tpu_torch.ops._build import BUILD_DIR
+from distkeras_tpu_torch.utils.locks import TracedLock
 
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 _DEF_THREADS = min(8, os.cpu_count() or 1)
 
-# Held across the one-time g++ build of a source; never on a hot path.
-_lock = threading.Lock()
+# Build-cache lock (leaf): held across the one-time g++ build of a
+# source, never on a hot path; traced, so the lock-order sanitizer sees it.
+_lock = TracedLock("native.build")
 _libs: dict[str, ctypes.CDLL | None] = {}
 build_errors: dict[str, str] = {}
 
@@ -101,6 +102,11 @@ def bpe_lib() -> ctypes.CDLL | None:
 def lib() -> ctypes.CDLL | None:
     """The gather library (``native/dataloader.cc``), or None."""
     return _load("dataloader")
+
+
+def available() -> bool:
+    """Does the threaded row-gather library build and load here?"""
+    return lib() is not None
 
 
 def _check_idx(idx, n_rows: int) -> np.ndarray:

@@ -245,7 +245,7 @@ def _group_leaves(groups) -> list:
     return [groups]
 
 
-def record_layout(layout: Zero1Layout, prefix: str = "zero1") -> None:
+def record_layout(layout: Zero1Layout) -> None:
     """Bucket geometry into the obs registry (once per layout)."""
     if obs.active() is None:
         return
@@ -253,11 +253,11 @@ def record_layout(layout: Zero1Layout, prefix: str = "zero1") -> None:
                     for c, d in zip(layout.bucket_cols, layout.bucket_dtypes)]
     pad = sum((s.cols * layout.n - s.size) * s.dtype.itemsize
               for s in layout.slots)
-    obs.gauge(f"{prefix}.buckets", len(bucket_bytes))
-    obs.gauge(f"{prefix}.exchange_bytes", sum(bucket_bytes))
-    obs.gauge(f"{prefix}.pad_bytes", pad)
+    obs.gauge("zero1.buckets", len(bucket_bytes))
+    obs.gauge("zero1.exchange_bytes", sum(bucket_bytes))
+    obs.gauge("zero1.pad_bytes", pad)
     for b in bucket_bytes:
-        obs.observe(f"{prefix}.bucket_bytes", b,
+        obs.observe("zero1.bucket_bytes", b,
                     buckets=(2**18, 2**20, 2**22, 2**24, 2**26))
 
 

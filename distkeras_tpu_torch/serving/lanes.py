@@ -749,10 +749,46 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
             return out
 
     def _dispatch_step(self, n: int):
-        """The ``n``-token decode window over every lane of the cache,
-        then ONE device-to-host copy of the ``[lanes, n]`` token
-        matrix."""
-        return self._decode_window(self.cache, n).cpu().numpy()
+        """The ``n``-token device window, then ONE device-to-host copy of
+        the ``[lanes, n]`` token matrix."""
+        return self._device_window(n).cpu().numpy()
+
+    def _device_window(self, n: int):
+        """The device half of ``step(n)``: the ``n``-token decode window
+        over every lane of the cache; the ``[lanes, n]`` tokens stay on
+        the device (the paged engine gathers and scatters its slab
+        around the same window)."""
+        return self._decode_window(self.cache, n)
+
+    def traced_for_analysis(self):
+        """Census targets (``analysis/ir_lint.py``): the one-token decode
+        window over the engine's live lane state (:meth:`_device_window`,
+        the device half of ``step(1)``, which must read nothing back to
+        the host), and the first admission chunk at the smallest bucket
+        into lane 0 (:meth:`_exec_admit`, what ``submit`` runs).
+        Running a spec's step advances the engine's state in place, as
+        the engine's own call does."""
+        from distkeras_tpu_torch.analysis.ir_lint import TraceSpec
+
+        mode = ("per_request" if self.per_request_sampling
+                else "sampled" if self.temperature > 0 else "greedy")
+        if self._prefix_pool is not None:
+            mode += "_pooled"
+        if self._kv_axis is not None:
+            mode += f"_tp{int(self.mesh.shape[self._kv_axis])}"
+        name = f"{type(self).__name__.lower()}_{mode}"
+        rows = np.zeros((1, self._buckets[0]), np.int64)
+        state = {"params": self.params, "kv": self.cache}
+        groups = ({a: int(s) for a, s in self.mesh.shape.items()
+                   if int(s) > 1} if self.mesh is not None else {})
+        return [
+            TraceSpec(name=f"{name}/decode_step", fn=self._device_window,
+                      args=(1,), host_sync_free=True, group_sizes=groups,
+                      state=state),
+            TraceSpec(name=f"{name}/admit_b{self._buckets[0]}",
+                      fn=self._exec_admit, args=(0, 0, rows, None),
+                      group_sizes=groups, state=state),
+        ]
 
     def _decode_window(self, cache, n: int):
         """``n`` runs of :meth:`_one_step` over a CONTIGUOUS ``[lanes,

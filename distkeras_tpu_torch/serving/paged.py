@@ -59,8 +59,8 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch import obs
-from distkeras_tpu_torch.models.generate import (_decode_chunk, _not_ported,
-                                                 init_cache, prefill)
+from distkeras_tpu_torch.models.generate import (_decode_chunk, init_cache,
+                                                 prefill)
 from distkeras_tpu_torch.models.quant import is_quantized
 from distkeras_tpu_torch.models.transformer import TransformerConfig
 from distkeras_tpu_torch.serving.disagg import (BlockShipment,
@@ -247,10 +247,10 @@ class PagedBatcher(ContinuousBatcher):
     of disaggregated serving (a stem's blocks read off one slab, shipped,
     and spliced into another).  ``plan=`` / ``mesh=``: sharded paging,
     SPMD on every rank of the mesh; the block slab holds this rank's kv
-    heads (``ContinuousBatcher``'s contract).  Not ported yet:
-    ``traced_for_analysis`` (A11).  Runs on ``device``
-    (the card unless ``device="cpu"``), where the params must already
-    live.
+    heads (``ContinuousBatcher``'s contract).  ``traced_for_analysis``:
+    the paged decode window and admission chunk (the step census).
+    Runs on ``device`` (the card unless ``device="cpu"``), where the
+    params must already live.
     """
 
     def __init__(self, params, cfg: TransformerConfig, lanes: int = 8,
@@ -382,13 +382,13 @@ class PagedBatcher(ContinuousBatcher):
 
     # ------------------------------------------------- device programs
 
-    def _dispatch_step(self, n: int):
+    def _device_window(self, n: int):
         """Grow the lanes' block lists for this window, gather every
         lane's view through the tables, run the shared window body over
-        it, scatter the window's ``n`` positions per lane back to the
+        it and scatter the window's ``n`` positions per lane back to the
         slab (clamped at ``max_len - 1`` as the body's advance clamps:
-        duplicate clamp writes carry identical values), then ONE
-        device-to-host copy of the token matrix."""
+        duplicate clamp writes carry identical values); the ``[lanes,
+        n]`` tokens stay on the device."""
         self._ensure_growth(n)
         pos0 = self.pos
         view = {name: _gather_view(a, self.tables)
@@ -402,7 +402,7 @@ class PagedBatcher(ContinuousBatcher):
         with torch.no_grad():
             for name, a in self.cache.items():
                 a[:, blk, off] = view[name][:, lane, q]
-        return toks.cpu().numpy()
+        return toks
 
     def _build_admission_programs(self) -> None:
         params, cfg, B = self.params, self.cfg, self.block
@@ -954,9 +954,6 @@ class PagedBatcher(ContinuousBatcher):
             self._obs_blocks()
             return {"prefix_id": pid, "blocks": len(taken),
                     "hits": hits, "bytes": shipment.nbytes}
-
-    def traced_for_analysis(self):
-        raise _not_ported("the IR lint's trace targets", "A11")
 
     # -------------------------------------------------------- obs
 

@@ -480,6 +480,30 @@ class SpeculativeBatcher(_LaneEngine):
         self.pos = pos + adv
         return nxt[:, None], adv
 
+    def traced_for_analysis(self):
+        """Census targets (``analysis/ir_lint.py``): one speculative
+        round (``step``: the draft, the verify and the one read of the
+        device) over the engine's live lanes, and the target model's
+        first admission chunk at the smallest bucket into lane 0.
+        Running a spec's step advances the engine in place, as the
+        engine's own call does."""
+        from distkeras_tpu_torch.analysis.ir_lint import TraceSpec
+
+        mode = "sampled" if self.temperature > 0 else "greedy"
+        if self._prefix_pool is not None:
+            mode += "_pooled"
+        name = f"{type(self).__name__.lower()}_{mode}"
+        rows = np.zeros((1, self._buckets[0]), np.int64)
+        pool = (() if self._prefix_pool is None
+                else (self._prefix_pool.slab[0], -1))
+        state = {"params": self.params, "kv": (self.tcache, self.dcache)}
+        return [
+            TraceSpec(name=f"{name}/step", fn=self.step, state=state),
+            TraceSpec(name=f"{name}/admit_b{self._buckets[0]}",
+                      fn=self._admit_t,
+                      args=(self.tcache, rows, 0, 0) + pool, state=state),
+        ]
+
     def step(self):
         """One decode round for every lane; returns ``{lane:
         [tokens...]}`` — up to ``n_draft + 1`` tokens per lane (exactly 1

@@ -115,7 +115,7 @@ class AsyncDP(ADAG):
         cfg = self.async_config
         sched = self.schedule
         state0 = self.adapter.init_state()
-        step = self._accum_step_fn()
+        step = self._round_step()
         shards, rows_per_round, per_host = self._host_windows(dataset)
 
         clock = VirtualClock()

@@ -246,11 +246,33 @@ class CheckpointingBase:
         if final or periodic:
             self._save(tree_fn, round_idx)
 
-    def _save(self, tree_fn, round_idx: int, **fields) -> None:
-        with obs.span("checkpoint.save", step=round_idx, **fields):
+    def _save(self, tree_fn, round_idx: int, preempt: bool = False) -> None:
+        span = (obs.span("checkpoint.save", step=round_idx, preempt=True)
+                if preempt else obs.span("checkpoint.save", step=round_idx))
+        with span:
             self._ckpt.save(tree_fn(), round_idx, force=True)
             self._ckpt.wait_until_finished()
         self._last_saved_round = round_idx
+
+    def _record_run_metrics(self) -> None:
+        """End-of-run telemetry (the reference's names): loss and timing
+        gauges from values the run already holds on the host — no
+        device read of its own."""
+        if obs.active() is None:
+            return
+        name = type(self).__name__
+        obs.gauge("train.training_time_s", self.training_time,
+                  trainer=name)
+        hist = getattr(self, "history", None)
+        if hist:
+            obs.gauge("train.loss", hist[-1], trainer=name)
+            obs.gauge("train.loss_mean", sum(hist) / len(hist),
+                      trainer=name)
+            obs.count("train.rounds", len(hist), trainer=name)
+        timer = getattr(self, "step_timer", None)
+        for phase, st in (timer.phase_stats().items() if timer else ()):
+            obs.gauge("train.phase_total_s", st["total_s"],
+                      trainer=name, phase=phase)
 
 
 class Trainer(CheckpointingBase):
@@ -330,6 +352,7 @@ class Trainer(CheckpointingBase):
         finally:
             self._close_checkpoints()
         self.training_time = time.perf_counter() - t0
+        self._record_run_metrics()
         return self._export(state)
 
     # -- checkpoint trees --------------------------------------------------

@@ -379,6 +379,73 @@ class ADAG(DistributedTrainer):
                 probe=self.probe_metrics)
         return self.adapter.make_accum_train_step(w, probe=self.probe_metrics)
 
+    def _round_stream(self, dataset: Dataset, epochs: int):
+        """This rank's ``(xs, ys)`` of each round of the streaming path,
+        on the device: ``[window, B, ...]`` (``[H, window, B, ...]``
+        under local SGD)."""
+        w = self.communication_window
+        H = self.exchange.sync_every
+        feed_bs = self.batch_size * self.num_workers
+        for _ in range(epochs):
+            for xs, ys in dataset.batches(
+                    feed_bs, features_col=self.features_col,
+                    label_col=self.label_col, window=w * H):
+                axis = 1
+                if H > 1:
+                    # [H*w, feed, ...] -> [H, w, feed, ...]: the first
+                    # w microbatches are local round 1.
+                    xs = xs.reshape((H, w) + xs.shape[1:])
+                    ys = ys.reshape((H, w) + ys.shape[1:])
+                    axis = 2
+                with self.step_timer.phase("h2d"):
+                    args = (torch.as_tensor(self._rank_rows(xs, axis),
+                                            device=self.device),
+                            torch.as_tensor(self._rank_rows(ys, axis),
+                                            device=self.device))
+                yield args
+
+    def _round_step(self, step=None):
+        """THE round step, ``step(state, *args)``: ``step`` (default the
+        streaming path's accumulation step) under the synchronized batch
+        norm.  ``train`` and :meth:`traced_for_analysis` share it."""
+        step = step or self._accum_step_fn()
+
+        def round_step(state, *args):
+            with synchronized(self.mesh):
+                return step(state, *args)
+
+        return round_step
+
+    def traced_for_analysis(self, dataset: Dataset):
+        """The census target (``analysis/ir_lint.py``): the round step
+        this configuration trains with (:meth:`_round_step`) over a
+        fresh state, fed this rank's rows of the first round of
+        ``dataset`` exactly as ``train(dataset)`` feeds them.  Running
+        the spec's step is one round of ``train``."""
+        from distkeras_tpu_torch.analysis.ir_lint import TraceSpec
+
+        state = self._init_state()
+        xs, ys = next(iter(self._round_stream(dataset, 1)))
+        pbytes = sum(p.numel() * p.element_size()
+                     for p in self.adapter.model.parameters())
+        variant = f"zero{self.zero}" if self.zero else "dp"
+        if not self.exchange.is_default:
+            label = self.exchange.label()
+            variant = f"zero1_{label}" if self.zero1 else label
+        placements = {}
+        if self.layout is not None:
+            placements = {path: repr(tuple(self.layout.specs[str(i)]))
+                          for i, path in enumerate(self.adapter.tv_paths)}
+        return [TraceSpec(
+            name=f"{type(self).__name__.lower()}_{variant}/accum_step",
+            fn=self._round_step(), args=(state, xs, ys),
+            params_bytes=int(pbytes),
+            group_sizes={a: int(s) for a, s in self.mesh.shape.items()
+                         if int(s) > 1},
+            zero_stage=self.zero, window=self.communication_window,
+            state={"params": state.tv, "opt": state.opt_state},
+            placements=placements)]
+
     def _fit(self, dataset: Dataset):
         if self.device_data:
             return self._fit_device_data(dataset)
@@ -386,29 +453,9 @@ class ADAG(DistributedTrainer):
         H = self.exchange.sync_every
         feed_bs = self.batch_size * self.num_workers
         state = self._init_state()
-        step = self._accum_step_fn()
-
-        def stream():
-            for _ in range(self.num_epoch):
-                for xs, ys in dataset.batches(
-                        feed_bs, features_col=self.features_col,
-                        label_col=self.label_col, window=w * H):
-                    axis = 1
-                    if H > 1:
-                        # [H*w, feed, ...] -> [H, w, feed, ...]: the first
-                        # w microbatches are local round 1.
-                        xs = xs.reshape((H, w) + xs.shape[1:])
-                        ys = ys.reshape((H, w) + ys.shape[1:])
-                        axis = 2
-                    with self.step_timer.phase("h2d"):
-                        args = (torch.as_tensor(self._rank_rows(xs, axis),
-                                                device=self.device),
-                                torch.as_tensor(self._rank_rows(ys, axis),
-                                                device=self.device))
-                    yield args
-
-        return self._run_rounds(state, step, stream(), feed_bs * w * H,
-                                dataset)
+        return self._run_rounds(state, self._round_step(),
+                                self._round_stream(dataset, self.num_epoch),
+                                feed_bs * w * H, dataset)
 
     def _fit_device_data(self, dataset: Dataset):
         """This rank's rows staged on its device once, in consumption
@@ -451,7 +498,8 @@ class ADAG(DistributedTrainer):
                                            ).reshape(w, bs)
                     yield X, Y, idx
 
-        return self._run_rounds(state, step, index_blocks(), feed_bs * w,
+        return self._run_rounds(state, self._round_step(step),
+                                index_blocks(), feed_bs * w,
                                 dataset)
 
     def _run_rounds(self, state, step, rounds, rows_per_round, dataset):
@@ -464,7 +512,7 @@ class ADAG(DistributedTrainer):
         for rnd, args in enumerate(rounds, 1):
             if rnd <= start:
                 continue
-            with self.step_timer.phase("step"), synchronized(self.mesh):
+            with self.step_timer.phase("step"):
                 state, out = step(state, *args)
             if self.probe_metrics:
                 loss, aux = out

@@ -98,6 +98,7 @@ from distkeras_tpu_torch.trainers.carry import (copy_leaves, load_opt_tree,
                                                 opt_tree, stack_tree)
 from distkeras_tpu_torch.trainers.optim import LM_NAMES, Optimizer
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
+from distkeras_tpu_torch.utils.misc import nll_to_perplexity
 
 # Staging more than this fraction of the device's memory fails fast (the
 # rest of the step still needs activations, params and moments).
@@ -112,11 +113,6 @@ def _device_bytes_limit(device: torch.device) -> int | None:
     if device.type != "cuda":
         return None
     return torch.cuda.mem_get_info(device)[1]
-
-
-def nll_to_perplexity(mean_nll: float) -> float:
-    """exp(mean NLL) with the reference's overflow guard."""
-    return math.exp(mean_nll) if mean_nll < 700 else float("inf")
 
 
 def _make_zero_step(cfg: tfm.TransformerConfig, zopt: ZeroOptimizer,
@@ -683,6 +679,7 @@ class LMTrainer(CheckpointingBase):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.training_time = time.perf_counter() - t0
+        self._record_run_metrics()
         return params
 
     def _rows_of(self, rows, rank: int):
@@ -736,11 +733,14 @@ class LMTrainer(CheckpointingBase):
             drop.set_state(
                 tree["dropout"][self._drop_mesh()[1]].cpu().clone())
 
-    def _train(self, tokens, segments, eval_tokens, eval_segments, params,
-               feed, rows_per_step, n_rows, mine, b):
-        """The run behind :meth:`train`, inside the checkpoint manager's
-        lifetime; returns the trained params."""
-        bs, mesh = self.batch_size, self.mesh
+    def _carry_and_step(self, params, packed: bool = False):
+        """THE train step of this configuration and the carry it drives:
+        ``(params, opt_state, step, dropout_generator)``, with
+        ``self.layout`` set.  ``train`` and :meth:`traced_for_analysis`
+        share this one construction, so the census records the step
+        that trains.  ``params`` None: a fresh init from ``seed``;
+        ``packed``: the rows carry segments."""
+        mesh = self.mesh
         n, rank = mesh.size, mesh.rank
         if params is None:
             params = self.init_params()
@@ -748,7 +748,6 @@ class LMTrainer(CheckpointingBase):
             check_on_device(params, self.device)
             params = tfm._map_leaves(lambda p: p.detach().clone(), params)
         params, self.layout = self._placement(params)
-        layout = self.layout
         opt = self._dp_optimizer()
         opt_state = opt.init(params)
         if self.zero >= 3:
@@ -762,7 +761,7 @@ class LMTrainer(CheckpointingBase):
                                    self.grad_accum, self.probe_metrics)
         else:
             loss_fn = self._loss_fn
-            if _token_axes(mesh) and segments is not None:
+            if _token_axes(mesh) and packed:
                 loss_fn = _global_count_loss(loss_fn or tfm.lm_loss, mesh)
             step = tfm.make_train_step(self.cfg, opt,
                                        grad_accum=self.grad_accum,
@@ -776,6 +775,85 @@ class LMTrainer(CheckpointingBase):
             drop = torch.Generator(self.device).manual_seed(
                 self.seed + 0x5eed + rank
                 + n * int(mesh.coords["seq"] if mesh.coords else 0))
+        return params, opt_state, step, drop
+
+    def _host_block(self, tokens, segments, rows, feed: int, b: int):
+        """This rank's ``rows`` of the host token rows (and segments) on
+        the device, shaped ``[feed, B/n, S+1]`` when a step has a
+        leading block, cut to this seq rank's window."""
+        n = self.mesh.size
+        block = self._rows(tokens[rows] if n > 1 else
+                           tokens[rows[0]:rows[-1] + 1], torch.long)
+        seg = None
+        if segments is not None:
+            seg = self._rows(segments[rows], torch.int32)
+        if feed > 1:
+            block = block.reshape(feed, b, -1)
+            if seg is not None:
+                seg = seg.reshape(feed, b, -1)
+        return self._window(block), None if seg is None else self._window(seg)
+
+    def traced_for_analysis(self, tokens=None, params=None):
+        """The census target (``analysis/ir_lint.py``): the train step
+        this configuration executes (:meth:`_carry_and_step`, the one
+        ``train`` builds) over a fresh carry (from ``params`` as
+        ``train(params=)`` takes them, else the seeded init), fed this
+        rank's rows of the first step of ``tokens`` exactly as
+        ``train(tokens)`` feeds them (default: seeded random rows of
+        ``cfg.max_len`` inputs).  Running the spec's step is one
+        optimizer round of ``train``."""
+        from distkeras_tpu_torch.analysis.ir_lint import TraceSpec
+
+        feed = (self.grad_accum if self.grad_accum > 1
+                else self.exchange.sync_every)
+        rows_per_step = self.batch_size * feed
+        if tokens is None:
+            rng = np.random.default_rng(self.seed)
+            tokens = rng.integers(
+                0, self.cfg.vocab_size,
+                (rows_per_step, self.cfg.max_len + 1)).astype(np.int32)
+        tokens = np.asarray(tokens)
+        params, opt_state, step, drop = self._carry_and_step(params)
+        n, b = self.mesh.size, self.batch_size // self.mesh.size
+        mine = self._rows_of(np.arange(rows_per_step).reshape(
+            -1, feed, self.batch_size), self.mesh.rank).reshape(-1)
+        block, _ = self._host_block(tokens, None, mine[:feed * b], feed, b)
+        if self.zero >= 3:
+            pbytes = sum(s.size * s.dtype.itemsize
+                         for s in opt_state.layout.slots)
+        else:
+            full = (self.layout.full_shapes if self.layout is not None
+                    else {})
+            pbytes = sum(math.prod(full.get(k, p.shape)) * p.element_size()
+                         for k, p in tfm.named_leaves(params))
+        variant = (f"zero{self.zero}" if self.zero
+                   else "fsdp" if self.fsdp else "dp")
+        if not self.exchange.is_default:
+            label = self.exchange.label()
+            variant = f"zero1_{label}" if self.zero1 else label
+        placements = {}
+        if self.layout is not None:
+            placements = {k: repr(tuple(v))
+                          for k, v in self.layout.specs.items()}
+        return [TraceSpec(
+            name=f"{type(self).__name__.lower()}_{variant}/train_step",
+            fn=step, args=((params, opt_state), block, drop, None),
+            params_bytes=int(pbytes),
+            group_sizes={a: int(s) for a, s in self.mesh.shape.items()
+                         if int(s) > 1},
+            zero_stage=self.zero, window=feed,
+            state={"params": params, "opt": opt_state},
+            placements=placements)]
+
+    def _train(self, tokens, segments, eval_tokens, eval_segments, params,
+               feed, rows_per_step, n_rows, mine, b):
+        """The run behind :meth:`train`, inside the checkpoint manager's
+        lifetime; returns the trained params."""
+        bs, mesh = self.batch_size, self.mesh
+        n, rank = mesh.size, mesh.rank
+        params, opt_state, step, drop = self._carry_and_step(
+            params, packed=segments is not None)
+        layout = self.layout
 
         def full_params():
             if self.zero >= 3:
@@ -865,19 +943,15 @@ class LMTrainer(CheckpointingBase):
                 block = X_dev.index_select(0, idx).long()
                 seg = None if seg_dev is None else seg_dev.index_select(0,
                                                                         idx)
-            else:
-                rows = mine[j * local_rows:(j + 1) * local_rows]
-                block = self._rows(tokens[rows] if n > 1 else
-                                   tokens[rows[0]:rows[-1] + 1], torch.long)
-                seg = None
-                if segments is not None:
-                    seg = self._rows(segments[rows], torch.int32)
-            if feed > 1:
-                block = block.reshape(feed, b, -1)
-                if seg is not None:
-                    seg = seg.reshape(feed, b, -1)
-            block = self._window(block)
-            return block, None if seg is None else self._window(seg)
+                if feed > 1:
+                    block = block.reshape(feed, b, -1)
+                    if seg is not None:
+                        seg = seg.reshape(feed, b, -1)
+                return self._window(block), (
+                    None if seg is None else self._window(seg))
+            return self._host_block(
+                tokens, segments,
+                mine[j * local_rows:(j + 1) * local_rows], feed, b)
 
         carry, losses, probes, rnd = (params, opt_state), [], [], 0
         tree, start = self._restore_or()

@@ -1,8 +1,12 @@
-"""Small array helpers: the port's copy of
-``distkeras_tpu/utils/misc.py::to_dense_vector`` and ``uniform_weights``
-(reference parity: distkeras/utils.py)."""
+"""Small helpers: the port's copy of ``distkeras_tpu/utils/misc.py``'s
+``to_dense_vector``, ``uniform_weights`` (reference parity:
+distkeras/utils.py) and ``nll_to_perplexity``.  The reference's JAX
+device probes (``probe_devices`` / ``probe_device_count_subprocess``)
+have no counterpart: the port's process sees its one device."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -26,3 +30,8 @@ def uniform_weights(model, bounds=(-0.5, 0.5), seed: int | None = None):
     set_weights(model, [rng.uniform(low, high, size=w.shape).astype(w.dtype)
                         for w in get_weights(model)])
     return model
+
+
+def nll_to_perplexity(mean_nll: float) -> float:
+    """exp(mean NLL) with the reference's overflow guard."""
+    return math.exp(mean_nll) if mean_nll < 700 else float("inf")

@@ -825,8 +825,12 @@ def test_paged_constructor_validation(m):
     assert paged(m, lanes=1).import_blocks(ship)["blocks"] == 1
     with pytest.raises(ValueError, match="full block"):
         pb.export_blocks([1] * 7)
-    with pytest.raises(NotImplementedError, match="A11"):
-        pb.traced_for_analysis()
+    # The step census's hook is ported: the paged decode window (no
+    # host read allowed) and the admission chunk.
+    dec, admit = pb.traced_for_analysis()
+    assert dec.name == "pagedbatcher_greedy/decode_step"
+    assert dec.host_sync_free and admit.name.startswith(
+        "pagedbatcher_greedy/admit_b")
 
 
 def test_memory_footprint_reads_the_live_slab(m):

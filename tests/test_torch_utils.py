@@ -17,11 +17,15 @@
   ported), and ``utils.__all__`` the reference's;
   C6: ``ModelAdapter(keras_model=...)``; C7:
   ``CheckpointManager(..., async_save=...)``;
-- C8: each reference sub-package's ``__all__`` (data, models, ops,
-  trainers, parallel) and each ``parallel`` module's public names are
-  the port's, less the XLA-only helpers listed with their reasons.
+- C8 / C9: each reference sub-package's and module's public names —
+  its ``__all__`` and its public top-level functions and classes (data,
+  models, ops, trainers, parallel and its modules, native, utils.misc,
+  analysis and its modules) — are the port's, less the XLA-only helpers
+  listed with their reasons; every reference module has a port module
+  but the ones listed with theirs.
 """
 
+import importlib
 import inspect
 import json
 import pickle
@@ -49,7 +53,22 @@ NOT_PORTED = {}
 _XLA_STATE = ("an XLA sharding tree for the ZeRO state; the port's "
               "ZeroState holds each rank's shards and Zero1Layout places "
               "them")
+_HLO = ("it reads XLA's compiled HLO; the port's step census records the "
+        "dispatched collectives instead")
 NOT_PORTED_SUB = {
+    "analysis.ir_lint": {
+        "declared_zero1_exchange": "it reads the zero scopes off the "
+                                   "jaxpr; the port's census reads the "
+                                   "recorded step (declared_zero_exchange)",
+    },
+    "analysis.shard_lint": {
+        "DECLARED_SCOPES": _HLO, "attributed": _HLO,
+        "resharding_census": _HLO, "reshard_findings": _HLO},
+    "ops.optimizers": {
+        "zero1_offender": "it names the non-elementwise optax transform "
+                          "in a chain; the port's zero_validate "
+                          "(parallel/collectives.py) has no optax chain "
+                          "to name"},
     "parallel.async_tier": {
         "make_wire_merge": "the shard_map spelling of one aggregation "
                            "wave for the XLA IR census; the port's "
@@ -63,11 +82,26 @@ NOT_PORTED_SUB = {
                        "zero3_param_shardings": _XLA_STATE,
                        "zero_state_rules": _XLA_STATE,
                        "zero_state_shardings": _XLA_STATE},
+    "utils.misc": {
+        "probe_devices": "a JAX device-discovery probe; the port's "
+                         "process sees its one device",
+        "probe_device_count_subprocess": "a JAX device-discovery probe "
+                                         "in a child process; as "
+                                         "probe_devices"},
 }
-SUBPACKAGES = ["data", "models", "ops", "trainers", "parallel"] + [
+# Reference modules with no port module, each with its reason.
+NOT_PORTED_MODULES = {
+    "parallel.compat": "a shim over jax versions' moved APIs; the port "
+                       "has no jax",
+}
+SUBPACKAGES = ["data", "models", "ops", "ops.optimizers", "trainers",
+               "parallel", "native", "utils.misc", "analysis"] + [
     f"parallel.{m}" for m in ("async_tier", "collectives", "exchange",
                               "mesh", "pipeline", "ring", "rules",
-                              "sharding")]
+                              "sharding")] + [
+    f"analysis.{m}" for m in ("contract_lint", "findings", "ir_lint",
+                              "shard_lint", "source_lint", "targets",
+                              "thread_lint")]
 
 
 def test_round_trip():
@@ -200,18 +234,16 @@ def test_top_level_all_holds_the_reference_minus_unported():
 
 
 def _public(module):
-    """A module's ``__all__``, or its public functions and classes."""
-    if hasattr(module, "__all__"):
-        return set(module.__all__)
-    return {n for n, v in vars(module).items() if not n.startswith("_")
-            and (inspect.isfunction(v) or inspect.isclass(v))
-            and v.__module__ == module.__name__}
+    """A module's ``__all__`` and its public top-level functions and
+    classes."""
+    return set(getattr(module, "__all__", ())) | {
+        n for n, v in vars(module).items() if not n.startswith("_")
+        and (inspect.isfunction(v) or inspect.isclass(v))
+        and v.__module__ == module.__name__}
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_subpackage_surface_holds_the_reference(sub):
-    import importlib
-
     ref = importlib.import_module(f"distkeras_tpu.{sub}")
     port = importlib.import_module(f"distkeras_tpu_torch.{sub}")
     skip = NOT_PORTED_SUB.get(sub, {})
@@ -223,6 +255,27 @@ def test_subpackage_surface_holds_the_reference(sub):
         assert hasattr(port, name), f"{sub}.{name}"
         if hasattr(port, "__all__"):
             assert name in port.__all__, f"{sub}.{name} not in __all__"
+
+
+def _modules(pkg):
+    import os
+
+    root = os.path.dirname(importlib.import_module(pkg).__file__)
+    out = set()
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py") and "__pycache__" not in d:
+                rel = os.path.relpath(os.path.join(d, f), root)[:-3]
+                out.add(rel.replace(os.sep, ".").removesuffix(".__init__")
+                        .removesuffix("__init__"))
+    return out - {""}
+
+
+def test_every_reference_module_has_a_port_module():
+    ref, port = _modules("distkeras_tpu"), _modules("distkeras_tpu_torch")
+    assert set(NOT_PORTED_MODULES) <= ref
+    assert not set(NOT_PORTED_MODULES) & port
+    assert ref - port == set(NOT_PORTED_MODULES)
 
 
 def test_model_adapter_takes_keras_model():
