@@ -107,17 +107,23 @@ each went through its kernels:
   card against the CPU: event log, report and weights).  ``python3
   chip_smoke.py --dp-rank MODE DIR`` is one rank of ``dp_keras``;
 - checkpoint and resilience (phase ``resume``): (a) ``LMTrainer`` at
-  the training width with dropout 0.1, two straight 6-step runs (which
-  must be bit-identical), then the same trainer under a ``Supervisor``
-  with ``checkpoint_every=2`` and ``FaultPlan.preempt("train.round",
-  at=3)``: it resumes from step 2 and must end bit-identical to the
-  straight run (params, and rounds 3-6's losses), with save / restore /
-  load seconds, the checkpoint's GB and the step ms after the restore
-  against the straight run's; (b) the same with ``zero=1`` in a world-1
-  NCCL group; (c) two gloo ranks of ADAG on the CIFAR CNN (f32) under
-  ``resilience.cluster.run_cluster_local``, host 1 killed at a seeded
-  round: both hosts restart under epoch 1 and the job's weights must
-  equal a straight run's bit for bit.  ``python3 chip_smoke.py
+  the training width with dropout 0.1 and ``checkpoint_backend=
+  "pickle"``, two straight 6-step runs (which must be bit-identical),
+  then the same trainer under a ``Supervisor`` with
+  ``checkpoint_every=2`` and ``FaultPlan.preempt("train.round", at=3)``:
+  it resumes from step 2 and must end bit-identical to the straight run
+  (params, and rounds 3-6's losses), with save / restore / load
+  seconds, the checkpoint's GB and the step ms after the restore against
+  the straight run's; (b) the same with ``zero=1`` in a world-1 NCCL
+  group under the sharded backend (``"orbax"``), then one direct
+  asynchronous sharded save of its final state: the seconds until
+  ``save()`` returns and until ``wait_until_finished()`` returns, and the
+  bytes of each rank file; (c) two gloo ranks of ADAG (adam, ``zero=1``)
+  on the CIFAR CNN (f32) under ``resilience.cluster.run_cluster_local``,
+  checkpointing under the default, sharded backend (each host writes
+  its own ZeRO shards), host 1 killed at a seeded round: both hosts
+  restart under epoch 1 and the job's weights must equal a straight
+  run's bit for bit.  ``python3 chip_smoke.py
   --cluster-rank SPEC`` is one host of (c).  The script sets
   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before CUDA starts;
 - the serving fleet (phase ``fleet``, its profiled windows
@@ -3558,9 +3564,10 @@ RESUME_STEPS = 6       # rounds of the straight run
 RESUME_EVERY = 2       # checkpoint_every of the supervised run
 RESUME_PREEMPT = 3     # the round FaultPlan.preempt stops
 # Phase resume (c): the CIFAR CNN (f32) over two gloo ranks sharing the
-# card, CLUSTER_ROUNDS rounds of window 2 x 2 ranks x CLUSTER_BATCH rows.
+# card, CLUSTER_ROUNDS rounds of window 2 x 2 ranks x CLUSTER_BATCH rows
+# (6, cut from 8 to pay for adam and zero=1's heavier rounds).
 CLUSTER_BATCH = 512
-CLUSTER_ROUNDS = 8
+CLUSTER_ROUNDS = 6
 CLUSTER_ROWS = CLUSTER_ROUNDS * 2 * 2 * CLUSTER_BATCH
 
 
@@ -3665,21 +3672,28 @@ def lm_resume_case(np_params, rows, name, **kw):
     first = RESUME_EVERY + 1  # the first round after the restore
     rounds = clock["rounds"]
     resumed_s = sup.attempts[1].duration
-    gb = os.path.getsize(os.path.join(ckdir, str(RESUME_STEPS),
-                                      "state.pkl")) / 1e9
+    step_dir = os.path.join(ckdir, str(RESUME_STEPS))
+    gb = sum(os.path.getsize(os.path.join(step_dir, f))
+             for f in os.listdir(step_dir)) / 1e9
+    split = None
+    if t.checkpoint_backend == "orbax":
+        split = save_split(t, out, os.path.join(tmp, "split"))
     import shutil
 
     shutil.rmtree(tmp, ignore_errors=True)
     del out, got, ref, t, sup
     return dict(
-        name=name, steps=RESUME_STEPS, checkpoint_every=RESUME_EVERY,
+        name=name, checkpoint_backend=kw["checkpoint_backend"],
+        steps=RESUME_STEPS,
+        checkpoint_every=RESUME_EVERY,
         preempted_at=RESUME_PREEMPT, resumed_from=RESUME_EVERY,
         straight_runs_bit_identical=True, resumed_bit_identical=True,
         losses_rounds_3_6=hist[RESUME_EVERY:], launches=dict(launches),
-        # Save: tree, device-to-host copy, pickle, fsync, rename (steps
-        # 2, 4, 6); restore: read and unpickle onto the host; load: the
-        # host tree into the live state on the card.
-        save_s=saves, restore_s=restore[0],
+        # Save: tree, device-to-host copy, write, fsync, commit (steps
+        # 2, 4, 6; the trainer waits for each); restore: read the step
+        # (pickle: unpickle; sharded: the manifest, leaves read on load);
+        # load: the host tree into the live state on the card.
+        save_s=saves, restore_s=restore[0], save_split=split,
         load_s=clock["loaded"][1] - clock["loaded"][0], checkpoint_gb=gb,
         # Step ms: the warm straight run's rounds 2-6, the resumed run's
         # first round after the load, and its rounds 4-6.
@@ -3688,6 +3702,31 @@ def lm_resume_case(np_params, rows, name, **kw):
                                            - clock["loaded"][1]),
         step_ms_after_restore=step_ms(clock, first + 1, RESUME_STEPS),
         resumed_attempt_s=resumed_s), launches
+
+
+def save_split(trainer, params, directory):
+    """One direct asynchronous sharded save of a trainer's final state
+    (the local-shard tree: parameters and optimizer state): seconds until
+    ``save()`` returns (the barrier and the device-to-host copy), until
+    ``wait_until_finished()`` returns (the write and the commit), and
+    the bytes of each rank file."""
+    from distkeras_tpu_torch.checkpoint import CheckpointManager, read_manifest
+    from distkeras_tpu_torch.trainers.carry import opt_tree
+
+    tree = {"params": params,
+            "opt": opt_tree(trainer.opt_state, params, trainer.mesh,
+                            trainer.layout, local=True)}
+    with CheckpointManager(directory, backend="orbax",
+                           async_save=True) as m:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.save(tree, step=1)
+        t1 = time.perf_counter()
+        m.wait_until_finished()
+        t2 = time.perf_counter()
+    files = read_manifest(os.path.join(directory, "1"))["files"]
+    return dict(return_s=t1 - t0, commit_s=t2 - t0,
+                rank_bytes=[f["nbytes"] for f in files])
 
 
 def free_port():
@@ -3703,11 +3742,13 @@ def cluster_rank_main(spec_path):
     driver (``run_cluster_local``) with the ``DKT_CLUSTER_*``
     environment: its ClusterMember (heartbeats, the collective
     watchdog), the epoch's gloo group over CUDA tensors on the one card,
-    then ADAG(num_workers=2) on the CIFAR CNN (f32, cuDNN deterministic)
-    under a per-host Supervisor, checkpointing every round into the
-    shared directory.  On epoch 0 the spec's host dies at the spec's
+    then ADAG(num_workers=2, adam, zero=1) on the CIFAR CNN (f32, cuDNN
+    deterministic) under a per-host Supervisor, checkpointing every
+    round into the shared directory under the default, sharded backend
+    (each host writes its own ZeRO shards).  On epoch 0 the spec's host dies at the spec's
     round (FaultPlan.kill: exit 137, no cleanup).  Host 0 writes the
-    weights and losses of the run it finished."""
+    weights and losses of the run it finished, and the bytes of each
+    host's file in the last step."""
     import warnings
 
     import torch.distributed as dist
@@ -3726,8 +3767,8 @@ def cluster_rank_main(spec_path):
         x, y = cifar_data(CLUSTER_ROWS, seed=4)
         t = keras_trainer(dkt.ADAG, "cuda:0", CLUSTER_BATCH, 1,
                           policy="float32", seed=9, num_workers=2,
-                          worker_optimizer="sgd", learning_rate=0.01,
-                          communication_window=2,
+                          worker_optimizer="adam", learning_rate=1e-3,
+                          zero=1, communication_window=2,
                           checkpoint_dir=spec["ckpt"], checkpoint_every=1,
                           max_checkpoints=100)
         sup = dkt.Supervisor(t, max_retries=0, handle_sigterm=False)
@@ -3739,11 +3780,17 @@ def cluster_rank_main(spec_path):
             m = sup.run(dkt.Dataset.from_arrays(x, y))
         member.complete()
         if member.host == 0:
+            from distkeras_tpu_torch.checkpoint import read_manifest
+
             w = dkt.keras_numpy_from_module(m)[0]
+            last = os.path.join(spec["ckpt"], str(max(
+                int(e) for e in os.listdir(spec["ckpt"]) if e.isdigit())))
             np.savez(os.path.join(spec["out"], "final.npz"),
                      history=np.asarray(t.history),
                      resumed_from=np.asarray(
                          sup.attempts[-1].resumed_from or 0),
+                     rank_bytes=np.asarray([f["nbytes"] for f in
+                                            read_manifest(last)["files"]]),
                      **{f"w{i}": a for i, a in enumerate(w)})
         dist.destroy_process_group()
     finally:
@@ -3804,6 +3851,8 @@ def cluster_restart_case():
                        if a["event"] == "attempt"] for s in k_sum}
     return dict(model="cifar_cnn", policy="float32", ranks=2,
                 backend="gloo", tensors="cuda", batch=CLUSTER_BATCH,
+                optimizer="adam", zero=1, checkpoint_backend="orbax",
+                rank_bytes=got["rank_bytes"].tolist(),
                 rounds=CLUSTER_ROUNDS, killed_host=1, killed_at_round=kill,
                 resumed_from=start, epochs=[s["epochs"] for s in k_sum],
                 restarts=[s["restarts"] for s in k_sum], attempt_rcs=rcs,
@@ -3813,8 +3862,9 @@ def cluster_restart_case():
 
 def resume_phase(np_params, cluster):
     """Phase resume: (a) the LM at full width with dropout, preempted at
-    round 3 and resumed by a Supervisor; (b) the same with zero=1 in a
-    world-1 NCCL group; (c) the two-host cluster restart, whose
+    round 3 and resumed by a Supervisor (pickle checkpoints); (b) the
+    same with zero=1 in a world-1 NCCL group (sharded checkpoints, and
+    the split of one asynchronous save); (c) the two-host cluster restart, whose
     ``in_background`` join is ``cluster`` (it was started before phase
     dp_keras: its hosts are processes of their own, mostly idle on the
     card, and overlap dp_keras, async_dp, (a) and (b)).  Returns the
@@ -3824,7 +3874,8 @@ def resume_phase(np_params, cluster):
     rows = np.random.default_rng(13).integers(
         0, FLAGSHIP_TRAIN.vocab_size,
         (8 * RESUME_STEPS, TRAIN_SHAPE[1] + 1)).astype(np.int32)
-    rec_a, launches = lm_resume_case(np_params, rows, "lm")
+    rec_a, launches = lm_resume_case(np_params, rows, "lm",
+                                     checkpoint_backend="pickle")
     torch.cuda.empty_cache()
     rdv = tempfile.mkdtemp()
     dkt.initialize_multihost(init_method=f"file://{rdv}/rdv", world_size=1,
@@ -3832,7 +3883,7 @@ def resume_phase(np_params, cluster):
     try:
         backend = dist.get_backend()
         rec_b, launches_b = lm_resume_case(np_params, rows, "lm_zero1",
-                                           zero=1)
+                                           zero=1, checkpoint_backend="orbax")
     finally:
         dist.destroy_process_group()
     rec_b["backend"] = backend

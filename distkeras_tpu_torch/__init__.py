@@ -54,8 +54,9 @@ travels as the reference's ``serialize_keras_model`` dict.
 
 Checkpoint and resilience: every trainer takes ``checkpoint_dir`` /
 ``checkpoint_every`` / ``max_checkpoints`` / ``resume`` and resumes bit
-for bit from a :class:`CheckpointManager` step (the pickle layout; in a
-process group rank 0 writes the gathered state); a :class:`Supervisor`
+for bit from a :class:`CheckpointManager` step (by default sharded and
+asynchronous: each rank writes its own pieces; or the pickle layout,
+where rank 0 writes the gathered state); a :class:`Supervisor`
 retries faults and preemptions around ``train``, and
 ``resilience.cluster`` restarts a multi-process job under a new cluster
 epoch (heartbeats, the collective watchdog, cluster-consistent

@@ -8,8 +8,8 @@ concurrency bugs these rules catch are a handful of *source shapes* — a
 callback fired under a lock, blocking work while holding a lock, a raw
 un-instrumented lock the sanitizer can't see — so this lint turns those
 shapes into AST rules over the packages that run threads (``serving/``,
-``obs/``, ``resilience/``, ``native/``, ``data/prefetch.py``,
-``utils/misc.py``, ``utils/locks.py``):
+``obs/``, ``resilience/``, ``native/``, ``checkpoint.py``,
+``data/prefetch.py``, ``utils/misc.py``, ``utils/locks.py``):
 
 ===================  =====  ==============================================
 rule id              sev    fires on
@@ -72,7 +72,8 @@ _THREADED_DIRS = tuple(
     for d in ("serving", "obs", "resilience", "native"))
 _THREADED_FILES = tuple(
     os.path.join("distkeras_tpu_torch", f)
-    for f in (os.path.join("data", "prefetch.py"),
+    for f in ("checkpoint.py",
+              os.path.join("data", "prefetch.py"),
               os.path.join("utils", "misc.py"),
               os.path.join("utils", "locks.py")))
 # The one legal home of raw lock construction: the wrappers themselves.

@@ -107,8 +107,11 @@ def step_is_valid(step_dir: str) -> bool:
     leaves a torn file that truncates mid-stream.  The scan
     (``pickletools.genops``) reads the file but never materializes the
     payload, so validating a multi-GB training state costs I/O, not
-    allocation.  The port writes no orbax layout, so the reference's
-    orbax tmp-suffix rule is not here; anything else non-empty is
+    allocation.  Sharded layout (``manifest.json`` / ``rank{r}.bin``,
+    the port's counterpart of the reference's orbax rule): the directory
+    sits under a committed (integer) name, the manifest parses, every
+    rank file it names exists with the byte size it records, and nothing
+    else — no tmp entry — is left inside.  Anything else non-empty is
     trusted (unknown layouts fail at restore time, loudly)."""
     if not os.path.isdir(step_dir):
         return False
@@ -124,7 +127,31 @@ def step_is_valid(step_dir: str) -> bool:
             return last == "STOP"
         except Exception:  # noqa: BLE001 — torn/corrupt == invalid
             return False
-    return bool(os.listdir(step_dir))
+    entries = os.listdir(step_dir)
+    if _MANIFEST in entries or any(e.startswith("rank") for e in entries):
+        return _sharded_step_is_valid(step_dir, entries)
+    return bool(entries)
+
+
+# checkpoint.MANIFEST, named again: this module imports no torch (the
+# cluster supervisor's children run on the stdlib alone).
+_MANIFEST = "manifest.json"
+
+
+def _sharded_step_is_valid(step_dir: str, entries: list) -> bool:
+    import json
+
+    if not os.path.basename(os.path.normpath(step_dir)).isdigit():
+        return False
+    try:
+        with open(os.path.join(step_dir, _MANIFEST), encoding="utf-8") as f:
+            files = json.load(f)["files"]
+        if set(entries) != {_MANIFEST, *(e["name"] for e in files)}:
+            return False
+        return all(os.path.getsize(os.path.join(step_dir, e["name"]))
+                   == e["nbytes"] for e in files)
+    except Exception:  # noqa: BLE001 — torn/corrupt == invalid
+        return False
 
 
 def valid_steps(checkpoint_dir: str) -> list[int]:
@@ -163,7 +190,7 @@ def cluster_consistent_step(checkpoint_dirs) -> int | None:
     torn (died mid-save), must not be resumed from — the survivors
     would restore state the dead host never reached and the replicas
     would diverge on round one.  Duplicate paths (hosts sharing one
-    store, as the port's rank-0 multi-process save does) collapse to
+    store, as the port's multi-process saves do) collapse to
     one."""
     dirs = {os.path.realpath(d) for d in checkpoint_dirs}
     if not dirs:

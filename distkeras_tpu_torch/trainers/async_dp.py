@@ -272,6 +272,7 @@ class AsyncDP(ADAG):
         final = TrainState(tv=plane.center, ntv=copy_tree(state0.ntv),
                            opt_state=None,
                            step=sum(rounds_done.values(), 0))
-        self._checkpoint(lambda: self._state_tree(final), plane.version,
+        self._checkpoint(lambda local=False: self._state_tree(final, local),
+                         plane.version,
                          final=True)
         return final

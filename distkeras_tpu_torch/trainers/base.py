@@ -66,11 +66,14 @@ class CheckpointingBase:
     Keras trainers and ``LMTrainer`` take the same ``checkpoint_dir`` /
     ``checkpoint_every`` / ``max_checkpoints`` / ``resume`` contract.
 
-    A round's state reaches :meth:`_checkpoint` as a zero-argument
-    function building its tree, called only when a save is due (in a
-    process group building it gathers, a collective every rank runs),
-    and comes back from :meth:`_restore_or` as a tree of CPU tensors the
-    trainer loads into its live state.
+    A round's state reaches :meth:`_checkpoint` as a function building
+    its tree, called only when a save is due: ``tree_fn()`` the gathered
+    tree (in a process group a collective every rank runs),
+    ``tree_fn(local=True)`` the local-shard tree of the sharded backend
+    (``trainers/carry.py``: this rank's pieces, nothing gathered).  It
+    comes back from :meth:`_restore_or` as a tree of CPU tensors, or of
+    lazily read leaves from a sharded step, which the trainer loads into
+    its live state.
     """
 
     def _setup_checkpointing(self, *, checkpoint_dir: str | None,
@@ -172,7 +175,8 @@ class CheckpointingBase:
                 return None, 0
             step = valid
         with obs.span("checkpoint.restore", step=step):
-            restored = self._ckpt.restore(step=step)
+            # A sharded step's leaves are read as each rank loads its part.
+            restored = self._ckpt.restore(step=step, lazy=True)
         return restored, step
 
     def attach_publisher(self, publisher, every: int = 1):
@@ -218,8 +222,9 @@ class CheckpointingBase:
         publish the weights (:meth:`_publish_tree`) when a publisher is
         attached.
 
-        ``tree_fn()`` builds the tree to save.  The save is synchronous:
-        the round loop updates the state in place next round.  Every
+        ``tree_fn`` builds the tree to save (see the class docstring).
+        The save is complete when this returns: the round loop updates
+        the state in place next round.  Every
         call passes the ``"train.round"`` chaos probe; a set
         ``preempt_event`` forces a save of this round and raises
         :class:`Preempted`.
@@ -250,7 +255,8 @@ class CheckpointingBase:
         span = (obs.span("checkpoint.save", step=round_idx, preempt=True)
                 if preempt else obs.span("checkpoint.save", step=round_idx))
         with span:
-            self._ckpt.save(tree_fn(), round_idx, force=True)
+            local = self._ckpt.backend == "orbax"
+            self._ckpt.save(tree_fn(local=local), round_idx, force=True)
             self._ckpt.wait_until_finished()
         self._last_saved_round = round_idx
 
@@ -361,13 +367,14 @@ class Trainer(CheckpointingBase):
         tree = tree_fn()
         return {"tv": tree["tv"], "ntv": tree["ntv"]}
 
-    def _state_tree(self, state: TrainState) -> dict:
+    def _state_tree(self, state: TrainState, local: bool = False) -> dict:
         """The checkpoint tree of a TrainState (``tv`` full, the
-        optimizer state gathered; see ``trainers/carry.py``)."""
+        optimizer state gathered, or ``local``: its pieces; see
+        ``trainers/carry.py``)."""
         return {"tv": list(state.tv), "ntv": list(state.ntv),
                 "opt": opt_tree(state.opt_state, state.tv,
                                 getattr(self, "mesh", None),
-                                getattr(self, "layout", None)),
+                                getattr(self, "layout", None), local),
                 "step": state.step}
 
     def _load_state(self, state: TrainState, tree) -> None:
@@ -499,11 +506,13 @@ class SingleTrainer(Trainer):
                 continue
             state, loss = step(state, *args)
             losses.append(loss)     # a device tensor: no sync here
-            self._checkpoint(lambda: self._state_tree(state), rnd)
+            self._checkpoint(
+                lambda local=False: self._state_tree(state, local), rnd)
             self._eval_hook(state, rnd)
         if start and not losses:  # resumed past the end: nothing left to do
             return state
         self._require_steps(losses, self.batch_size * spc, len(dataset))
         self._record(losses)
-        self._checkpoint(lambda: self._state_tree(state), rnd, final=True)
+        self._checkpoint(lambda local=False: self._state_tree(state, local),
+                         rnd, final=True)
         return state

@@ -55,7 +55,9 @@ from distkeras_tpu_torch.parallel.sharding import (ExchangePlan,
                                                    zero1_plan, zero3_plan)
 from distkeras_tpu_torch.trainers.base import (Trainer,
                                                normalize_zero_args)
-from distkeras_tpu_torch.trainers.carry import copy_leaves, load_opt_tree
+from distkeras_tpu_torch.trainers.carry import (copy_leaves, load_opt_tree,
+                                                local_tree, placed_tree,
+                                                zero_pieces)
 
 
 
@@ -302,12 +304,23 @@ class DistributedTrainer(Trainer):
             return self.layout.gather(list(state.tv))
         return state.tv
 
-    def _state_tree(self, state) -> dict:
+    def _local_tv(self, state) -> list:
+        """``tv`` as this rank's pieces (the local-shard tree)."""
+        if self.zero >= 3:
+            zs = state.opt_state
+            return zero_pieces(zs.layout, zs.shards, zs.mesh.rank)
+        if self.layout is not None:
+            return list(placed_tree(self.layout, list(state.tv)))
+        return list(state.tv)
+
+    def _state_tree(self, state, local: bool = False) -> dict:
         """The checkpoint tree with ``tv`` whole (under stage 3 the
-        shards gathered) and the optimizer state gathered."""
-        tree = super()._state_tree(state)
+        shards gathered) and the optimizer state gathered; ``local``:
+        this rank's pieces of both, nothing gathered."""
+        tree = super()._state_tree(state, local)
         if state.opt_state is not None:  # (AsyncDP's final center: whole)
-            tree["tv"] = list(self._full_tv(state))
+            tree["tv"] = (self._local_tv(state) if local
+                          else list(self._full_tv(state)))
         return tree
 
     def _load_state(self, state, tree) -> None:
@@ -316,7 +329,7 @@ class DistributedTrainer(Trainer):
         every stage) cut back out of it by this rank's layout."""
         full = {str(i): t for i, t in enumerate(tree["tv"])}
         if self.layout is not None:
-            copy_leaves(state.tv, self.layout.shard(list(tree["tv"])))
+            copy_leaves(state.tv, local_tree(self.layout, list(tree["tv"])))
         elif self.zero < 3:
             copy_leaves(state.tv, tree["tv"])
         copy_leaves(state.ntv, tree["ntv"])
@@ -520,7 +533,8 @@ class ADAG(DistributedTrainer):
             else:
                 loss = out
             losses.append(loss)
-            self._checkpoint(lambda: self._state_tree(state), rnd)
+            self._checkpoint(
+                lambda local=False: self._state_tree(state, local), rnd)
             self._eval_hook(state, rnd)
         if start and not losses:  # resumed past the end
             return state
@@ -533,7 +547,8 @@ class ADAG(DistributedTrainer):
             # The error-feedback diagnostic, under the reference's name.
             self.residual_norm = residual_norm_of(state.opt_state)
             obs.gauge("exchange.residual_norm", self.residual_norm)
-        self._checkpoint(lambda: self._state_tree(state), rnd, final=True)
+        self._checkpoint(lambda local=False: self._state_tree(state, local),
+                         rnd, final=True)
         return state
 
 

@@ -185,10 +185,12 @@ class ReplicaTrainer(DistributedTrainer):
     def _window(self, dataset: Dataset) -> int:
         return self.communication_window
 
-    def _round_tree(self, state, center) -> dict:
+    def _round_tree(self, state, center, local: bool = False) -> dict:
         """``{"stacked": every replica's state, "center_tv"}`` (a
-        collective in a process group)."""
-        return {"stacked": stack_tree(self._state_tree(state), self.mesh),
+        collective in a process group; ``local``: this rank's row of the
+        stack, nothing gathered)."""
+        return {"stacked": stack_tree(self._state_tree(state), self.mesh,
+                                      local),
                 "center_tv": list(center)}
 
     def _publish_tree(self, tree_fn):
@@ -225,13 +227,15 @@ class ReplicaTrainer(DistributedTrainer):
                     for p, v in zip(state.tv, new_tv):
                         p.copy_(v)
                 losses.append(torch.stack(local).mean())
-            self._checkpoint(lambda: self._round_tree(state, center), rnd)
+            self._checkpoint(lambda local=False: self._round_tree(
+                state, center, local), rnd)
             self._eval_hook({"state": state, "center_tv": center}, rnd)
         if losses or not start:  # resumed past the end skips to export
             self._require_steps(losses, self.batch_size * n * window,
                                 len(dataset))
             self._record(losses)
-            self._checkpoint(lambda: self._round_tree(state, center), rnd,
+            self._checkpoint(lambda local=False: self._round_tree(
+                state, center, local), rnd,
                              final=True)
         self._final_states = [state]  # kept for the ensemble's export
         # Export the center variable, with replica 0's non-trainable

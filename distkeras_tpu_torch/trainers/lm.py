@@ -95,7 +95,9 @@ from distkeras_tpu_torch.parallel.tree import tree_leaves
 from distkeras_tpu_torch.trainers.base import (CheckpointingBase,
                                                normalize_zero_args)
 from distkeras_tpu_torch.trainers.carry import (copy_leaves, load_opt_tree,
-                                                opt_tree, stack_tree)
+                                                local_tree, opt_tree,
+                                                placed_tree, row_of,
+                                                stack_tree, zero_pieces)
 from distkeras_tpu_torch.trainers.optim import LM_NAMES, Optimizer
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
 from distkeras_tpu_torch.utils.misc import nll_to_perplexity
@@ -697,18 +699,31 @@ class LMTrainer(CheckpointingBase):
         gather under ZeRO-3, only on publish rounds)."""
         return self._publish_params()
 
-    def _carry_tree(self, carry, drop, full_params) -> dict:
+    def _carry_tree(self, carry, drop, full_params,
+                    local: bool = False) -> dict:
         """The checkpoint tree of the round carry: the full parameters,
         the optimizer state (``trainers/carry.py``: ZeRO shards gathered,
         EMA, exchange residuals) and every rank's dropout generator
-        state (a collective in a process group)."""
+        state (a collective in a process group).  ``local``: the
+        local-shard tree — this rank's pieces of each, nothing
+        gathered."""
         params, opt_state = carry
-        tree = {"params": full_params(),
-                "opt": opt_tree(opt_state, params, self.mesh, self.layout),
+        if not local:
+            p_tree = full_params()
+        elif self.zero >= 3:
+            p_tree = opt_state.layout.unflatten(zero_pieces(
+                opt_state.layout, opt_state.shards, self.mesh.rank))
+        elif self.layout is not None:
+            p_tree = placed_tree(self.layout, params)
+        else:
+            p_tree = params
+        tree = {"params": p_tree,
+                "opt": opt_tree(opt_state, params, self.mesh, self.layout,
+                                local),
                 "dropout": None}
         if drop is not None:
             tree["dropout"] = stack_tree(drop.get_state(),
-                                         self._drop_mesh()[0])
+                                         self._drop_mesh()[0], local)
         return tree
 
     def _drop_mesh(self):
@@ -724,14 +739,14 @@ class LMTrainer(CheckpointingBase):
         params, opt_state = carry
         full = dict(tfm.named_leaves(tree["params"]))
         if self.layout is not None:  # this rank's slices of each leaf
-            copy_leaves(params, self.layout.shard(tree["params"]))
+            copy_leaves(params, local_tree(self.layout, tree["params"]))
         elif self.zero < 3:  # stage 3's params are the shards: below
             copy_leaves(params, tree["params"])
         load_opt_tree(opt_state, params, tree["opt"], self.mesh,
                       full_params=full, layout=self.layout)
         if drop is not None:
             drop.set_state(
-                tree["dropout"][self._drop_mesh()[1]].cpu().clone())
+                row_of(tree["dropout"], self._drop_mesh()[1]).cpu().clone())
 
     def _carry_and_step(self, params, packed: bool = False):
         """THE train step of this configuration and the carry it drives:
@@ -979,8 +994,8 @@ class LMTrainer(CheckpointingBase):
                             and rnd >= prof_start - 1 + self.profile_steps):
                         self._stop_profile(prof, prof_start, rnd)
                         prof = None
-                    self._checkpoint(lambda: self._carry_tree(
-                        carry, drop, full_params), rnd)
+                    self._checkpoint(lambda local=False: self._carry_tree(
+                        carry, drop, full_params, local), rnd)
                     if eval_fn is not None and self.eval_every and \
                             rnd % self.eval_every == 0:
                         eval_fn(rnd)
@@ -995,8 +1010,8 @@ class LMTrainer(CheckpointingBase):
                     "— no profile was written. Train on more data or more "
                     "epochs to capture one.", stacklevel=3)
             if losses:
-                self._checkpoint(lambda: self._carry_tree(
-                    carry, drop, full_params), rnd, final=True)
+                self._checkpoint(lambda local=False: self._carry_tree(
+                    carry, drop, full_params, local), rnd, final=True)
         finally:
             if prof is not None:  # an exception mid-capture
                 prof.__exit__(None, None, None)

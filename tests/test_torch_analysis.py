@@ -147,6 +147,7 @@ def test_thread_lint_scope_is_the_ports_threaded_core():
                  "distkeras_tpu_torch/obs/live.py",
                  "distkeras_tpu_torch/resilience/cluster.py",
                  "distkeras_tpu_torch/native/__init__.py",
+                 "distkeras_tpu_torch/checkpoint.py",
                  "distkeras_tpu_torch/data/prefetch.py",
                  "distkeras_tpu_torch/utils/misc.py",
                  "distkeras_tpu_torch/utils/locks.py"):

@@ -5,8 +5,9 @@ health.py`` and ``cluster.py``) against the reference's contract
 Cheapest first: the health / epoch primitives with injected clocks (no
 processes); the torn-checkpoint rule, held against the JAX package's
 ``step_is_valid`` / ``cluster_consistent_step`` on the same directories
-(the port's stores and the JAX pickle backend's, a truncated
-``state.pkl`` among them); a trainer's restore falling back past a torn
+(the port's pickle stores and the JAX pickle backend's, a truncated
+``state.pkl`` among them), and the port's sharded layout torn a rank
+file or a manifest short; a trainer's restore falling back past a torn
 latest; the async tier's ``coord_dir`` files against the reference's;
 the restart DRIVER with stdlib-only children; and the real thing: a
 2-process gloo ADAG job whose host 1 is chaos-killed mid-training — the
@@ -169,7 +170,7 @@ def test_member_from_env_round_trip(tmp_path, monkeypatch):
 
 
 def _port_store(d, steps):
-    with CheckpointManager(str(d), max_to_keep=10) as m:
+    with CheckpointManager(str(d), max_to_keep=10, backend="pickle") as m:
         for s in steps:
             m.save({"v": torch.tensor(float(s)), "w": [torch.arange(s)]},
                    step=s, force=True)
@@ -235,6 +236,40 @@ def test_torn_steps_agree_with_jax(tmp_path):
     assert float(CheckpointManager(str(c)).restore()["v"]) == 2.0
 
 
+def test_cluster_consistent_step_skips_torn_sharded(tmp_path):
+    """The reference's torn-orbax case on the port's sharded layout: a
+    step dir whose rank file is missing, then one whose manifest is
+    missing, is not valid and the cluster-consistent step falls back; so
+    is a short rank file, a tmp entry left inside, and an uncommitted
+    name."""
+    a, b = tmp_path / "h0", tmp_path / "h1"
+    for d in (a, b):
+        with CheckpointManager(str(d), max_to_keep=10,
+                               async_save=False) as m:
+            for s in (1, 2, 3):
+                m.save({"v": torch.arange(4.0), "n": s}, step=s, force=True)
+    dirs = [str(a), str(b)]
+    assert cluster_consistent_step(dirs) == 3
+    os.remove(b / "3" / "rank0.bin")        # a rank's file never landed
+    assert not step_is_valid(str(b / "3"))
+    assert cluster_consistent_step(dirs) == 2
+    os.remove(a / "2" / "manifest.json")    # the manifest never landed
+    assert not step_is_valid(str(a / "2"))
+    assert valid_steps(str(a)) == [1, 3]
+    assert cluster_consistent_step(dirs) == 1
+    assert cluster_consistent_step([str(a), str(a)]) == 3  # deduped
+    with open(a / "3" / "rank0.bin", "ab") as f:          # a short or
+        f.write(b"x")                                      # long file
+    assert not step_is_valid(str(a / "3"))
+    (b / "1" / "rank0.bin.part").write_bytes(b"")        # a tmp entry
+    assert not step_is_valid(str(b / "1"))
+    os.replace(a / "1", a / ".tmp.1")                     # uncommitted
+    assert not step_is_valid(str(a / ".tmp.1"))
+    assert cluster_consistent_step(dirs) is None
+    assert trim_to_consistent(dirs) is None
+    assert valid_steps(str(a)) == valid_steps(str(b)) == []
+
+
 def test_trainer_restore_skips_torn_latest(tmp_path):
     """A torn latest checkpoint does not crash resume: the trainer warns,
     falls back to the latest VALID step, replays from there, and still
@@ -248,13 +283,15 @@ def test_trainer_restore_skips_torn_latest(tmp_path):
     ref = dkt.SingleTrainer(mlp(), **common).train(ds)
     ckdir = str(tmp_path / "c")
     dkt.SingleTrainer(mlp(), checkpoint_dir=ckdir, checkpoint_every=1,
-                      max_checkpoints=100, **common).train(ds)
+                      max_checkpoints=100, checkpoint_backend="pickle",
+                      **common).train(ds)
     steps = sorted(int(e) for e in os.listdir(ckdir) if e.isdigit())
     _tear_pickle(tmp_path / "c", steps[-1])
     _tear_pickle(tmp_path / "c", steps[-2])
     resumed = dkt.SingleTrainer(mlp(), checkpoint_dir=ckdir,
                                 checkpoint_every=1, resume=True,
-                                max_checkpoints=100, **common)
+                                max_checkpoints=100,
+                                checkpoint_backend="pickle", **common)
     with pytest.warns(UserWarning, match="torn/partial"):
         out = resumed.train(ds)
     assert len(resumed.history) == 2        # replays the torn rounds

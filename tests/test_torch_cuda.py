@@ -875,12 +875,14 @@ def test_two_rank_gloo_adag_on_card_equals_world1(cuda, tmp_path):
         np.testing.assert_allclose(got[f"m0_w{i}"], w, rtol=1e-4, atol=1e-5)
 
 
-def test_lm_resume_on_card_equals_straight_run(cuda, tmp_path):
+@pytest.mark.parametrize("backend", ["pickle", "orbax"])
+def test_lm_resume_on_card_equals_straight_run(cuda, tmp_path, backend):
     """LMTrainer with dropout on the card: a run preempted at round 3 and
     resumed by the Supervisor from round 2 ends bit-identical to the
     straight run (the kernels are deterministic and the CUDA dropout
     generator's state rides the checkpoint), through all three kernels;
-    and the checkpoint it wrote restores on the CPU."""
+    and the checkpoint it wrote restores on the CPU — under both
+    checkpoint backends."""
     import distkeras_tpu_torch as dkt
     from distkeras_tpu_torch.models.transformer import named_leaves
 
@@ -894,7 +896,7 @@ def test_lm_resume_on_card_equals_straight_run(cuda, tmp_path):
     ref = straight.train(rows)
     d = str(tmp_path / "c")
     t = dkt.LMTrainer(cfg, checkpoint_dir=d, checkpoint_every=2,
-                      max_checkpoints=10, **kw)
+                      max_checkpoints=10, checkpoint_backend=backend, **kw)
     sup = dkt.Supervisor(t, max_retries=0, handle_sigterm=False)
     before = dict(tattn.LAUNCHES)
     with dkt.FaultPlan().preempt("train.round", at=3):

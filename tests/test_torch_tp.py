@@ -103,8 +103,11 @@ def tp2(tmp_path_factory):
     cases (data=2), each case on its own mesh of the same two ranks."""
     mesh = dict(data=1, model=2)
     cases = lm_cases(mesh, "tp")
-    cases += [dict(name="tp_resume", kind="lm", mesh=mesh, dropout=0.1,
-                   kw=dict(LM, probe_metrics=False), resume=dict(at=2)),
+    cases += [dict(name=f"tp_resume{tag}", kind="lm", mesh=mesh,
+                   dropout=0.1, resume=dict(at=2),
+                   kw=dict(LM, probe_metrics=False, checkpoint_backend=b))
+              for tag, b in (("", "pickle"), ("_orbax", "orbax"))]
+    cases += [
               dict(name="decode", kind="tp", fn="decode_case", mesh=mesh,
                    plan="serving", new=NEW),
               dict(name="fsdp_lm", kind="lm", kw=dict(LM, fsdp=True),
@@ -215,11 +218,10 @@ def test_gradients_match_jax(request, jax_ref, spawn_name, case):
     assert_grads(res[f"{case}_grad"][0], jax_ref["grad"], case)
 
 
-def test_tp_checkpoint_resumes_bit_for_bit(tp2):
+def _assert_tp_resume(per_rank):
     # Dropout masks alike on the model ranks: their losses agree.
-    assert_ranks_equal(tp2["tp_resume"], ["straight/history",
-                                          "resumed/history"])
-    for got in tp2["tp_resume"]:
+    assert_ranks_equal(per_rank, ["straight/history", "resumed/history"])
+    for got in per_rank:
         keys = [k for k in got if k.startswith("straight/p/")]
         assert keys
         for k in keys:
@@ -229,6 +231,20 @@ def test_tp_checkpoint_resumes_bit_for_bit(tp2):
         assert 0 < n < len(got["straight/history"])
         np.testing.assert_array_equal(got["resumed/history"],
                                       got["straight/history"][-n:])
+
+
+def test_tp_checkpoint_resumes_bit_for_bit(tp2):
+    _assert_tp_resume(tp2["tp_resume"])
+
+
+def test_tp_checkpoint_sharded_resumes_bit_for_bit(tp2):
+    """The same run under ``checkpoint_backend="orbax"``: each model rank
+    writes its own slices (no gather inside a save) and the resumed run
+    reads only its own pieces back (assembles no split leaf)."""
+    _assert_tp_resume(tp2["tp_resume_orbax"])
+    for r in tp2["tp_resume_orbax"]:
+        assert int(r["save_gathers"]) == int(r["restore_assembled"]) == 0
+    assert all(int(r["save_gathers"]) > 0 for r in tp2["tp_resume"])
 
 
 def test_adag_fsdp_matches_jax(tp2):

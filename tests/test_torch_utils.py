@@ -298,6 +298,8 @@ def test_checkpoint_manager_takes_async_save(tmp_path):
                                    async_save=flag) as m:
             assert m.async_save is flag
             m.save({"w": torch.arange(3.0)}, 1)
-            # Synchronous either way: the step is committed on return.
+            if flag:  # the write finishes on the writer thread
+                m.wait_until_finished()
+            # (async_save=False: the step is committed on return.)
             assert m.latest_step() == 1
             torch.testing.assert_close(m.restore()["w"], torch.arange(3.0))

@@ -9,7 +9,9 @@ and compares.  A case with a ``resume`` entry (``{"at": k}``,
 tests/test_torch_checkpoint.py) trains three times: a straight run, a
 checkpointed run that a ``train.round`` fault stops at round ``k``,
 and its resumed run (checkpoints in ``<out>/ckpt_<case>``, shared by
-the ranks); the results carry ``straight/`` and ``resumed/`` prefixes.
+the ranks); the results carry ``straight/`` and ``resumed/`` prefixes,
+``save_gathers`` counts the gathers made inside the saves and
+``restore_assembled`` the split leaves a restore read whole.
 
 Run alone: ``python tests/torch_dp_ranks.py spec.json`` (world 1).
 :func:`spawn` is the tests' launcher.
@@ -86,10 +88,65 @@ def flatten(tree, prefix=""):
     return out
 
 
+class SaveGathers:
+    """Counts the gathers (``gather_tree``, ``gather_stack``,
+    ``Layout.gather_leaf``) made while a trainer saves a checkpoint
+    (inside ``CheckpointingBase._save``), and the sharded leaves that a
+    restore assembled whole (``assembled``) instead of reading this
+    rank's piece alone."""
+
+    def __init__(self):
+        from distkeras_tpu_torch.checkpoint import StoredLeaf
+        from distkeras_tpu_torch.parallel import layout as L
+        from distkeras_tpu_torch.trainers import base, carry, distributed, lm
+
+        self.count, self.saving, self._undo = 0, False, []
+        self.assembled = 0
+        for mod, name in ((carry, "gather_tree"), (carry, "gather_stack"),
+                          (lm, "gather_tree"), (distributed, "gather_tree"),
+                          (L.Layout, "gather_leaf")):
+            self._wrap(mod, name, self._counted)
+        self._wrap(base.CheckpointingBase, "_save", self._in_save)
+        self._wrap(StoredLeaf, "_assemble", self._whole)
+
+    def _whole(self, fn):
+        def assemble(leaf):
+            self.assembled += len(leaf.pieces) > 1
+            return fn(leaf)
+        return assemble
+
+    def _wrap(self, owner, name, how):
+        fn = getattr(owner, name)
+        setattr(owner, name, how(fn))
+        self._undo.append((owner, name, fn))
+
+    def _counted(self, fn):
+        def counted(*a, **k):
+            self.count += self.saving
+            return fn(*a, **k)
+        return counted
+
+    def _in_save(self, fn):
+        def in_save(*a, **k):
+            self.saving = True
+            try:
+                return fn(*a, **k)
+            finally:
+                self.saving = False
+        return in_save
+
+    def close(self):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+
+
 def resumed_case(case, data, device, run):
     """``run(data, device, kw)`` three times: straight, stopped by a
-    fault at round ``case["resume"]["at"]``, resumed from its latest
-    checkpoint."""
+    fault at round ``case["resume"]["at"]`` (or run for
+    ``case["resume"]["epochs"]`` epochs), resumed from its latest
+    checkpoint.  ``save_gathers``: the gathers the checkpointed runs
+    made inside their saves; ``restore_assembled``: the split leaves the
+    resumed run assembled whole."""
     from distkeras_tpu_torch.resilience.chaos import FaultInjected, FaultPlan
 
     spec = case["resume"]
@@ -97,16 +154,25 @@ def resumed_case(case, data, device, run):
     ck = dict(checkpoint_dir=ckpt, checkpoint_every=spec.get("every", 1),
               max_checkpoints=100)
     out = {f"straight/{k}": v for k, v in run(case, data, device, {}).items()}
+    gathers = SaveGathers()
     try:
-        with FaultPlan().fail("train.round", at=spec["at"]):
-            run(case, data, device, ck)
-        raise AssertionError("the fault did not fire")
-    except FaultInjected:
-        pass
-    steps = sorted(int(e) for e in os.listdir(ckpt) if e.isdigit())
-    res = run(case, data, device, dict(ck, resume=True))
+        if "epochs" in spec:  # a run of fewer epochs stands for the fault
+            run(case, data, device, dict(ck, num_epoch=spec["epochs"]))
+        else:
+            try:
+                with FaultPlan().fail("train.round", at=spec["at"]):
+                    run(case, data, device, ck)
+                raise AssertionError("the fault did not fire")
+            except FaultInjected:
+                pass
+        steps = sorted(int(e) for e in os.listdir(ckpt) if e.isdigit())
+        res = run(case, data, device, dict(ck, resume=True))
+    finally:
+        gathers.close()
     out.update({f"resumed/{k}": v for k, v in res.items()})
     out["resumed_from"] = np.asarray(steps[-1])
+    out["save_gathers"] = np.asarray(gathers.count)
+    out["restore_assembled"] = np.asarray(gathers.assembled)
     return out
 
 
@@ -180,7 +246,8 @@ def lm_case(case, data, cfg, device, extra=None):
     if case.get("cfg"):  # a case's own config (the MoE rows)
         cfg = dkt.TransformerConfig(**case["cfg"])
     seg = data["segments"] if case.get("segments") else None
-    tokens = data["seg_tokens"] if seg is not None else data["tokens"]
+    tokens = data["seg_tokens"] if seg is not None \
+        else data[case.get("tokens", "tokens")]
     if case.get("dropout"):
         cfg = dataclasses.replace(cfg, dropout=case["dropout"])
     kw = dict(case["kw"], **(extra or {}))
