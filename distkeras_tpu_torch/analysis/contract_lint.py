@@ -77,7 +77,8 @@ from .source_lint import _attr_chain, iter_py_files
 
 #: ``obs`` facade methods -> instrument kind.
 FACADE_KINDS = {"count": "counter", "gauge": "gauge",
-                "observe": "histogram", "event": "event", "span": "span"}
+                "observe": "histogram", "event": "event", "span": "span",
+                "device_span": "span"}
 
 #: Registry factory methods -> instrument kind (``sess.registry.counter(
 #: "name", ...)`` style, chained or assigned to a local).
@@ -123,6 +124,36 @@ NOT_EMITTED = {
                              "engine has no per-tier program warm-up",
     "serving.compile_warm": "eager torch compiles nothing: an engine has "
                             "no program to warm before it serves",
+}
+
+#: Where the port's census departs from the fleet schema (the
+#: reference's census, which the port may not re-record): names only the
+#: port emits, and label keys only the port adds to a pinned name, each
+#: pinned here as ``name: (kind, label keys, reason)``.  The schema check
+#: holds the census to the pinned set with these laid over it, and the
+#: reason documents the name for the doc-coverage check.
+PORT_ONLY = {
+    "serving.dispatch": ("span", ("n",),
+                         "the host enqueueing a decode window, inside "
+                         "serving.step (the benchmark's "
+                         "decode_dispatch_ms)"),
+    "serving.readback": ("span", ("n",),
+                         "the host waiting for the card and copying a "
+                         "window's tokens back, inside serving.step"),
+    "serving.admit": ("span", ("bucket", "chunks", "lane", "request_id",
+                               "tokens"),
+                      "tokens: the real prompt tokens in the bucket-"
+                      "padded chunk (the benchmark's admit_pad_share)"),
+    "serving.admit_chunk": ("span", ("bucket", "remaining", "request_id",
+                                     "tokens"),
+                            "tokens, as serving.admit's"),
+    "train.forward": ("span", ("micro",),
+                      "device span: the LM train step's loss"),
+    "train.backward": ("span", ("micro",),
+                       "device span: the LM train step's backward, "
+                       "remat's second forward included"),
+    "train.update": ("span", (),
+                     "device span: the LM train step's optimizer update"),
 }
 
 #: Name prefixes dynamic sites can mint beyond :data:`DYNAMIC_METRICS`
@@ -1298,6 +1329,8 @@ def check_obs_schema(built: dict, pinned: dict | None,
                  "the contract census")]
     want = {n: v for n, v in pinned.get("metrics", {}).items()
             if n not in NOT_EMITTED}
+    want.update({n: {"kind": kind, "labels": sorted(labels)}
+                 for n, (kind, labels, _why) in PORT_ONLY.items()})
     got = built.get("metrics", {})
     for name in sorted(set(got) | set(want)):
         path, line = sites.get(name, (schema_rel, 1))
@@ -1400,6 +1433,9 @@ def lint_repo_contracts(root: str,
     if os.path.exists(doc_full):
         with open(doc_full, encoding="utf-8") as fh:
             documented = documented_names(fh.read())
+    # The reference's doc covers the shared names; a port-only name is
+    # documented by its PORT_ONLY reason.
+    documented |= set(PORT_ONLY)
     for name in sorted(census):
         if name not in documented:
             path, line = site_index.get(name, (schema_rel, 1))
@@ -1428,7 +1464,8 @@ def lint_repo_contracts(root: str,
 
 
 __all__ = [
-    "DYNAMIC_METRICS", "NOT_EMITTED", "OPERATOR_ROUTES", "EmitSite",
+    "DYNAMIC_METRICS", "NOT_EMITTED", "OPERATOR_ROUTES", "PORT_ONLY",
+    "EmitSite",
     "census_emits", "scenario_emits", "merge_census", "consumer_refs",
     "documented_names", "server_routes", "client_calls", "collect_wire",
     "check_wire", "lint_resource_source", "lint_resource_paths",

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from distkeras_tpu_torch import obs
 from distkeras_tpu_torch.models.quant import QTensor
 from distkeras_tpu_torch.ops.attention import flash_attention
 from distkeras_tpu_torch.parallel import collectives as C
@@ -1111,6 +1112,10 @@ def make_train_step(cfg: TransformerConfig, optimizer,
     (averaged) gradients.  A data-parallel ``optimizer``
     (``parallel/collectives.py``, ``parallel/exchange.py``) merges the
     local gradients over its group between the backward and the update.
+    Under an ``obs`` session the step records the device spans
+    ``train.forward`` (the loss), ``train.backward`` (remat's second
+    forward included), one pair a microbatch (``micro``), and
+    ``train.update``.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -1133,17 +1138,21 @@ def make_train_step(cfg: TransformerConfig, optimizer,
         for p in leaves:
             p.grad = None
         if grad_accum == 1:
-            loss = fn(params, tokens, cfg, attention_fn, apply_fn, rng,
-                      hidden_fn, segment_ids)
-            loss.backward()
+            with obs.device_span("train.forward"):
+                loss = fn(params, tokens, cfg, attention_fn, apply_fn, rng,
+                          hidden_fn, segment_ids)
+            with obs.device_span("train.backward"):
+                loss.backward()
             loss = loss.detach()
         else:
             loss = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(grad_accum):
-                li = fn(params, tokens[i], cfg, attention_fn, apply_fn, rng,
-                        hidden_fn,
-                        None if segment_ids is None else segment_ids[i])
-                li.backward()
+                with obs.device_span("train.forward", micro=i):
+                    li = fn(params, tokens[i], cfg, attention_fn, apply_fn,
+                            rng, hidden_fn,
+                            None if segment_ids is None else segment_ids[i])
+                with obs.device_span("train.backward", micro=i):
+                    li.backward()
                 loss = loss + li.detach()
             for p in leaves:
                 if p.grad is not None:
@@ -1153,7 +1162,8 @@ def make_train_step(cfg: TransformerConfig, optimizer,
         # here (a no-op for one replica); the probe reads the result.
         optimizer.exchange(params, opt_state)
         norm = optimizer.grad_norm(params, opt_state) if probe else None
-        optimizer.update(params, opt_state)
+        with obs.device_span("train.update"):
+            optimizer.update(params, opt_state)
         if probe:
             return (params, opt_state), (loss, {"grad_norm": norm})
         return (params, opt_state), loss

@@ -23,6 +23,22 @@ the canary's, the publisher's) is taken through it, so a registry or
 trace write never runs inside a serving lock.  Events and spans keep
 the times they were taken at.
 
+**Spans on the device's clock.**  ``obs.device_span(name)`` is a span
+that also records a CUDA event pair on the current stream; the record's
+``dev_dur`` is the device's seconds between them, read when the trace
+writes the record (None where CUDA is not in play).  While a
+``torch.profiler`` capture runs, every span also enters
+``record_function(name)`` at its real start and end, so captures with
+host activity show the program's regions by name.  The trace's ``meta``
+record carries a ``clock`` anchor (``perf_counter_ns`` beside
+``time_ns``); :func:`span_unix_ns` maps a span onto the Unix-ns clock
+the profiler stamps its events with, which places spans on a
+device-only capture too.  The trace keeps its records in memory and
+writes them in batches (every ``obs.trace.BATCH`` records, before the
+live server reads its tail, at close, and at interpreter exit), so a
+hook on the host that paces the card costs a list append, not a file
+write.
+
 The live telemetry plane: ``serve_port=`` starts a
 :class:`~distkeras_tpu_torch.obs.live.TelemetryServer` on the session's
 registry (``/metrics``, ``/snapshot.json``, ``/healthz``,
@@ -37,6 +53,7 @@ finished trace.
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 
@@ -46,7 +63,8 @@ from distkeras_tpu_torch.obs.metrics import (DEFAULT_TIME_BUCKETS, Counter,
                                              percentile_from_buckets)
 from distkeras_tpu_torch.obs.live import HeartbeatHealth, TelemetryServer
 from distkeras_tpu_torch.obs.slo import SloEngine, SloRule
-from distkeras_tpu_torch.obs.trace import EventTrace, read_trace
+from distkeras_tpu_torch.obs.trace import (DeviceTimer, EventTrace,
+                                           read_trace, span_unix_ns)
 
 _ACTIVE = None
 # Per thread: how deep in held() blocks, and the hook calls they defer.
@@ -218,15 +236,50 @@ def event(name: str, **fields) -> None:
 _NULL = contextlib.nullcontext()
 
 
+def _annotation(name: str):
+    """``torch.profiler.record_function(name)``, entered, while a
+    profiler capture runs; None otherwise (and without torch loaded)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    mark = prof.record_function(name)
+    mark.__enter__()
+    return mark
+
+
+def _device_timer():
+    """A started :class:`~distkeras_tpu_torch.obs.trace.DeviceTimer`
+    where CUDA is in play (torch has initialised it in this process);
+    None otherwise."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    return DeviceTimer(torch.cuda)
+
+
 @contextlib.contextmanager
-def _held_span(trace, name: str, fields: dict):
-    """A span inside :func:`held`: timed around the block, its record
-    written once the lock is released."""
+def _span(trace, name: str, fields: dict, timed: bool):
+    """The span's record, timed around the block.  A running profiler
+    capture sees it as a ``record_function`` region entered and left at
+    the same moments; inside :func:`held` the record is written once the
+    lock is released."""
     sp = trace.open_span(name, fields)
+    mark = _annotation(name)
+    timer = _device_timer() if timed else None
     try:
         yield sp
     finally:
-        _HELD.calls.append((trace._write, (trace.close_span(sp),), {}))
+        if timer is not None:
+            timer.end.record()
+        if mark is not None:
+            mark.__exit__(None, None, None)
+        rec = trace.close_span(sp)
+        if timed:
+            rec["dev_dur"] = timer
+        if getattr(_HELD, "depth", 0):
+            _HELD.calls.append((trace._write, (rec,), {}))
+        else:
+            trace._write(rec)
 
 
 def span(name: str, **fields):
@@ -234,11 +287,22 @@ def span(name: str, **fields):
     sess = _ACTIVE
     if sess is None or sess.trace is None:
         return _NULL
-    if getattr(_HELD, "depth", 0):
-        return _held_span(sess.trace, name, fields)
-    return sess.trace.span(name, **fields)
+    return _span(sess.trace, name, fields, False)
 
 
+def device_span(name: str, **fields):
+    """:func:`span` whose record also carries ``dev_dur``: the seconds
+    the current CUDA stream took from the span's start to its end, by a
+    pair of CUDA events read when the trace writes the record (None
+    where CUDA is not in play).  A shared null context when disabled."""
+    sess = _ACTIVE
+    if sess is None or sess.trace is None:
+        return _NULL
+    return _span(sess.trace, name, fields, True)
+
+
+# The reference's surface; ``device_span`` and ``span_unix_ns`` are the
+# port's own.
 __all__ = ["ObsSession", "MetricsRegistry", "Counter", "Gauge",
            "Histogram", "EventTrace", "read_trace",
            "percentile_from_buckets", "DEFAULT_TIME_BUCKETS",

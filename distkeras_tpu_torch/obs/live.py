@@ -252,9 +252,11 @@ class TelemetryServer:
     """The live scrape endpoint (see module docstring).
 
     ``registry`` is the live metrics registry; ``trace_path`` enables
-    ``/trace/tail``; ``health`` is a callable ``() -> (ok, detail)``
-    (or ``(ok,)``/bool), default: heartbeat freshness from the
-    ``DKT_CLUSTER_*`` env when present, else always-healthy.
+    ``/trace/tail`` (which first writes out the active ``obs`` session's
+    buffered records when that session writes ``trace_path``);
+    ``health`` is a callable ``() -> (ok, detail)`` (or ``(ok,)``/bool),
+    default: heartbeat freshness from the ``DKT_CLUSTER_*`` env when
+    present, else always-healthy.
     ``cluster_dir``/``host_id`` opt into federation explicitly (tests;
     production rides the env contract).  ``port=0`` binds an ephemeral
     port — read ``server.port`` / ``server.url`` after :meth:`start`.
@@ -378,8 +380,13 @@ class TelemetryServer:
         an error)."""
         if self.trace_path is None:
             return None
+        from distkeras_tpu_torch import obs
         from distkeras_tpu_torch.obs.trace import tail_trace
 
+        sess = obs.active()
+        if (sess is not None and sess.trace is not None
+                and sess.trace.path == os.path.abspath(self.trace_path)):
+            sess.trace.flush()
         recs = tail_trace(self.trace_path, max(n, 0))
         return "".join(json.dumps(r, default=str) + "\n" for r in recs)
 

@@ -1,16 +1,20 @@
 """Structured event trace: nestable spans + point events as JSONL.
 
-One run = one append-only JSONL file.  Every record carries a
-monotonic timestamp ``t`` (``time.perf_counter`` — durations and
-ordering are exact within the process), the run id, and the host
-(``torch.distributed`` rank when a group is up) / OS pid, so a
-multi-process run's files can be merged and a session reconstructed
-offline.  The port's own copy of ``distkeras_tpu/obs/trace.py``.
+One run = one JSONL file.  Every record carries a monotonic timestamp
+``t`` (``time.perf_counter`` — durations and ordering are exact within
+the process), the run id, and the host (``torch.distributed`` rank when
+a group is up) / OS pid, so a multi-process run's files can be merged
+and a session reconstructed offline.  The port's own copy of
+``distkeras_tpu/obs/trace.py``.
 
 Record kinds:
 
 ``meta``   — first line: run id, host/pid, unix wall time anchor (maps
-             monotonic ``t`` to wall clock), platform.
+             monotonic ``t`` to wall clock), platform, and ``clock``:
+             ``perf_counter_ns`` and ``time_ns`` read back to back (the
+             closest of a few pairs), which :func:`span_unix_ns` uses to
+             put a span on the Unix-ns clock ``torch.profiler`` stamps
+             its events with.
 ``event``  — a point in time: ``{"kind": "event", "name", "t",
              "fields": {...}}`` (chaos faults, supervisor attempts,
              admission rejects).
@@ -18,18 +22,27 @@ Record kinds:
              "name", "t0", "dur", "id", "parent", "depth",
              "fields"}``.  Nesting is tracked per thread; ``parent``
              is the enclosing span's id (None at top level), so the
-             tree reconstructs without begin/end pairing.
+             tree reconstructs without begin/end pairing.  A device
+             span (``obs.device_span``) adds ``dev_dur``: seconds
+             between its two CUDA events, read when the record is
+             written (None without CUDA).
 ``metrics``— a full registry snapshot (the obs session appends one on
              close), so a trace file is self-contained for reports.
 
-Thread safety: one lock around the file write; span stacks are
-thread-local.  Writes are ``json.dumps`` + one ``write`` per record —
-cheap enough for per-round/per-request cadence (the hot *inner* loops
-record through the metrics registry, not the trace).
+The ``meta`` record is written when the trace opens; the others are
+kept in memory and written in batches: at :meth:`EventTrace.flush` (the
+live server calls it before it reads the file's tail, and it runs at
+interpreter exit while the trace is open), every :data:`BATCH` records,
+and at close.  A batch is serialised when it is written, so a field's
+value is read then: hooks pass values, not objects they change later.
+A run killed outright leaves the batches written before it, a parseable
+prefix.  Thread safety: one lock around the buffer and the file; span
+stacks are thread-local.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import itertools
 import json
@@ -39,6 +52,9 @@ import time
 import uuid
 
 from distkeras_tpu_torch.utils.locks import TracedLock
+
+#: Records kept before the buffer is written out.
+BATCH = 4096
 
 
 def _host_index() -> int:
@@ -53,6 +69,61 @@ def _host_index() -> int:
     except Exception:
         pass
     return 0
+
+
+def clock_anchor() -> dict:
+    """``perf_counter_ns`` and ``time_ns`` read back to back: of five
+    tries, the pair whose two ``perf_counter_ns`` reads around
+    ``time_ns`` lie closest (``gap_ns`` apart; ``perf_ns`` is their
+    middle)."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best["gap_ns"]:
+            best = {"perf_ns": (a + b) // 2, "unix_ns": unix,
+                    "gap_ns": b - a}
+    return best
+
+
+def span_unix_ns(rec: dict, clock: dict) -> tuple[int, int]:
+    """A span record's ``(start, end)`` on the Unix-ns clock, through a
+    trace's ``clock`` anchor (its ``meta`` record's): the clock
+    ``torch.profiler`` stamps events with, whose ``time_range`` is in
+    microseconds after ``kineto_results.trace_start_ns()``."""
+    start = clock["unix_ns"] + round(rec["t0"] * 1e9) - clock["perf_ns"]
+    return start, start + round(rec["dur"] * 1e9)
+
+
+class DeviceTimer:
+    """A device span's ``dev_dur`` until its record is written: two
+    ``torch.cuda.Event(enable_timing=True)`` recorded on the current
+    stream, the first at the span's start, the second (``end``) at its
+    close."""
+
+    __slots__ = ("start", "end")
+
+    def __init__(self, cuda):
+        self.start = cuda.Event(enable_timing=True)
+        self.end = cuda.Event(enable_timing=True)
+        self.start.record()
+
+    def done(self) -> bool:
+        """Whether the card has passed the span's end (never waits)."""
+        return self.end.query()
+
+    def seconds(self) -> float:
+        """The device's seconds between the two events; waits for the
+        second."""
+        self.end.synchronize()
+        return self.start.elapsed_time(self.end) / 1e3
+
+
+def _jsonable(obj):
+    """``json.dumps`` fallback: a :class:`DeviceTimer` is written as its
+    seconds, anything else as its ``str``."""
+    return obj.seconds() if isinstance(obj, DeviceTimer) else str(obj)
 
 
 class Span:
@@ -74,9 +145,9 @@ class EventTrace:
     """JSONL trace writer (see module docstring for the record model).
 
     ``path``: output file (parent dirs created).  ``run_id`` defaults
-    to a fresh ``uuid4`` hex prefix.  Close (or use as a context
-    manager) to flush; the file is line-buffered in between so a
-    crashed run still leaves a parseable prefix.
+    to a fresh ``uuid4`` hex prefix.  Records are buffered and written
+    in batches (:meth:`flush`); close (or use as a context manager) to
+    write the rest.
     """
 
     def __init__(self, path: str, run_id: str | None = None):
@@ -89,29 +160,69 @@ class EventTrace:
         # Reusing a path across runs must not blend two runs' records
         # — their monotonic clocks have different epochs, so a merged
         # file would report meaningless relative times.
-        self._f = open(self.path, "w", buffering=1, encoding="utf-8")
-        # Leaf lock: guards the file handle only (one write per
-        # record); span stacks are thread-local, not locked.
+        self._f = open(self.path, "w", encoding="utf-8")
+        # Leaf lock: guards the buffer and the file handle; span stacks
+        # are thread-local, not locked.
         self._lock = TracedLock("obs.trace")
+        self._buf: list[dict] = []
         self._tls = threading.local()
         # Span ids; ``next`` on a count is atomic, so no lock is taken
         # to open a span.
         self._ids = itertools.count(1)
         self.host = _host_index()
         self.pid = os.getpid()
-        self._write({"kind": "meta", "run": self.run_id,
-                     "host": self.host, "pid": self.pid,
-                     "t": time.perf_counter(),
-                     "time_unix": time.time()})
+        self.clock = clock_anchor()
+        self._f.write(json.dumps({"kind": "meta", "run": self.run_id,
+                                  "host": self.host, "pid": self.pid,
+                                  "t": time.perf_counter(),
+                                  "time_unix": time.time(),
+                                  "clock": self.clock},
+                                 default=str) + "\n")
+        self._f.flush()
+        # An exit that skips close() (an escaped exception, a session
+        # never disabled) still writes the buffer.
+        atexit.register(self.flush)
 
     # ------------------------------------------------------------ write
 
     def _write(self, rec: dict) -> None:
-        line = json.dumps(rec, default=str)
         with self._lock:
             if self._f.closed:
                 return
-            self._f.write(line + "\n")
+            self._buf.append(rec)
+            if len(self._buf) >= BATCH:
+                self._write_out(self._ready())
+
+    def _ready(self) -> int:
+        """How many leading buffered records can be written without
+        waiting: those before the first device span whose end the card
+        has not reached yet."""
+        for i, rec in enumerate(self._buf):
+            timer = rec.get("dev_dur")
+            if isinstance(timer, DeviceTimer) and not timer.done():
+                return i
+        return len(self._buf)
+
+    def _write_out(self, n: int) -> None:
+        """Write the first ``n`` buffered records (the lock held)."""
+        if n:
+            self._f.write("".join(json.dumps(r, default=_jsonable) + "\n"
+                                  for r in self._buf[:n]))
+            del self._buf[:n]
+        self._f.flush()
+
+    def flush(self) -> None:
+        """Write the buffered records.  A device span's end event is
+        waited for here, outside the lock, and never when the span
+        closes or a full batch is written."""
+        with self._lock:
+            timers = [r["dev_dur"] for r in self._buf
+                      if isinstance(r.get("dev_dur"), DeviceTimer)]
+        for timer in timers:
+            timer.end.synchronize()
+        with self._lock:
+            if not self._f.closed:
+                self._write_out(len(self._buf))
 
     def _stack(self) -> list:
         st = getattr(self._tls, "stack", None)
@@ -173,10 +284,12 @@ class EventTrace:
                      "data": snapshot})
 
     def close(self) -> None:
+        self.flush()
         with self._lock:
             if not self._f.closed:
-                self._f.flush()
+                self._write_out(len(self._buf))
                 self._f.close()
+        atexit.unregister(self.flush)
 
     def __enter__(self):
         return self
@@ -245,4 +358,5 @@ def read_trace(path: str) -> list[dict]:
     return records
 
 
-__all__ = ["EventTrace", "Span", "read_trace", "tail_trace"]
+__all__ = ["BATCH", "DeviceTimer", "EventTrace", "Span", "clock_anchor",
+           "read_trace", "span_unix_ns", "tail_trace"]

@@ -215,7 +215,11 @@ class FaultPlan:
                 import os
 
                 # Hard host loss: flush what telemetry we can (the
-                # trace file is line-buffered) and die without cleanup.
+                # trace keeps its records in memory until a flush) and
+                # die without cleanup.
+                sess = obs.active()
+                if sess is not None and sess.trace is not None:
+                    sess.trace.flush()
                 os._exit(int(rule.seconds))
             elif rule.kind == "drop":
                 raise BeatDropped(f"chaos: dropped {site} (step {n})")

@@ -464,7 +464,9 @@ class _LaneEngine(_AdmissionMixin, _ElasticMixin):
         lane = self._admitting[0]
         st = self._lane_state[lane]
         start, rows = st.chunks.pop(0)
-        with obs.span("serving.admit_chunk", bucket=rows.shape[1],
+        width = rows.shape[1]
+        with obs.span("serving.admit_chunk", bucket=width,
+                      tokens=min(width, st.prompt_len - 1 - (start - st.off)),
                       remaining=len(st.chunks),
                       request_id=st.request_id):
             self._exec_chunk(lane, start, rows)

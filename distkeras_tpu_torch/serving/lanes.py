@@ -665,6 +665,7 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
                 start0, width0 = plan[0]
                 rows = self._chunk_rows(prompt, off, start0, width0)
                 with obs.span("serving.admit", bucket=width0,
+                              tokens=min(width0, warm - (start0 - off)),
                               chunks=len(plan), lane=lane,
                               request_id=rid):
                     self._exec_admit(lane, start0, rows, slot)
@@ -750,8 +751,13 @@ class ContinuousBatcher(_ElasticLanesMixin, _LaneEngine):
 
     def _dispatch_step(self, n: int):
         """The ``n``-token device window, then ONE device-to-host copy of
-        the ``[lanes, n]`` token matrix."""
-        return self._device_window(n).cpu().numpy()
+        the ``[lanes, n]`` token matrix: the spans ``serving.dispatch``
+        (the host enqueueing the window) and ``serving.readback`` (the
+        host waiting for the card and the copy) inside ``serving.step``."""
+        with obs.span("serving.dispatch", n=n):
+            toks = self._device_window(n)
+        with obs.span("serving.readback", n=n):
+            return toks.cpu().numpy()
 
     def _device_window(self, n: int):
         """The device half of ``step(n)``: the ``n``-token decode window

@@ -63,8 +63,8 @@ same contract (``distkeras_tpu/trainers/lm.py::LoRATrainer``).
 
 from __future__ import annotations
 
+import contextlib
 import math
-import os
 import time
 import warnings
 
@@ -100,6 +100,7 @@ from distkeras_tpu_torch.trainers.carry import (copy_leaves, load_opt_tree,
                                                 stack_tree, zero_pieces)
 from distkeras_tpu_torch.trainers.optim import LM_NAMES, Optimizer
 from distkeras_tpu_torch.utils.device import check_on_device, resolve_device
+from distkeras_tpu_torch.utils import profiling
 from distkeras_tpu_torch.utils.misc import nll_to_perplexity
 
 # Staging more than this fraction of the device's memory fails fast (the
@@ -272,9 +273,10 @@ class LMTrainer(CheckpointingBase):
     gathers its rows there by index: the reference's one-device
     ``_stage_stream``, the same data order as streaming.
     ``profile_dir`` traces optimizer rounds ``[2, 2 + profile_steps)``
-    (round 1 pays the first-call set-up) with ``torch.profiler`` and
-    writes a chrome trace there (``profile_path``); a resumed run counts
-    them from its first executed round.
+    (round 1 pays the first-call set-up) with ``utils.profiling.trace``
+    and writes a chrome trace there (``profile_path``), where the train
+    step's ``obs`` spans show by name under a session; a resumed run
+    counts them from its first executed round.
     """
 
     def __init__(self, cfg: tfm.TransformerConfig, optimizer: str = "adamw",
@@ -976,6 +978,7 @@ class LMTrainer(CheckpointingBase):
         # Profile rounds relative to the first executed round (resume
         # skips rnd <= start): one warm round, then profile_steps.
         prof, prof_start = None, start + 2
+        capture = contextlib.ExitStack()
         try:
             for _ in range(self.num_epoch):
                 for j in range(n_rows // rows_per_step):
@@ -984,7 +987,9 @@ class LMTrainer(CheckpointingBase):
                         continue
                     block, seg = batch_at(j)
                     if self.profile_dir and rnd == prof_start:
-                        prof = self._start_profile()
+                        prof = capture.enter_context(profiling.trace(
+                            self.profile_dir, lambda: "lm_trainer_rounds_"
+                            f"{prof_start}-{rnd}.trace.json"))
                     carry, out = step(carry, block, drop, seg)
                     if self.probe_metrics:
                         out, probe = out
@@ -992,16 +997,16 @@ class LMTrainer(CheckpointingBase):
                     losses.append(out)
                     if (prof is not None
                             and rnd >= prof_start - 1 + self.profile_steps):
-                        self._stop_profile(prof, prof_start, rnd)
-                        prof = None
+                        capture.close()
+                        self.profile_path, prof = prof.last_path, None
                     self._checkpoint(lambda local=False: self._carry_tree(
                         carry, drop, full_params, local), rnd)
                     if eval_fn is not None and self.eval_every and \
                             rnd % self.eval_every == 0:
                         eval_fn(rnd)
             if prof is not None:  # a run shorter than the capture
-                self._stop_profile(prof, prof_start, rnd)
-                prof = None
+                capture.close()
+                self.profile_path, prof = prof.last_path, None
             elif self.profile_dir and rnd < prof_start:
                 warnings.warn(
                     f"profile_dir is set but the run executed only "
@@ -1013,8 +1018,7 @@ class LMTrainer(CheckpointingBase):
                 self._checkpoint(lambda local=False: self._carry_tree(
                     carry, drop, full_params, local), rnd, final=True)
         finally:
-            if prof is not None:  # an exception mid-capture
-                prof.__exit__(None, None, None)
+            capture.close()  # an exception mid-capture
         if eval_fn is not None and not (
                 self.eval_history and self.eval_history[-1][0] == rnd):
             eval_fn(-1)  # final state not already evaluated
@@ -1037,28 +1041,6 @@ class LMTrainer(CheckpointingBase):
         self.opt_state = opt_state
         self.residual_norm = residual_norm_of(opt_state)
         return params
-
-    def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
-        prof.__enter__()
-        return prof
-
-    def _stop_profile(self, prof, first: int, last: int) -> None:
-        """Close the capture once its device work is done and write the
-        chrome trace of rounds ``[first, last]`` into ``profile_dir``."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.__exit__(None, None, None)
-        os.makedirs(self.profile_dir, exist_ok=True)
-        path = os.path.join(self.profile_dir,
-                            f"lm_trainer_rounds_{first}-{last}.trace.json")
-        prof.export_chrome_trace(path)
-        self.profile_path = path
 
 
 class LoRATrainer(LMTrainer):

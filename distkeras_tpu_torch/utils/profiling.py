@@ -23,10 +23,12 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(logdir: str):
+def trace(logdir: str, name=None):
     """Profile everything in the block into
-    ``logdir/trace_<pid>_<ns>.pt.trace.json`` (the profiler object is
-    yielded; its ``last_path`` names the file once the block ends)."""
+    ``logdir/trace_<pid>_<ns>.pt.trace.json``, or into ``logdir/<name()>``
+    (``name`` is called when the block ends); the profiler object is
+    yielded, and its ``last_path`` names the file once the block ends.
+    ``obs`` spans inside the block show on its timeline by name."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -42,7 +44,8 @@ def trace(logdir: str):
         prof.stop()
         os.makedirs(logdir, exist_ok=True)
         prof.last_path = os.path.join(
-            logdir, f"trace_{os.getpid()}_{time.time_ns()}.pt.trace.json")
+            logdir, name() if name is not None
+            else f"trace_{os.getpid()}_{time.time_ns()}.pt.trace.json")
         prof.export_chrome_trace(prof.last_path)
 
 

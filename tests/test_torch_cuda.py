@@ -1219,3 +1219,69 @@ def test_pipeline_train_on_card_equals_one_process(cuda, tmp_path):
             np.testing.assert_allclose(r["p/" + k], v, rtol=1e-4,
                                        atol=1e-4, err_msg=k)
         assert r["launches"].tolist() == [2 * 4 * 2] * 3
+
+
+def test_device_span_reads_what_a_bare_event_pair_reads(cuda, tmp_path):
+    """``obs.device_span`` around known kernels: its ``dev_dur`` is the
+    device time a bare CUDA-event pair around the same span reads."""
+    from distkeras_tpu_torch import obs
+
+    a = torch.randn(4096, 4096, device="cuda")
+    for _ in range(3):
+        a @ a
+    torch.cuda.synchronize()
+    path = str(tmp_path / "t.jsonl")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with obs.session(trace_path=path):
+        start.record()
+        with obs.device_span("x"):
+            for _ in range(20):
+                a @ a
+        end.record()
+    (rec,) = [r for r in obs.read_trace(path) if r.get("name") == "x"]
+    bare = start.elapsed_time(end) / 1e3
+    assert rec["dev_dur"] == pytest.approx(bare, rel=0.02)
+
+
+def test_span_on_a_device_capture_covers_a_host_sleep(cuda, tmp_path):
+    """In a capture of device activity only, an ``obs.span`` around a 5
+    ms host sleep between two kernels, put on the capture's timeline
+    through the trace's clock anchor (``obs.span_unix_ns``), lies
+    between the kernels and covers at least 4 ms in which the card runs
+    nothing."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distkeras_tpu_torch import obs
+
+    a = torch.randn(2048, 2048, device="cuda")
+    a @ a
+    torch.cuda.synchronize()
+    path = str(tmp_path / "t.jsonl")
+    with obs.session(trace_path=path) as sess:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        a @ a
+        torch.cuda.synchronize()
+        with obs.span("host.sleep"):
+            time.sleep(0.005)
+        a @ a
+        torch.cuda.synchronize()
+        prof.stop()
+        clock = sess.trace.clock
+    busy = sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+    (rec,) = [r for r in obs.read_trace(path)
+              if r.get("name") == "host.sleep"]
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    s, e = ((t - start_ns) / 1e3 for t in obs.span_unix_ns(rec, clock))
+    before = max(be for bs, be in busy if bs < s)
+    after = min(bs for bs, be in busy if bs > s)
+    assert before - 200 <= s and e <= after + 200
+    s, e = max(s, busy[0][0]), min(e, busy[-1][1])
+    idle = e - s - sum(max(0.0, min(be, e) - max(bs, s)) for bs, be in busy)
+    assert idle >= 4000
