@@ -42,7 +42,8 @@ from distkeras_tpu_torch.parallel.rules import P as TP
 from tests.torch_axes_cases import RING
 from tests.torch_dp_ranks import spawn
 
-pytestmark = pytest.mark.multiprocess
+# The limit sits above torch_dp_ranks.SPAWN_TIMEOUT (240 s).
+pytestmark = [pytest.mark.multiprocess, pytest.mark.time_limit(300)]
 
 CFG = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=4, d_ff=64,
            max_len=32, rope=True)

@@ -38,6 +38,8 @@ BUDGETS = os.path.join(REPO, "distkeras_tpu_torch", "analysis",
 with open(BUDGETS, encoding="utf-8") as _f:
     TARGETS = sorted(json.load(_f)["targets"])
 DEADLINE_S = 240
+# The sweep runs in the module's first test: the limit sits above it.
+pytestmark = pytest.mark.time_limit(300)
 
 CHILD = r"""
 import dataclasses, json, sys

@@ -641,6 +641,7 @@ def world2(tmp_path_factory):
 
 
 @pytest.mark.multiprocess
+@pytest.mark.time_limit(300)  # above SPAWN_TIMEOUT (240 s)
 @pytest.mark.parametrize("name", list(MP_CASES))
 def test_world2_resume_bit_for_bit(world2, name):
     """Two gloo ranks: the pickle checkpoint gathers ZeRO shards,
@@ -686,6 +687,7 @@ def _assert_trees_equal(got, want, path="") -> int:
 
 
 @pytest.mark.multiprocess
+@pytest.mark.time_limit(300)  # above SPAWN_TIMEOUT (240 s)
 @pytest.mark.parametrize("name", SHARDED)
 def test_world2_sharded_save_writes_own_pieces(world2, name):
     """Under ``checkpoint_backend="orbax"`` no rank gathers inside a save
@@ -729,6 +731,7 @@ def test_world2_sharded_save_writes_own_pieces(world2, name):
 
 
 @pytest.mark.multiprocess
+@pytest.mark.time_limit(300)  # above SPAWN_TIMEOUT (240 s)
 def test_world2_zero1_sharded_resume_matches_jax_orbax(world2, tmp_path):
     """tests/test_zero1.py's LM case on both packages: LMTrainer over a
     data axis of 2 with zero=1 and ``checkpoint_backend="orbax"``, one

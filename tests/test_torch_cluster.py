@@ -378,6 +378,7 @@ print("host", member.host, "epoch", member.epoch, "done", flush=True)
 """
 
 
+@pytest.mark.time_limit(300)  # above 3 attempts of 60 s and their barriers
 @pytest.mark.multiprocess
 def test_driver_coordinated_restart_protocol(tmp_path):
     """Two drivers, stdlib children: host 1 dies at epoch 0 -> host 0's
@@ -516,6 +517,8 @@ def _cluster_job(tmp, kill):
     return summaries, dict(np.load(tmp / "final.npz"))
 
 
+# Above two jobs, each of 3 attempts of 90 s and their 60 s barriers.
+@pytest.mark.time_limit(960)
 @pytest.mark.multihost
 @pytest.mark.multiprocess
 def test_two_process_kill_one_host_coordinated_restart(tmp_path):

@@ -29,7 +29,8 @@ from distkeras_tpu.parallel.mesh import MeshSpec, make_mesh
 from tests.conftest import make_blobs, make_mlp
 from tests.torch_dp_ranks import spawn
 
-pytestmark = pytest.mark.multiprocess
+# The limit sits above torch_dp_ranks.SPAWN_TIMEOUT (240 s).
+pytestmark = [pytest.mark.multiprocess, pytest.mark.time_limit(300)]
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

@@ -223,6 +223,7 @@ def test_entry_points_without_device_raise_on_cpu_only_machine(
             call()
 
 
+@pytest.mark.time_limit(180)  # above its child's timeout=120
 def test_port_imports_neither_jax_nor_reference_package():
     """Every module of the port imports, and none of them pulls in JAX,
     the reference package, or Keras / optax / flax (the card's machine

@@ -189,6 +189,7 @@ def test_only_a_device_timer_is_read_when_written(tmp_path):
     assert read_trace(path)[1]["fields"] == {"c": "clock"}
 
 
+@pytest.mark.time_limit(180)  # above its child's timeout=120
 def test_an_exit_without_close_writes_the_buffer(tmp_path):
     """A session never disabled (an exception escaped, say) is written
     out when the interpreter exits."""
@@ -325,6 +326,7 @@ def test_chunked_admission_counts_real_tokens(tmp_path):
     assert len(chunks) >= 2
 
 
+@pytest.mark.time_limit(180)  # above its child's timeout=120
 def test_chaos_kill_flushes_the_trace_before_the_process_dies(tmp_path):
     """A host-kill fault exits without cleanup: the trace's buffered
     records, its ``chaos.fault`` event among them, are written first."""

@@ -213,6 +213,7 @@ np.savez(sys.argv[2], history=np.asarray(t.history, np.float64),
 """
 
 
+@pytest.mark.time_limit(360)  # above its child's communicate(timeout=300)
 def test_resnet50_single_trainer_step(keras_resnet, tmp_path):
     jm, w0 = keras_resnet
     jm.set_weights(w0)

@@ -499,7 +499,8 @@ def test_enqueue_from_a_thread_while_stepping(m, rng):
     th.start()
     while th.is_alive() or any(eng.poll(r) is None for r in rids):
         eng.step()
-    th.join()
+    th.join(timeout=10)
+    assert not th.is_alive(), "the client thread never finished"
     assert len(rids) == 6
     for rid, p in zip(rids, prompts):
         res = eng.take(rid)

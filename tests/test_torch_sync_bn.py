@@ -32,7 +32,8 @@ from tests.conftest import make_blobs
 from tests.test_batchnorm_dp import bn_mlp
 from tests.torch_dp_ranks import BNMLP, spawn
 
-pytestmark = pytest.mark.multiprocess
+# The limit sits above torch_dp_ranks.SPAWN_TIMEOUT (240 s).
+pytestmark = [pytest.mark.multiprocess, pytest.mark.time_limit(300)]
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 GLOBAL_BATCH = 64

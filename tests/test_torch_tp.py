@@ -37,7 +37,8 @@ from distkeras_tpu_torch.parallel import sharding as tshard
 from tests.conftest import make_blobs, make_mlp
 from tests.torch_dp_ranks import spawn
 
-pytestmark = pytest.mark.multiprocess
+# The limit sits above torch_dp_ranks.SPAWN_TIMEOUT (240 s).
+pytestmark = [pytest.mark.multiprocess, pytest.mark.time_limit(300)]
 
 CFG = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
            max_len=32, rope=True, n_kv_heads=2)

@@ -276,7 +276,8 @@ def test_concurrent_publish_while_swap_atomic(tmp_path, w, rng):
                 break
     finally:
         adopted_v1.set()
-        t.join()
+        t.join(timeout=60)
+    assert not t.is_alive(), "the publisher thread hung"
     assert not errs, errs
     assert eng.param_version == 2
     assert {0, 1} <= set(seen), seen
@@ -488,7 +489,8 @@ def test_trainer_publishes_and_fleet_adopts(tmp_path, w):
             trained = t.train(dkt.Dataset({"tokens": toks}))
     finally:
         done.set()
-        poller.join()
+        poller.join(timeout=60)
+    assert not poller.is_alive(), "the canary poller hung"
     rec = ctl.poll()
     if rec is not None and rec["action"] == "promote":
         versions.append(rec["version"])
